@@ -1,0 +1,21 @@
+"""graphsage_tpu_torch — the PyTorch/CUDA port of graphsage_tpu.
+
+Module names follow the JAX package so that each module's counterpart
+is easy to find. The port imports torch and numpy only: nothing of JAX
+and nothing of ``graphsage_tpu`` (it keeps its own copies of the
+NumPy-only data layer).
+
+Layout:
+  data/      dataset contract loader, padded adjacency, synthetic fixtures
+  nn/        initializers, dense, the mean/gcn aggregators, the sampler
+  ops/       hand-written CUDA kernels and their plain PyTorch versions
+  models/    the sample-and-aggregate pyramid and the supervised head
+  train/     flags, F1 metrics, torch checkpoints
+  params     the weight bridge to and from the JAX parameter pytree
+  infer      serving: checkpoint -> class predictions
+  cli        ``python -m graphsage_tpu_torch predict ...``
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

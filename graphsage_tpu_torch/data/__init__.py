@@ -1,0 +1,4 @@
+"""Host-side data layer: dataset contract, padded adjacency, fixtures.
+
+NumPy only; the arrays it builds are moved to the device once.
+"""

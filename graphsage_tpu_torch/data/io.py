@@ -1,0 +1,184 @@
+"""Dataset loader for the public GraphSAGE on-disk contract.
+
+Reads ``<prefix>-G.json`` (networkx node-link format),
+``<prefix>-id_map.json``, ``<prefix>-class_map.json`` and an optional
+``<prefix>-feats.npy`` without a networkx dependency. Semantics:
+
+  * nodes missing ``val``/``test`` annotations are dropped
+  * every edge touching a val/test endpoint is flagged ``train_removed``
+  * features are standardized with mean/std fitted on train rows only
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from graphsage_tpu_torch.data.graph import (
+    GraphData,
+    dense_labels,
+    infer_num_classes,
+)
+
+
+def _node_key_conversion(sample_key):
+    """id_map / class_map keys may be stringified ints."""
+    if isinstance(sample_key, int):
+        return int
+    return lambda x: x
+
+
+def parse_node_link_graph(g_data: dict):
+    """Parse a node-link dict into (node_ids, is_val, is_test, has_flags,
+    edges_by_position).
+
+    networkx 1.x writes ``links`` whose source/target are positions in
+    the ``nodes`` list; networkx >= 2 writes ids. Both are accepted.
+    """
+    nodes = g_data["nodes"]
+    links = g_data.get("links", g_data.get("edges", []))
+
+    node_ids = [nd.get("id") for nd in nodes]
+    is_val = np.array([bool(nd.get("val", False)) for nd in nodes])
+    is_test = np.array([bool(nd.get("test", False)) for nd in nodes])
+    has_flags = np.array(
+        [("val" in nd) and ("test" in nd) for nd in nodes], dtype=bool
+    )
+
+    n = len(nodes)
+    ids_are_ints = all(isinstance(i, (int, np.integer)) for i in node_ids)
+    srcs = [lk["source"] for lk in links]
+    tgts = [lk["target"] for lk in links]
+    all_int_refs = all(isinstance(s, (int, np.integer)) for s in srcs + tgts)
+    if all_int_refs and (
+        not ids_are_ints or _looks_positional(srcs, tgts, n)
+    ):
+        edges = np.array(list(zip(srcs, tgts)), dtype=np.int64).reshape(-1, 2)
+    else:
+        idx_of = {nid: i for i, nid in enumerate(node_ids)}
+        edges = np.array(
+            [(idx_of[s], idx_of[t]) for s, t in zip(srcs, tgts)],
+            dtype=np.int64,
+        ).reshape(-1, 2)
+    return node_ids, is_val, is_test, has_flags, edges
+
+
+def _looks_positional(srcs, tgts, n) -> bool:
+    """With integer node ids, positional and id refs are only
+    distinguishable when ids are not 0..n-1 in order; prefer positional
+    (the nx 1.x writer) whenever all refs are in range."""
+    if not srcs:
+        return True
+    lo = min(min(srcs), min(tgts))
+    hi = max(max(srcs), max(tgts))
+    return lo >= 0 and hi < n
+
+
+def load_data(prefix: str, normalize: bool = True) -> GraphData:
+    """Load a dataset into a :class:`GraphData` (see module docstring)."""
+    with open(prefix + "-G.json") as fp:
+        g_data = json.load(fp)
+    node_ids, is_val, is_test, has_flags, edges = parse_node_link_graph(g_data)
+
+    with open(prefix + "-id_map.json") as fp:
+        raw_id_map = json.load(fp)
+    conv = _node_key_conversion(node_ids[0] if node_ids else "")
+    id_map = {conv(k): int(v) for k, v in raw_id_map.items()}
+
+    class_map = None
+    class_path = prefix + "-class_map.json"
+    if os.path.exists(class_path):
+        with open(class_path) as fp:
+            raw_class_map = json.load(fp)
+        first_label = next(iter(raw_class_map.values()))
+        lab_conv = (lambda x: x) if isinstance(first_label, list) else int
+        class_map = {conv(k): lab_conv(v) for k, v in raw_class_map.items()}
+
+    feats = None
+    feats_path = prefix + "-feats.npy"
+    if os.path.exists(feats_path):
+        feats = np.load(feats_path).astype(np.float32)
+
+    # Drop nodes missing val/test annotations, then reindex every node to
+    # its id_map position so arrays align with the feature file.
+    keep_positions = np.flatnonzero(has_flags)
+    kept_ids = [node_ids[p] for p in keep_positions]
+    n = len(kept_ids)
+    order = sorted(range(n), key=lambda j: id_map[kept_ids[j]])
+    ordered_ids = [kept_ids[j] for j in order]
+    new_index_of_position = {
+        keep_positions[j]: new_idx for new_idx, j in enumerate(order)
+    }
+    new_is_val = np.array(
+        [is_val[keep_positions[j]] for j in order], dtype=bool
+    )
+    new_is_test = np.array(
+        [is_test[keep_positions[j]] for j in order], dtype=bool
+    )
+    if feats is not None:
+        feats = feats[np.array([id_map[nid] for nid in ordered_ids])]
+
+    # Remap edges, dropping those touching removed nodes; dedupe (undirected).
+    remapped = []
+    seen = set()
+    for a, b in edges:
+        if a not in new_index_of_position or b not in new_index_of_position:
+            continue
+        i, j = new_index_of_position[a], new_index_of_position[b]
+        if i == j:
+            continue
+        key = (i, j) if i < j else (j, i)
+        if key in seen:
+            continue
+        seen.add(key)
+        remapped.append(key)
+    edge_arr = np.array(remapped, dtype=np.int32).reshape(-1, 2)
+
+    train_removed = (
+        new_is_val[edge_arr[:, 0]] | new_is_test[edge_arr[:, 0]]
+        | new_is_val[edge_arr[:, 1]] | new_is_test[edge_arr[:, 1]]
+    )
+
+    if normalize and feats is not None:
+        feats = standardize_features(feats, ~(new_is_val | new_is_test))
+
+    labels = None
+    num_classes = None
+    if class_map is not None:
+        num_classes = infer_num_classes(class_map)
+        labels = dense_labels(class_map, ordered_ids, num_classes)
+
+    return GraphData(
+        node_ids=ordered_ids,
+        id2idx={nid: i for i, nid in enumerate(ordered_ids)},
+        features=feats,
+        class_map=class_map,
+        labels=labels,
+        num_classes=num_classes,
+        is_val=new_is_val,
+        is_test=new_is_test,
+        edges=edge_arr,
+        train_removed=train_removed,
+        neighbors=_build_neighbor_lists(n, edge_arr),
+    )
+
+
+def standardize_features(feats: np.ndarray,
+                         train_mask: np.ndarray) -> np.ndarray:
+    """StandardScaler semantics fitted on train rows only (population
+    std; zero std columns are left unscaled)."""
+    train_rows = feats[train_mask]
+    mean = train_rows.mean(axis=0)
+    std = train_rows.std(axis=0)
+    std = np.where(std == 0.0, 1.0, std)
+    return ((feats - mean) / std).astype(np.float32)
+
+
+def _build_neighbor_lists(n: int, edges: np.ndarray) -> list:
+    out: list[list[int]] = [[] for _ in range(n)]
+    for a, b in edges:
+        out[a].append(b)
+        out[b].append(a)
+    return [np.asarray(x, dtype=np.int32) for x in out]

@@ -1,0 +1,238 @@
+"""Serving: a checkpoint -> class predictions for a node set.
+
+``predict`` loads a dataset in the reference file contract, builds the
+full ("test") adjacency, restores a port checkpoint and sweeps the node
+set in fixed-size batches on the device. Ids are padded with the dummy
+node N and masked out; the batches run in a Python loop whose results
+land in preallocated device tensors, copied to the host once at the
+end. It writes ``preds.npy`` ([n, C] sigmoid probabilities or softmax
+distributions) and ``nodes.txt`` (original node ids), and reports loss
+and micro/macro F1 when the dataset carries labels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from graphsage_tpu_torch.data.adjacency import build_both_adjs
+from graphsage_tpu_torch.data.io import load_data
+from graphsage_tpu_torch.device import resolve_device
+from graphsage_tpu_torch.models.graphsage import SAGEConfig
+from graphsage_tpu_torch.models.supervised import (
+    SupervisedConfig,
+    init_supervised_params,
+    supervised_loss,
+    supervised_predict,
+)
+from graphsage_tpu_torch.train import checkpoint as ckpt
+from graphsage_tpu_torch.train.config import TrainFlags, build_layer_infos
+from graphsage_tpu_torch.train.metrics import calc_f1
+
+NODE_SETS = ("test", "val", "train", "all")
+FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
+    agg, concat, layers = build_layer_infos(flags, supervised=True)
+    if graph.feature_dim == 0 and flags.identity_dim == 0:
+        raise ValueError(
+            "Must have a positive value for identity feature dimension if no "
+            "input features given."
+        )
+    sage = SAGEConfig(
+        layers=layers,
+        feature_dim=graph.feature_dim,
+        aggregator=agg,
+        concat=concat,
+        model_size=flags.model_size,
+        identity_dim=flags.identity_dim,
+        num_nodes=graph.num_nodes,
+        dropout=flags.dropout,
+        sampler_mode=flags.sampler_mode,
+        fused_gather=flags.fused_gather,
+    )
+    return SupervisedConfig(
+        sage=sage,
+        num_classes=graph.num_classes,
+        sigmoid_loss=flags.sigmoid,
+        weight_decay=flags.weight_decay,
+    )
+
+
+def make_eval_sweep(config: SupervisedConfig, batch_size: int,
+                    num_nodes: int):
+    """sweep(params, features, adj, ids_all, labels_table, generator) ->
+    (per-batch losses [n_b], flat preds [n_b*B, C]), both on the device.
+
+    ``ids_all`` is a dummy-padded id stream of n_b*B ids and
+    ``labels_table`` has N+1 rows (the dummy's row is never scored: the
+    mask is ``ids != N``). Nothing is copied to the host.
+    """
+
+    @torch.inference_mode()
+    def sweep(params, features, adj, ids_all, labels_table, generator=None):
+        n_b = ids_all.shape[0] // batch_size
+        device = ids_all.device
+        losses = torch.zeros(n_b, device=device)
+        preds = torch.zeros(n_b * batch_size, config.num_classes,
+                            device=device)
+        for i in range(n_b):
+            ids = ids_all[i * batch_size:(i + 1) * batch_size]
+            labels = labels_table.index_select(0, ids)
+            mask = (ids != num_nodes).float()
+            loss, logits = supervised_loss(
+                params, features, adj, ids, labels, mask, config,
+                generator=generator, deterministic=True,
+            )
+            losses[i] = loss
+            preds[i * batch_size:(i + 1) * batch_size] = supervised_predict(
+                logits, config
+            )
+        return losses, preds
+
+    return sweep
+
+
+def run_eval_sweep(sweep_fn, params, features, adj, nodes, labels_np,
+                   batch_size: int, num_nodes: int, generator=None):
+    """Pad ``nodes`` into batches, run the sweep on ``adj``'s device and
+    copy the results to the host once -> (mean loss, preds [n, C],
+    labels [n, C], seconds)."""
+    t0 = time.perf_counter()
+    device = adj.device
+    n_b = max(1, -(-len(nodes) // batch_size))
+    ids_all = np.full((n_b * batch_size,), num_nodes, dtype=np.int32)
+    ids_all[: len(nodes)] = nodes
+    labels_table = np.zeros(
+        (num_nodes + 1, labels_np.shape[1]), dtype=np.float32
+    )
+    labels_table[: labels_np.shape[0]] = labels_np
+    losses, preds = sweep_fn(
+        params, features, adj, torch.from_numpy(ids_all).to(device),
+        torch.from_numpy(labels_table).to(device), generator,
+    )
+    host = torch.cat([losses, preds.reshape(-1)]).cpu().numpy()
+    loss = float(np.mean(host[:n_b]))
+    preds = host[n_b:].reshape(n_b * batch_size, -1)[: len(nodes)]
+    return loss, preds, labels_np[nodes], time.perf_counter() - t0
+
+
+def _prepare(flags: TrainFlags, graph, device):
+    """Load the dataset and place the feature table and full adjacency."""
+    if graph is None:
+        graph = load_data(flags.train_prefix)
+    # inference always sees the full graph (the reference's "test"
+    # adjacency, swapped in for every eval)
+    _, _, full_adj_np = build_both_adjs(
+        graph, flags.max_degree, seed=flags.seed
+    )
+    feats_np = graph.padded_features()
+    if flags.feature_dtype not in FEATURE_DTYPES:
+        raise ValueError(
+            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}"
+        )
+    features = None if feats_np is None else torch.from_numpy(feats_np).to(
+        device=device, dtype=FEATURE_DTYPES[flags.feature_dtype]
+    )
+    return graph, features, torch.from_numpy(full_adj_np).to(device)
+
+
+def _restore_params(flags: TrainFlags, config: SupervisedConfig, device):
+    """Restore trained params from flags.checkpoint_dir -> (params, step),
+    checked key by key against the model's shapes."""
+    if not flags.checkpoint_dir:
+        raise ValueError("inference requires --checkpoint_dir")
+    restored = ckpt.restore(flags.checkpoint_dir, device=device)
+    if restored is None:
+        raise FileNotFoundError(
+            f"no checkpoint found under {flags.checkpoint_dir!r}"
+        )
+    params, step = restored
+    expected = init_supervised_params(torch.Generator(), config)
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    want = {k: tuple(v.shape) for k, v in expected.items()}
+    if got != want:
+        raise ValueError(
+            "checkpoint does not match the model: "
+            f"stored {got}, expected {want}"
+        )
+    if flags.identity_dim > 0:
+        print(
+            "WARNING: identity_dim > 0 is transductive: the identity table "
+            "is tied to the training graph's nodes."
+        )
+    return params, step
+
+
+def _select_nodes(graph, nodes: str) -> np.ndarray:
+    if nodes == "all":
+        return np.arange(graph.num_nodes)
+    mask = {
+        "train": graph.is_train, "val": graph.is_val, "test": graph.is_test,
+    }[nodes]
+    return np.flatnonzero(mask)
+
+
+def predict(flags: TrainFlags, out_dir: str | None = None,
+            nodes: str = "test", num_classes: int = 0, graph=None,
+            device="cuda") -> dict:
+    """Checkpoint -> class predictions for a node set, written as
+    preds.npy + nodes.txt under ``out_dir``.
+
+    Runs on ``device`` (``cuda`` unless the caller asks for ``cpu``).
+    An unlabeled dataset (no class_map) needs ``num_classes`` from the
+    training run.
+    """
+    device = resolve_device(device)
+    if nodes not in NODE_SETS:
+        raise ValueError(f"nodes must be one of {NODE_SETS}")
+    graph, features, full_adj = _prepare(flags, graph, device)
+    if graph.num_classes is None:
+        if num_classes <= 0:
+            raise ValueError(
+                "dataset has no class_map; pass the training run's "
+                "--num_classes"
+            )
+        graph = dataclasses.replace(graph, num_classes=num_classes)
+    config = build_supervised_config(flags, graph)
+
+    node_idx = _select_nodes(graph, nodes)
+    if len(node_idx) == 0:
+        raise ValueError(f"node set {nodes!r} is empty in this dataset")
+    labels_np = graph.labels
+    have_labels = labels_np is not None
+    if not have_labels:
+        labels_np = np.zeros(
+            (graph.num_nodes, graph.num_classes), dtype=np.float32
+        )
+    params, step = _restore_params(flags, config, device)
+    sweep = make_eval_sweep(config, flags.batch_size, graph.num_nodes)
+    generator = torch.Generator(device=device).manual_seed(flags.seed + 1)
+    loss, preds, labels, dt = run_eval_sweep(
+        sweep, params, features, full_adj, node_idx, labels_np,
+        flags.batch_size, graph.num_nodes, generator,
+    )
+
+    out_dir = out_dir or flags.log_dir("supervised")
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "preds.npy"), preds)
+    with open(os.path.join(out_dir, "nodes.txt"), "w") as fp:
+        fp.write("\n".join(str(graph.node_ids[i]) for i in node_idx))
+    result = {
+        "out_dir": out_dir, "nodes": nodes, "n": len(node_idx),
+        "step": step, "time": dt, "device": str(device),
+    }
+    msg = (f"Predicted {len(node_idx)} {nodes} nodes "
+           f"(checkpoint step {step}) on {device} -> {out_dir}")
+    if have_labels:
+        f1_mic, f1_mac = calc_f1(labels, preds, flags.sigmoid)
+        result.update(loss=loss, f1_micro=f1_mic, f1_macro=f1_mac)
+        msg += (f"  loss={loss:.5f} f1_micro={f1_mic:.5f} "
+                f"f1_macro={f1_mac:.5f}")
+    print(msg)
+    return result

@@ -1,0 +1,236 @@
+"""The GraphSAGE core: fanout sampling + the hop-pyramid aggregation fold.
+
+Frontier order: with layers [(S1, d1), (S2, d2)], the *first* expansion
+samples S2 neighbors of the batch and the second samples S1 neighbors of
+those, so the flat frontiers have sizes [B], [B*S2], [B*S2*S1]. The
+pyramid folds from the outside in, reusing one aggregator's parameters
+across all hops of a layer. The innermost hop, the one the fused
+gather-mean reduces, therefore has fanout ``fanouts[0]``.
+
+With ``concat=True`` every layer output is 2x its nominal output_dim and
+doubles all later input dims; the last layer uses the identity
+activation.
+
+Parameters are a flat dict of tensors keyed by the JAX pytree's paths:
+``aggs.{i}.{neigh_w,self_w,w,b}`` and ``embeds`` (see ``params.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from graphsage_tpu_torch.nn.aggregators import (
+    apply_aggregator,
+    decay_weights,
+    init_aggregator,
+)
+from graphsage_tpu_torch.nn.init import glorot
+from graphsage_tpu_torch.nn.sampler import uniform_sample
+from graphsage_tpu_torch.ops.gather import fused_gather_mean
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerInfo:
+    """Per-layer fanout + output dim."""
+
+    num_samples: int
+    output_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SAGEConfig:
+    layers: tuple          # tuple[LayerInfo, ...]
+    feature_dim: int       # raw feature dim (0 in featureless mode)
+    aggregator: str = "mean"
+    concat: bool = True
+    model_size: str = "small"
+    identity_dim: int = 0  # >0 adds a trainable [N+1, id_dim] table
+    num_nodes: int = 0     # N (for the identity table; row N is the dummy)
+    dropout: float = 0.0
+    sampler_mode: str = "shared_perm"
+    fused_gather: bool = False  # CUDA gather+mean for the innermost hop
+
+    @property
+    def input_dim(self) -> int:
+        return self.feature_dim + self.identity_dim
+
+    @property
+    def dims(self) -> tuple:
+        """[input_dim, d1, d2, ...]."""
+        return (self.input_dim,) + tuple(li.output_dim for li in self.layers)
+
+    @property
+    def fanouts(self) -> tuple:
+        return tuple(li.num_samples for li in self.layers)
+
+    @property
+    def output_dim(self) -> int:
+        mult = 2 if self.concat else 1
+        return mult * self.layers[-1].output_dim
+
+    def agg_input_dim(self, layer: int) -> int:
+        mult = 2 if self.concat and layer != 0 else 1
+        return mult * self.dims[layer]
+
+
+def agg_params(params: dict, layer: int) -> dict:
+    """One layer's aggregator parameters, keyed by their leaf names."""
+    prefix = f"aggs.{layer}."
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def init_sage_params(generator: torch.Generator, config: SAGEConfig,
+                     device="cpu") -> dict:
+    """Flat parameter dict: every layer's aggregator, then ``embeds``."""
+    params = {}
+    for layer in range(len(config.layers)):
+        p = init_aggregator(
+            config.aggregator, generator, config.agg_input_dim(layer),
+            config.dims[layer + 1], model_size=config.model_size,
+            device=device,
+        )
+        params.update({f"aggs.{layer}.{k}": v for k, v in p.items()})
+    if config.identity_dim > 0:
+        params["embeds"] = glorot(
+            generator, (config.num_nodes + 1, config.identity_dim), device
+        )
+    return params
+
+
+def sample_frontier(generator, adj, ids, fanouts: Sequence[int],
+                    mode: str = "shared_perm") -> list:
+    """Expand the fanout pyramid: flat index tensors
+    [B], [B*S_k], [B*S_k*S_{k-1}], ..."""
+    n_layers = len(fanouts)
+    samples = [ids]
+    for k in range(n_layers):
+        nxt = uniform_sample(generator, adj, samples[k],
+                             fanouts[n_layers - k - 1], mode=mode)
+        samples.append(nxt.reshape(-1))
+    return samples
+
+
+def gather_features(params, features, idx, config: SAGEConfig):
+    """Float32 rows of one frontier: [identity embedding | features]."""
+    parts = []
+    if config.identity_dim > 0:
+        parts.append(params["embeds"].index_select(0, idx))
+    if features is not None and config.feature_dim > 0:
+        parts.append(features.index_select(0, idx).float())
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts, dim=1)
+
+
+def aggregate_pyramid(params, hidden: list, batch_size: int,
+                      config: SAGEConfig, generator=None,
+                      deterministic: bool = True,
+                      last_hop_neigh_mean=None):
+    """Fold the hop pyramid; ``hidden[h]`` holds frontier h's rows.
+
+    ``last_hop_neigh_mean``: optional pre-reduced [B*support, F] mean
+    for the innermost hop (layer 0's last aggregator call), from the
+    fused gather-mean; ``hidden[-1]`` is then None.
+    """
+    n_layers = len(config.layers)
+    fanouts = config.fanouts
+    dims = config.dims
+
+    support = [1]
+    for k in range(n_layers):
+        support.append(support[-1] * fanouts[n_layers - k - 1])
+
+    for layer in range(n_layers):
+        layer_params = agg_params(params, layer)
+        is_last = layer == n_layers - 1
+        act = (lambda x: x) if is_last else torch.relu
+        dim_mult = 2 if config.concat and layer != 0 else 1
+        next_hidden = []
+        for hop in range(n_layers - layer):
+            extra = {}
+            if (layer == 0 and hop == n_layers - 1
+                    and last_hop_neigh_mean is not None):
+                neigh = last_hop_neigh_mean
+                if config.aggregator == "gcn":
+                    extra = {"n_samples": fanouts[0]}
+            else:
+                neigh = hidden[hop + 1].reshape(
+                    batch_size * support[hop],
+                    fanouts[n_layers - hop - 1],
+                    dim_mult * dims[layer],
+                )
+            next_hidden.append(apply_aggregator(
+                config.aggregator, layer_params, hidden[hop], neigh,
+                act=act, concat=config.concat,
+                dropout_rate=config.dropout, generator=generator,
+                deterministic=deterministic, **extra,
+            ))
+        hidden = next_hidden
+    return hidden[0]
+
+
+def sage_embed(params, features, adj, ids, config: SAGEConfig,
+               generator: torch.Generator | None = None,
+               deterministic: bool = True):
+    """Sample -> gather -> aggregate: [B] ids -> [B, out] raw
+    (un-normalized) embeddings. ``generator`` (on ``adj``'s device)
+    drives the sampler and, when not ``deterministic``, dropout.
+
+    With ``config.fused_gather`` the mean and gcn aggregators reduce the
+    innermost hop with ``fused_gather_mean``; an identity table's columns
+    of those rows take a plain gather and mean beside it (the kernel
+    reads only the feature table).
+    """
+    samples = sample_frontier(generator, adj, ids, config.fanouts,
+                              mode=config.sampler_mode)
+    fused = (
+        config.fused_gather
+        and config.aggregator in ("mean", "gcn")
+        and features is not None
+        and config.feature_dim > 0
+    )
+    last_mean = None
+    if fused:
+        if not deterministic and config.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout inside the fused gather-mean comes with the "
+                "training slice of the PyTorch port (ROADMAP.md)"
+            )
+        inner_fanout = config.fanouts[0]
+        last_mean = fused_gather_mean(
+            features, samples[-1].reshape(-1, inner_fanout)
+        )
+        if config.identity_dim > 0:
+            id_rows = params["embeds"].index_select(0, samples[-1])
+            id_mean = id_rows.view(-1, inner_fanout,
+                                   config.identity_dim).mean(dim=1)
+            last_mean = torch.cat([id_mean, last_mean], dim=1)
+        hidden = [gather_features(params, features, s, config)
+                  for s in samples[:-1]] + [None]
+    else:
+        hidden = [gather_features(params, features, s, config)
+                  for s in samples]
+    return aggregate_pyramid(
+        params, hidden, ids.shape[0], config,
+        generator=None if deterministic else generator,
+        deterministic=deterministic, last_hop_neigh_mean=last_mean,
+    )
+
+
+def sage_decay_weights(params, config: SAGEConfig) -> list:
+    """Weights subject to weight decay: each aggregator's projections."""
+    out = []
+    for layer in range(len(config.layers)):
+        out.extend(decay_weights(config.aggregator,
+                                 agg_params(params, layer)))
+    return out
+
+
+def l2_normalize(x, dim=1, eps=1e-12):
+    """tf.nn.l2_normalize semantics."""
+    return x / torch.sqrt(torch.clamp((x * x).sum(dim=dim, keepdim=True),
+                                      min=eps))

@@ -1,0 +1,133 @@
+"""The mean and gcn aggregators, as init/apply function pairs.
+
+  mean — neighbor mean -> two matmuls (self/neigh), add or concat
+  gcn  — mean over {neighbors + self} -> one shared matmul
+
+Both drop out both inputs. Each takes the neighbor input either as
+[n, S, d] rows or as the pre-reduced [n, d] mean that the fused
+gather-mean kernel produces; the pre-reduced form skips the neighbor
+dropout (the kernel's caller owns it). The pooling and seq aggregators
+are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphsage_tpu_torch.nn.init import dropout, glorot, zeros
+
+_LATER_SLICES = {
+    "maxpool": "the pooling slice",
+    "meanpool": "the pooling slice",
+    "twomaxpool": "the pooling slice",
+    "seq": "the seq/LSTM slice",
+}
+
+
+def _combine(from_self, from_neighs, params, act, concat):
+    if concat:
+        out = torch.cat([from_self, from_neighs], dim=1)
+    else:
+        out = from_self + from_neighs
+    if "b" in params:
+        out = out + params["b"]
+    return act(out)
+
+
+# ---------------------------------------------------------------- mean
+
+def init_mean(generator, input_dim, output_dim, model_size="small",
+              bias=False, device="cpu") -> dict:
+    p = {
+        "neigh_w": glorot(generator, (input_dim, output_dim), device),
+        "self_w": glorot(generator, (input_dim, output_dim), device),
+    }
+    if bias:
+        p["b"] = zeros((output_dim,), device)
+    return p
+
+
+def apply_mean(params, self_vecs, neigh_vecs, *, act, concat,
+               dropout_rate=0.0, generator=None, deterministic=True):
+    """``neigh_vecs`` is [n, S, d], or the pre-reduced [n, d] mean."""
+    if neigh_vecs.dim() != 2:
+        neigh_vecs = dropout(generator, neigh_vecs, dropout_rate,
+                             deterministic)
+    self_vecs = dropout(generator, self_vecs, dropout_rate, deterministic)
+    if neigh_vecs.dim() == 2:
+        neigh_means = neigh_vecs
+    else:
+        neigh_means = neigh_vecs.mean(dim=1)
+    from_neighs = neigh_means @ params["neigh_w"]
+    from_self = self_vecs @ params["self_w"]
+    return _combine(from_self, from_neighs, params, act, concat)
+
+
+# ----------------------------------------------------------------- gcn
+
+def init_gcn(generator, input_dim, output_dim, model_size="small",
+             bias=False, device="cpu") -> dict:
+    p = {"w": glorot(generator, (input_dim, output_dim), device)}
+    if bias:
+        p["b"] = zeros((output_dim,), device)
+    return p
+
+
+def apply_gcn(params, self_vecs, neigh_vecs, *, act, concat,
+              dropout_rate=0.0, generator=None, deterministic=True,
+              n_samples=None):
+    """gcn never concatenates. A pre-reduced [n, d] neighbor mean over
+    ``n_samples`` neighbors recombines with self as
+    (S*mean + self)/(S+1)."""
+    del concat
+    if neigh_vecs.dim() != 2:
+        neigh_vecs = dropout(generator, neigh_vecs, dropout_rate,
+                             deterministic)
+    self_vecs = dropout(generator, self_vecs, dropout_rate, deterministic)
+    if neigh_vecs.dim() == 2:
+        means = (n_samples * neigh_vecs + self_vecs) * (
+            1.0 / (n_samples + 1)
+        )
+    else:
+        means = torch.cat([neigh_vecs, self_vecs[:, None, :]],
+                          dim=1).mean(dim=1)
+    out = means @ params["w"]
+    if "b" in params:
+        out = out + params["b"]
+    return act(out)
+
+
+# ------------------------------------------------------------ registry
+
+AGGREGATORS = {
+    "mean": (init_mean, apply_mean),
+    "gcn": (init_gcn, apply_gcn),
+}
+
+
+def _lookup(name):
+    if name in AGGREGATORS:
+        return AGGREGATORS[name]
+    if name in _LATER_SLICES:
+        raise NotImplementedError(
+            f"aggregator {name!r} is not ported yet: it comes with "
+            f"{_LATER_SLICES[name]} of the PyTorch port (ROADMAP.md)"
+        )
+    raise ValueError(f"unknown aggregator {name!r}")
+
+
+def init_aggregator(name, generator, input_dim, output_dim,
+                    model_size="small", bias=False, device="cpu") -> dict:
+    return _lookup(name)[0](generator, input_dim, output_dim,
+                            model_size=model_size, bias=bias, device=device)
+
+
+def apply_aggregator(name, params, self_vecs, neigh_vecs, **kw):
+    return _lookup(name)[1](params, self_vecs, neigh_vecs, **kw)
+
+
+def decay_weights(name, params) -> list:
+    """The weights weight decay applies to: the aggregator's own
+    self/neigh projections (gcn's single weight) and bias."""
+    _lookup(name)
+    return [params[k] for k in ("w", "neigh_w", "self_w", "b") if k in params]

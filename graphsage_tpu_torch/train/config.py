@@ -1,0 +1,92 @@
+"""Typed configuration mirroring the reference flag surface.
+
+The fields are those the port's serving path reads; the training,
+unsupervised and multi-device fields come with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+# model names accepted by the reference dispatchers
+SUPERVISED_MODELS = (
+    "graphsage_mean", "gcn", "graphsage_seq", "graphsage_maxpool",
+    "graphsage_meanpool",
+)
+
+# model name -> (aggregator, concat)
+MODEL_AGGREGATORS = {
+    "graphsage_mean": ("mean", True),
+    "gcn": ("gcn", False),
+    "graphsage_seq": ("seq", True),
+    "graphsage_maxpool": ("maxpool", True),
+    "graphsage_meanpool": ("meanpool", True),
+}
+
+
+@dataclasses.dataclass
+class TrainFlags:
+    model: str = "graphsage_mean"
+    learning_rate: float = 0.01
+    model_size: str = "small"
+    train_prefix: str = ""
+    dropout: float = 0.0
+    weight_decay: float = 0.0
+    max_degree: int = 128
+    samples_1: int = 25
+    samples_2: int = 10
+    samples_3: int = 0          # 3rd layer, graphsage_mean only (supervised)
+    dim_1: int = 128
+    dim_2: int = 128
+    batch_size: int = 512
+    sigmoid: bool = False
+    identity_dim: int = 0
+    base_log_dir: str = "."
+    sampler_mode: str = "shared_perm"  # or "independent", "first_k"
+    fused_gather: bool = True   # CUDA gather+mean for the innermost hop
+    feature_dtype: str = "float32"  # or "bfloat16"
+    seed: int = 123
+    checkpoint_dir: str = ""    # torch checkpoint root
+
+    def log_dir(self, task: str) -> str:
+        """Reference layout: <base>/<sup|unsup>-<data>/<model>_<size>_<lr>/
+        with the dataset name taken from the prefix's parent directory and
+        the lr formatted 0.4f (sup) or 0.6f (unsup)."""
+        parts = self.train_prefix.split("/")
+        name = parts[-2] if len(parts) >= 2 else parts[-1]
+        sub, lr_fmt = (
+            ("sup", "{:0.4f}") if task == "supervised"
+            else ("unsup", "{:0.6f}")
+        )
+        d = os.path.join(
+            self.base_log_dir,
+            f"{sub}-{name}",
+            f"{self.model:s}_{self.model_size:s}_"
+            + lr_fmt.format(self.learning_rate),
+        )
+        os.makedirs(d, exist_ok=True)
+        return d
+
+
+def build_layer_infos(flags: TrainFlags, supervised: bool):
+    """(aggregator, concat, layers) for the model-zoo dispatch.
+
+    Supervised graphsage_mean supports a variable depth: ``samples_3 > 0``
+    adds a third layer (dim_2 again); ``samples_2 == 0`` drops to one
+    layer. gcn doubles dims with concat=False so that output widths
+    match the concat models.
+    """
+    from graphsage_tpu_torch.models.graphsage import LayerInfo
+
+    if flags.model not in MODEL_AGGREGATORS:
+        raise ValueError(f"unknown model: {flags.model}")
+    agg, concat = MODEL_AGGREGATORS[flags.model]
+    mult = 1 if concat else 2
+    layers = [LayerInfo(flags.samples_1, mult * flags.dim_1)]
+    variable_depth = supervised and flags.model == "graphsage_mean"
+    if flags.samples_2 > 0 or not variable_depth:
+        layers.append(LayerInfo(flags.samples_2, mult * flags.dim_2))
+    if variable_depth and flags.samples_3 > 0:
+        layers.append(LayerInfo(flags.samples_3, mult * flags.dim_2))
+    return agg, concat, tuple(layers)

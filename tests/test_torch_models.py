@@ -1,0 +1,163 @@
+"""The port's models (graphsage_tpu_torch/models) against
+graphsage_tpu/models under the deterministic first_k sampler, with the
+JAX package's weights carried across by the bridge."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphsage_tpu.models import graphsage as jg
+from graphsage_tpu.models import supervised as js
+from graphsage_tpu_torch.data.adjacency import build_both_adjs
+from graphsage_tpu_torch.data.synthetic import make_synthetic_graph
+from graphsage_tpu_torch.models import graphsage as tg
+from graphsage_tpu_torch.models import supervised as ts
+from tests._torch_common import port_params, t
+
+FANOUTS_2 = ((4, 8), (3, 8))
+FANOUTS_3 = ((4, 8), (3, 8), (2, 8))
+
+
+@pytest.fixture(scope="module")
+def toy():
+    """(graph, padded features, full adjacency, ids): the batch ends with
+    the dummy node N, as a padded last batch does."""
+    g = make_synthetic_graph(num_nodes=120, num_classes=3, feat_dim=8,
+                             seed=7)
+    _, _, adj = build_both_adjs(g, 8, seed=1)
+    ids = np.concatenate([np.arange(0, 120, 9), [g.num_nodes]]).astype(
+        np.int32)
+    return g, g.padded_features(), adj, ids
+
+
+def _configs(aggregator, layers, identity_dim, fused, num_nodes):
+    mult = 2 if aggregator == "gcn" else 1
+    kw = dict(feature_dim=8, aggregator=aggregator,
+              concat=aggregator != "gcn", identity_dim=identity_dim,
+              num_nodes=num_nodes, sampler_mode="first_k",
+              fused_gather=fused)
+    jcfg = jg.SAGEConfig(
+        layers=tuple(jg.LayerInfo(s, mult * d) for s, d in layers), **kw)
+    tcfg = tg.SAGEConfig(
+        layers=tuple(tg.LayerInfo(s, mult * d) for s, d in layers), **kw)
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("aggregator,layers,identity_dim", [
+    ("mean", FANOUTS_2, 0), ("gcn", FANOUTS_2, 0), ("mean", FANOUTS_2, 4),
+    ("gcn", FANOUTS_2, 4), ("mean", FANOUTS_3, 0),
+])
+def test_sage_embed_matches_jax(toy, aggregator, layers, identity_dim,
+                                fused):
+    g, feats, adj, ids = toy
+    jcfg, tcfg = _configs(aggregator, layers, identity_dim, fused,
+                          g.num_nodes)
+    jparams = jg.init_sage_params(jax.random.key(0), jcfg)
+    ref = jg.sage_embed(jparams, jnp.asarray(feats), jnp.asarray(adj),
+                        jnp.asarray(ids), jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), t(feats), t(adj), t(ids),
+                        tcfg)
+    assert out.shape == ref.shape == (len(ids), jcfg.output_dim)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bf16_table_single_layer_matches_jax(toy):
+    """A bf16 table where both packages average in f32: a one-layer model
+    has only the innermost hop, which the fused path reduces in f32 on
+    both sides. (Deeper models differ: the JAX package rounds the outer
+    hops' neighbor mean of bf16 rows to bf16, the port does not;
+    ROADMAP.md, section C.)"""
+    g, feats, adj, ids = toy
+    jcfg, tcfg = _configs("mean", ((4, 8),), 0, True, g.num_nodes)
+    jparams = jg.init_sage_params(jax.random.key(0), jcfg)
+    ref = jg.sage_embed(jparams, jnp.asarray(feats, dtype=jnp.bfloat16),
+                        jnp.asarray(adj), jnp.asarray(ids),
+                        jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), t(feats).to(torch.bfloat16),
+                        t(adj), t(ids), tcfg)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_frontier_order(toy):
+    """The first expansion takes fanouts[-1] neighbors, the last
+    fanouts[0]: frontier sizes [B], [B*S2], [B*S2*S1]."""
+    g, _, adj, ids = toy
+    samples = tg.sample_frontier(None, t(adj), t(ids), (4, 3),
+                                 mode="first_k")
+    assert [s.numel() for s in samples] == [len(ids), len(ids) * 3,
+                                            len(ids) * 12]
+    ref = jg.sample_frontier(jax.random.key(0), jnp.asarray(adj),
+                             jnp.asarray(ids), (4, 3), mode="first_k")
+    for a, b in zip(samples, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_fused_training_dropout_is_a_later_slice(toy):
+    g, feats, adj, ids = toy
+    _, tcfg = _configs("mean", FANOUTS_2, 0, True, g.num_nodes)
+    tcfg = tg.SAGEConfig(**{**tcfg.__dict__, "dropout": 0.5})
+    params = tg.init_sage_params(torch.Generator().manual_seed(0), tcfg)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tg.sage_embed(params, t(feats), t(adj), t(ids), tcfg,
+                      generator=torch.Generator(), deterministic=False)
+
+
+def test_l2_normalize_matches_jax():
+    x = np.random.default_rng(0).standard_normal((5, 7)).astype(np.float32)
+    x[2] = 0.0
+    np.testing.assert_allclose(tg.l2_normalize(t(x)).numpy(),
+                               np.asarray(jg.l2_normalize(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("sigmoid,weight_decay", [
+    (False, 0.0), (True, 0.0), (False, 0.01), (True, 0.01),
+])
+def test_supervised_loss_and_predict_match_jax(toy, sigmoid, weight_decay):
+    g, feats, adj, ids = toy
+    jcfg, tcfg = _configs("mean", FANOUTS_2, 0, True, g.num_nodes)
+    C = 3
+    jsup = js.SupervisedConfig(sage=jcfg, num_classes=C,
+                               sigmoid_loss=sigmoid,
+                               weight_decay=weight_decay)
+    tsup = ts.SupervisedConfig(sage=tcfg, num_classes=C,
+                               sigmoid_loss=sigmoid,
+                               weight_decay=weight_decay)
+    rng = np.random.default_rng(4)
+    labels = (rng.random((len(ids), C)) < 0.4).astype(np.float32)
+    if not sigmoid:
+        labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, len(ids))]
+    mask = (ids != g.num_nodes).astype(np.float32)
+    jparams = js.init_supervised_params(jax.random.key(2), jsup)
+    jloss, jlogits = js.supervised_loss(
+        jparams, jnp.asarray(feats), jnp.asarray(adj), jnp.asarray(ids),
+        jnp.asarray(labels), jnp.asarray(mask), jax.random.key(3), jsup,
+        deterministic=True)
+    loss, logits = ts.supervised_loss(
+        port_params(jparams), t(feats), t(adj), t(ids), t(labels), t(mask),
+        tsup, deterministic=True)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        ts.supervised_predict(logits, tsup).numpy(),
+        np.asarray(js.supervised_predict(jlogits, jsup)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_init_shapes_match_jax():
+    jcfg, tcfg = _configs("mean", FANOUTS_2, 4, True, 120)
+    jsup = js.SupervisedConfig(sage=jcfg, num_classes=5)
+    tsup = ts.SupervisedConfig(sage=tcfg, num_classes=5)
+    want = {k: tuple(v.shape) for k, v in port_params(
+        js.init_supervised_params(jax.random.key(0), jsup)).items()}
+    got = {k: tuple(v.shape) for k, v in ts.init_supervised_params(
+        torch.Generator().manual_seed(0), tsup).items()}
+    assert got == want
