@@ -8,23 +8,37 @@ Phases; any failure exits non-zero without the final ok line:
      parity tests' "highest" matmul precision
   2. build the CUDA kernels from the checkout's sources (nvcc)
   3. each kernel against its plain PyTorch version on the card, at the
-     serving hop's shapes (f32 and bf16) and ragged ones; kernel, plain
-     and library-call times beside the kernel's bound
+     hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
+     library-call times beside the kernel's bound. K1 is the gather-mean,
+     K2 the gather-mean with Philox dropout (identical masks, equal
+     means, the rate's zero fraction, the 1/keep scale)
   4. serving at full width, bench.py's model: 100k nodes, 602 features,
      41 classes, fanouts 25/10, dims 128/128, batch 512, zipf(1.05)
      adjacency, seeded random weights. The eval sweep answers every node
-     (196 requests of 512); the gather-mean kernel must launch once per
-     batch. Checks the predictions and their agreement with the unfused
-     path, then times requests one by one and profiles one sweep
+     (196 requests of 512); K1 must launch once per batch. Checks the
+     predictions and their agreement with the unfused path, then times
+     requests one by one and profiles one sweep
   5. ``python -m graphsage_tpu_torch predict`` on a small synthetic
      dataset from a port checkpoint, held against the CPU path
-  6. one JSON line of per-kernel numbers, then the ok line (last)
+  6. training at full width: the same model and data with dropout 0.5
+     and Adam at lr 1e-2 (benchmarks/agg_sweep.py's "mean_drop"),
+     through the chunk runner: three timed chunks of 50 steps (s/step,
+     edges/s), K2 once per step, the loss finite at every chunk end, the
+     host synchronisations per step, and a profile of a few steps
+  7. fused vs unfused training at dropout 0 (K1 against the plain
+     gather): equal params after a few steps from the same state
+  8. ``python -m graphsage_tpu_torch supervised`` on the card against
+     the same training on the CPU (first_k, dropout 0): every logged
+     train loss and the final val loss agree
+  9. one JSON line of per-kernel numbers, then the ok line (last)
 
 Needs no network and one card; builds into build/kernels/.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -44,8 +58,21 @@ DIMS = (128, 128)
 HOP_ROWS = BATCH * FANOUTS[1]          # 5120 rows of the innermost hop
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM device memory
 F32_OPS_PER_S = 67e12                  # H100 SXM f32, outside tensor cores
+# H100 SXM int32: 132 SMs x 64 lanes x 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K2's integer instructions per element, counted from its source: one
+# Philox4x32-10 call per 4 elements = 10 rounds x (2 32x32->64 multiplies
+# + 2 three-input XORs) = 40 (the key schedule is warp-uniform), plus
+# one compare per element
+K2_INT_OPS_PER_ELEM = 40 / 4 + 1
+K2_F32_OPS_PER_ELEM = 2                # scale multiply, add
 F32_TOL = 1e-5                         # max abs error, kernel vs plain
 BF16_REL_TOL = 2e-2                    # max error / max |plain|
+DROPOUT = 0.5                          # agg_sweep.py's "mean_drop"
+LEARNING_RATE = 1e-2
+EDGES_PER_STEP = BATCH * (FANOUTS[1] + FANOUTS[1] * FANOUTS[0])  # 133120
+TRAIN_CHUNK = 50                       # steps per timed chunk
+CLI_TOL = 1e-4                         # card vs CPU training losses
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -205,22 +232,151 @@ def check_gather_mean(dev, card_line: str) -> dict:
     }
 
 
-# ------------------------------------------------------------ phase 4
-
-def serve_full_width(dev) -> int:
-    """The eval sweep over all 100k nodes; returns K1's launch count."""
+def check_gather_mean_dropout(dev, card_line: str) -> dict:
+    """K2 against its plain version under the same seed, step and tag;
+    its statistics at rate 0.5; its times and bounds at the hop."""
     import torch
 
-    from graphsage_tpu_torch.infer import make_eval_sweep, run_eval_sweep
-    from graphsage_tpu_torch.models.graphsage import LayerInfo, SAGEConfig
-    from graphsage_tpu_torch.models.supervised import (
-        SupervisedConfig,
-        init_supervised_params,
+    from graphsage_tpu_torch.models.graphsage import KERNEL_DROP_TAG
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_mean,
+        gather_mean_dropout_reference,
     )
-    from graphsage_tpu_torch.ops.gather import fused_gather_mean
-    from graphsage_tpu_torch.train.metrics import calc_f1
 
-    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table = torch.randn(NUM_NODES + 1, FEAT_DIM, generator=gen, device=dev)
+    table[NUM_NODES] = 0
+    rng = np.random.default_rng(3)
+    idx_sets = [torch.from_numpy(zipf_ids(rng, (HOP_ROWS, FANOUTS[0])))
+                .to(dev) for _ in range(8)]
+    key = dict(seed=0x0123456789ABCDEF, offset=(17, KERNEL_DROP_TAG))
+
+    err = {}
+    for name, tab in (("f32", table), ("bf16", table.to(torch.bfloat16))):
+        idx = idx_sets[0]
+        out = fused_gather_mean(tab, idx, DROPOUT, **key)
+        ref = gather_mean_dropout_reference(tab, idx, DROPOUT, **key)
+        err[name] = float((out - ref).abs().max())
+        # the mask itself: one sample per row, the same elements
+        flat = idx.reshape(-1, 1)
+        got = fused_gather_mean(tab, flat, DROPOUT, **key) == 0
+        want = gather_mean_dropout_reference(tab, flat, DROPOUT, **key) == 0
+        n_diff = int((got != want).sum())
+        check(n_diff == 0, f"K2 {name}: {n_diff} mask elements differ")
+        check(err[name] <= F32_TOL,
+              f"K2 {name} error {err[name]} > {F32_TOL}")
+        del got, want, out, ref
+    log(f"K2 vs plain at idx [{HOP_ROWS},{FANOUTS[0]}]: masks identical "
+        f"({HOP_ROWS * FANOUTS[0] * FEAT_DIM} elements, f32 and bf16 "
+        f"tables); max abs err f32 {err['f32']:.3e}, bf16 {err['bf16']:.3e} "
+        f"(limit {F32_TOL})")
+
+    ones = torch.ones(64, FEAT_DIM, device=dev)
+    s1 = torch.from_numpy(rng.integers(0, 64, (HOP_ROWS, 1),
+                                       dtype=np.int32)).to(dev)
+    out = fused_gather_mean(ones, s1, DROPOUT, **key)
+    zero_frac = float((out == 0).float().mean())
+    kept = out[out != 0]
+    scale_ok = bool((kept == float(np.float32(1 / (1 - DROPOUT)))).all())
+    other = fused_gather_mean(ones, s1, DROPOUT, seed=key["seed"],
+                              offset=(18, KERNEL_DROP_TAG))
+    steps_differ = not torch.equal(out == 0, other == 0)
+    log(f"K2 at rate {DROPOUT}, all-ones table, S=1, {out.numel()} "
+        f"elements: zero fraction {zero_frac:.5f} (limit +-0.005), kept "
+        f"values all 1/keep: {scale_ok}, step 17 vs 18 masks differ: "
+        f"{steps_differ}")
+    check(abs(zero_frac - DROPOUT) <= 0.005, f"K2 zero fraction {zero_frac}")
+    check(scale_ok, "K2 kept values are not 1/keep")
+    check(steps_differ, "K2 gave the same mask for two steps")
+
+    def cycling(fn):
+        state = {"i": 0}
+
+        def call():
+            fn(idx_sets[state["i"] % len(idx_sets)])
+            state["i"] += 1
+        return call
+
+    ms = cuda_ms(cycling(
+        lambda idx: fused_gather_mean(table, idx, DROPOUT, **key)))
+    plain_ms = cuda_ms(cycling(
+        lambda idx: gather_mean_dropout_reference(table, idx, DROPOUT,
+                                                  **key)),
+        iters=5, warmup=1)
+    table_bf16 = table.to(torch.bfloat16)
+    bf16_ms = cuda_ms(cycling(
+        lambda idx: fused_gather_mean(table_bf16, idx, DROPOUT, **key)))
+
+    elements = HOP_ROWS * FANOUTS[0] * FEAT_DIM
+    bytes_ms = float(np.mean([
+        (int(torch.unique(idx).numel()) * FEAT_DIM * 4
+         + HOP_ROWS * FEAT_DIM * 4 + idx.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        for idx in idx_sets]))
+    int_ms = elements * K2_INT_OPS_PER_ELEM / INT32_OPS_PER_S * 1e3
+    f32_ms = elements * K2_F32_OPS_PER_ELEM / F32_OPS_PER_S * 1e3
+    ops_ms = max(int_ms, f32_ms)
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"K2 at idx [{HOP_ROWS},{FANOUTS[0]}] into [{NUM_NODES + 1},"
+        f"{FEAT_DIM}] f32, rate {DROPOUT}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bf16 table {bf16_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f}; int32 {int_ms:.4f} at "
+        f"{K2_INT_OPS_PER_ELEM:g} per element and {INT32_OPS_PER_S:.4g}/s; "
+        f"f32 {f32_ms:.4f}); bound share {bound_ms / ms:.3f}; library: none "
+        f"(no single PyTorch call draws a per-element mask inside a "
+        f"gather-mean); on {card_line}")
+    return {
+        "name": "gather_mean_dropout",
+        "route": "cuda",
+        "source": "graphsage_tpu_torch/ops/csrc/gather_mean.cu",
+        "replaces": "graphsage_tpu/ops/gather.py:136",
+        "launches": None,
+        "max_abs_err": max(err.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def sass_summary() -> None:
+    """Static instruction counts of K2 (f32, 2 elements per load) from
+    cuobjdump, where the toolkit has it: the record behind
+    K2_INT_OPS_PER_ELEM."""
+    from graphsage_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: no SASS summary")
+        return
+    lib = build.BUILD_DIR / "libgather_mean.so"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=False).stdout
+    for block in out.split("Function : ")[1:]:
+        if "gather_mean_dropout_kernelIfLi2E" not in block.split("\n")[0]:
+            continue
+        ops = []
+        for line in block.splitlines():
+            text = line.split("*/", 1)[1] if "*/" in line else ""
+            words = text.replace(";", " ").split()
+            if line.strip().startswith("/*") and words:
+                ops.append(words[1] if words[0].startswith("@") else words[0])
+        counts = {}
+        for op in ops:
+            counts[op] = counts.get(op, 0) + 1
+        top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+        log(f"SASS of K2<float,2>: {len(ops)} instructions; "
+            + ", ".join(f"{k} {v}" for k, v in top))
+
+
+# ------------------------------------------------------------ phase 4
+
+def bench_data(dev):
+    """bench.py's graph at full width, made on the host from seed 0 and
+    moved once: (features [N+1, F] f32 with the zero dummy row, zipf
+    adjacency [N+1, 128] int32, one-hot labels [N, C] on the host)."""
+    import torch
+
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((NUM_NODES, FEAT_DIM)).astype(np.float32)
     adj_np = zipf_ids(rng, (NUM_NODES + 1, MAX_DEGREE))
@@ -229,25 +385,41 @@ def serve_full_width(dev) -> int:
         rng.integers(0, NUM_CLASSES, NUM_NODES)]
     features = torch.from_numpy(feats).to(dev)
     features = torch.cat([features, features.new_zeros(1, FEAT_DIM)])
-    adj = torch.from_numpy(adj_np).to(dev)
+    return features, torch.from_numpy(adj_np).to(dev), labels_np
 
-    def config(fused: bool):
-        sage = SAGEConfig(
-            layers=(LayerInfo(FANOUTS[0], DIMS[0]),
-                    LayerInfo(FANOUTS[1], DIMS[1])),
-            feature_dim=FEAT_DIM, aggregator="mean", concat=True,
-            num_nodes=NUM_NODES, sampler_mode="shared_perm",
-            fused_gather=fused)
-        return SupervisedConfig(sage=sage, num_classes=NUM_CLASSES)
 
+def bench_config(fused: bool, dropout: float = 0.0):
+    from graphsage_tpu_torch.models.graphsage import LayerInfo, SAGEConfig
+    from graphsage_tpu_torch.models.supervised import SupervisedConfig
+
+    sage = SAGEConfig(
+        layers=(LayerInfo(FANOUTS[0], DIMS[0]),
+                LayerInfo(FANOUTS[1], DIMS[1])),
+        feature_dim=FEAT_DIM, aggregator="mean", concat=True,
+        num_nodes=NUM_NODES, sampler_mode="shared_perm",
+        fused_gather=fused, dropout=dropout)
+    return SupervisedConfig(sage=sage, num_classes=NUM_CLASSES)
+
+
+def serve_full_width(dev, data) -> int:
+    """The eval sweep over all 100k nodes; returns K1's launch count."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import init_supervised_params
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean
+    from graphsage_tpu_torch.train.metrics import calc_f1
+    from graphsage_tpu_torch.train.supervised import (
+        _run_eval_sweep as run_eval_sweep,
+    )
+    from graphsage_tpu_torch.train.supervised import make_eval_sweep
+
+    features, adj, labels_np = data
+    config = bench_config
     params = init_supervised_params(torch.Generator().manual_seed(0),
                                     config(True), device=dev)
     sweep = make_eval_sweep(config(True), BATCH, NUM_NODES)
     nodes = np.arange(NUM_NODES)
     n_b = -(-NUM_NODES // BATCH)
-    torch.cuda.synchronize()
-    log(f"serving set-up (data made on host, moved once): "
-        f"{time.perf_counter() - t0:.2f} s")
 
     def generator():
         return torch.Generator(device=dev).manual_seed(1)
@@ -256,16 +428,19 @@ def serve_full_width(dev) -> int:
                    labels_np, BATCH, NUM_NODES, generator())   # warm-up
 
     fused_gather_mean.launches = 0
+    fused_gather_mean.dropout_launches = 0
     loss, preds, labels, dt = run_eval_sweep(
         sweep, params, features, adj, nodes, labels_np, BATCH, NUM_NODES,
         generator())
     launches = fused_gather_mean.launches
+    k2 = fused_gather_mean.dropout_launches
 
     log(f"served {NUM_NODES} nodes in {n_b} batches of {BATCH}: "
         f"{dt * 1e3:.2f} ms, {NUM_NODES / dt:.1f} nodes/s; gather_mean "
-        f"launches {launches}")
-    check(launches == n_b,
-          f"gather_mean launched {launches} times for {n_b} batches")
+        f"launches {launches} (K2 {k2})")
+    check(launches == n_b and k2 == 0,
+          f"gather_mean launched {launches} times (K2 {k2}) for {n_b} "
+          f"batches")
     check(preds.shape == (NUM_NODES, NUM_CLASSES),
           f"preds shape {preds.shape}")
     check(bool(np.isfinite(preds).all()) and np.isfinite(loss),
@@ -313,13 +488,15 @@ def serve_full_width(dev) -> int:
     log(f"per request of {BATCH} nodes: p50 {np.percentile(lat, 50):.3f} ms, "
         f"p90 {np.percentile(lat, 90):.3f} ms, max {max(lat):.3f} ms")
 
-    profile_sweep(sweep, params, features, adj, ids_dev[:20 * BATCH],
-                  labels_table, gen)
+    profile_window(
+        lambda: sweep(params, features, adj, ids_dev[:20 * BATCH],
+                      labels_table, gen),
+        "one sweep of 20 batches")
     return launches
 
 
-def profile_sweep(sweep, params, features, adj, ids, labels_table, gen):
-    """Device time by kernel over one 20-batch sweep, and the device's
+def profile_window(fn, label: str):
+    """Device time by kernel over one call of ``fn``, and the device's
     busy share of that window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -328,7 +505,7 @@ def profile_sweep(sweep, params, features, adj, ids, labels_table, gen):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep(params, features, adj, ids, labels_table, gen)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -336,13 +513,15 @@ def profile_sweep(sweep, params, features, adj, ids, labels_table, gen):
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if getattr(evt, "is_user_annotation", False):
+            continue   # a range around kernels counted on their own
         if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
             rows.append((dev_us, evt.count, evt.key))
     busy_us = sum(r[0] for r in rows)
     if not rows:
         log("profiler: no device time recorded (not measured)")
         return
-    log(f"profiler, one sweep of {ids.numel() // BATCH} batches: wall "
+    log(f"profiler, {label}: wall "
         f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
         f"({busy_us / wall_us:.3f} of the window, profiler on)")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
@@ -361,10 +540,11 @@ def cli_predict(dev) -> None:
         make_synthetic_graph,
         write_dataset,
     )
-    from graphsage_tpu_torch.infer import build_supervised_config, predict
+    from graphsage_tpu_torch.infer import predict
     from graphsage_tpu_torch.models.supervised import init_supervised_params
     from graphsage_tpu_torch.train import checkpoint
     from graphsage_tpu_torch.train.config import TrainFlags
+    from graphsage_tpu_torch.train.supervised import build_supervised_config
 
     scratch = os.path.join(ROOT, "build")   # listed in .gitignore
     os.makedirs(scratch, exist_ok=True)
@@ -406,6 +586,241 @@ def cli_predict(dev) -> None:
         check(diff <= 1e-5, f"card and CPU predictions differ by {diff}")
 
 
+# ------------------------------------------------------------ phase 6
+
+def train_full_width(dev, data) -> int:
+    """bench.py's model with dropout 0.5 and Adam through the chunk
+    runner; returns K2's launch count over the timed chunks."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean
+    from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    config = bench_config(True, DROPOUT)
+    params = init_supervised_params(torch.Generator().manual_seed(0), config,
+                                    device=dev)
+    optimizer = make_optimizer(LEARNING_RATE)
+    opt_state = optimizer.init(params)
+    run = make_supervised_chunk_runner(config, optimizer, BATCH)
+    n_b = -(-NUM_NODES // BATCH)
+    host_rng = np.random.default_rng(4)
+    ids_padded = np.full((n_b * BATCH,), NUM_NODES, dtype=np.int32)
+    ids_padded[:NUM_NODES] = np.arange(NUM_NODES)
+    ids_perm = torch.from_numpy(
+        ids_padded[host_rng.permutation(len(ids_padded))]).to(dev)
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    drop_seed = int(host_rng.integers(0, 2**63))
+    step = 0
+
+    def chunk(n):
+        nonlocal params, opt_state, step
+        params, opt_state, loss, logits, ids = run(
+            params, opt_state, gen, features, adj, ids_perm, labels_table,
+            step, n, drop_seed=drop_seed)
+        step += n
+        return loss, logits
+
+    loss, _ = chunk(5)                       # warm-up
+    check(np.isfinite(float(loss)), "non-finite loss in warm-up")
+
+    fused_gather_mean.launches = 0
+    fused_gather_mean.dropout_launches = 0
+    times, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logits = chunk(TRAIN_CHUNK)
+        losses.append(float(loss))           # the print boundary
+        times.append(time.perf_counter() - t0)
+        check(np.isfinite(losses[-1]), f"non-finite loss {losses[-1]}")
+    k1, k2 = fused_gather_mean.launches, fused_gather_mean.dropout_launches
+    n_steps = 3 * TRAIN_CHUNK
+    check(k2 == n_steps, f"K2 launched {k2} times in {n_steps} steps")
+    check(k1 == 0, f"K1 launched {k1} times in training with dropout")
+    check(logits.shape == (BATCH, NUM_CLASSES)
+          and bool(torch.isfinite(logits).all()), "bad training logits")
+    for i, (dt, lv) in enumerate(zip(times, losses)):
+        log(f"train chunk {i + 1}: {TRAIN_CHUNK} steps in {dt * 1e3:.2f} ms,"
+            f" {dt / TRAIN_CHUNK * 1e3:.4f} ms/step, "
+            f"{EDGES_PER_STEP * TRAIN_CHUNK / dt:.1f} edges/s, loss "
+            f"{lv:.5f}")
+    log(f"training: K2 launches {k2} in {n_steps} steps (K1 {k1}); "
+        f"{EDGES_PER_STEP} edges per step; losses {losses}")
+
+    # host synchronisations inside a chunk, with the stack of each
+    n_sync = 10
+    stacks, notices = [], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = traceback.extract_stack()[:-1]
+        if any(f.name == "set_sync_debug_mode" for f in frames[-3:]):
+            # raised by the call that switches the mode (line of
+            # chip_smoke.py given), not by the chunk's work
+            notices.append(f"{str(message).splitlines()[0][:100]!r} at the "
+                           f"switch on line {frames[-3].lineno}")
+        elif "synchroniz" in str(message):
+            stacks.append(" <- ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno}:{f.name}"
+                for f in reversed(frames[-6:])))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            chunk(n_sync)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for st in stacks:
+        where[st] = where.get(st, 0) + 1
+    log(f"sync debug mode over {n_sync} steps: {len(stacks)} synchronising "
+        f"calls, {len(stacks) / n_sync:.2f} per step"
+        + "".join(f"\n  {n}x {st}" for st, n in sorted(where.items()))
+        + "".join(f"\n  not counted: {m}" for m in notices))
+
+    profile_window(lambda: chunk(5), "5 training steps")
+    return k2
+
+
+# ------------------------------------------------------------ phase 7
+
+def fused_vs_unfused_training(dev, data) -> None:
+    """4 steps at dropout 0 from the same weights and generator state,
+    through K1 and through the plain gather: the same samples (the
+    sampler's stream is shared), so the first step's gradients agree
+    to f32 rounding (1e-5) and the params after 4 Adam steps to 1e-4,
+    the tolerance of the CPU tests' Adam steps: Adam divides by
+    |g| + eps, which amplifies last-bit gradient differences where |g|
+    is near eps."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean
+    from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    ids_perm = torch.from_numpy(np.random.default_rng(6).permutation(
+        NUM_NODES)[:4 * BATCH].astype(np.int32)).to(dev)
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    out = {}
+    for fused in (True, False):
+        config = bench_config(fused)
+        params = init_supervised_params(torch.Generator().manual_seed(7),
+                                        config, device=dev)
+        optimizer = make_optimizer(LEARNING_RATE)
+        opt_state = optimizer.init(params)
+        run = make_supervised_chunk_runner(config, optimizer, BATCH)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        k1 = fused_gather_mean.launches
+        losses = []
+        for i in range(4):
+            params, opt_state, loss, _, _ = run(
+                params, opt_state, gen, features, adj, ids_perm,
+                labels_table, i, 1)
+            losses.append(float(loss))
+            if i == 0:   # the clipped gradients of the first step
+                grads = {k: p.grad.clone() for k, p in params.items()}
+        out[fused] = (params, grads, losses,
+                      fused_gather_mean.launches - k1)
+
+    def max_diff(a, b):
+        return max(float((a[k] - b[k]).detach().abs().max()) for k in a)
+
+    g_diff = max_diff(out[True][1], out[False][1])
+    p_diff = max_diff(out[True][0], out[False][0])
+    l_diff = max(abs(a - b) for a, b in zip(out[True][2], out[False][2]))
+    log(f"fused vs unfused training, 4 steps at dropout 0: first-step "
+        f"grads max abs diff {g_diff:.3e} (limit 1e-5), losses {l_diff:.3e} "
+        f"(limit 1e-5), params after 4 Adam steps {p_diff:.3e} (limit "
+        f"1e-4); K1 launches {out[True][3]} vs {out[False][3]}")
+    check(out[True][3] == 4 and out[False][3] == 0,
+          "K1 did not run exactly on the fused side")
+    check(g_diff <= 1e-5, f"fused and unfused gradients differ by {g_diff}")
+    check(l_diff <= 1e-5, f"fused and unfused losses differ by {l_diff}")
+    check(p_diff <= 1e-4, f"fused and unfused params differ by {p_diff}")
+
+
+# ------------------------------------------------------------ phase 8
+
+def cli_supervised(dev) -> None:
+    """``python -m graphsage_tpu_torch supervised`` on the card against
+    the same training on the CPU: first_k sampling and dropout 0 leave
+    no random draw on the device, so the logged losses agree."""
+    from graphsage_tpu_torch.data.synthetic import (
+        make_synthetic_graph,
+        write_dataset,
+    )
+    from graphsage_tpu_torch.train.config import TrainFlags
+    from graphsage_tpu_torch.train.supervised import train
+
+    scratch = os.path.join(ROOT, "build")   # listed in .gitignore
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        prefix = os.path.join(tmp, "toy", "toy")
+        write_dataset(make_synthetic_graph(num_nodes=400, num_classes=5,
+                                           feat_dim=32, seed=3), prefix)
+        args = dict(samples_1=5, samples_2=4, dim_1=16, dim_2=16,
+                    max_degree=12, batch_size=32, epochs=3, print_every=2,
+                    validate_iter=3, validate_batch_size=16,
+                    sampler_mode="first_k", dropout=0.0, seed=9)
+        cmd = [sys.executable, "-m", "graphsage_tpu_torch", "supervised",
+               "--train_prefix", prefix, "--base_log_dir",
+               os.path.join(tmp, "card"), "--device", str(dev)]
+        for k, v in args.items():
+            cmd += [f"--{k}", str(v)]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600, check=False)
+        log("\n".join(proc.stdout.strip().splitlines()[-6:]))
+        check(proc.returncode == 0,
+              f"supervised CLI exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        flags = TrainFlags(train_prefix=prefix,
+                           base_log_dir=os.path.join(tmp, "cpu"), **args)
+        with contextlib.redirect_stdout(io.StringIO()):
+            train(flags, device="cpu")
+
+        def logged(base):
+            log_dir = os.path.join(base, "sup-toy",
+                                   "graphsage_mean_small_0.0100")
+            for name in ("val_stats.txt", "test_stats.txt"):
+                check(os.path.exists(os.path.join(log_dir, name)),
+                      f"no {name} in {log_dir}")
+            with open(os.path.join(log_dir, "metrics.jsonl")) as fp:
+                recs = [json.loads(line) for line in fp]
+            return ([r["train_loss"] for r in recs if "train_loss" in r],
+                    recs[-1]["final_val_loss"])
+
+        card_losses, card_val = logged(os.path.join(tmp, "card"))
+        cpu_losses, cpu_val = logged(os.path.join(tmp, "cpu"))
+        check(len(card_losses) == len(cpu_losses) > 0,
+              f"{len(card_losses)} vs {len(cpu_losses)} logged losses")
+        diff = max(abs(a - b) for a, b in zip(card_losses + [card_val],
+                                              cpu_losses + [cpu_val]))
+        log(f"supervised CLI on {dev} vs CPU: {len(card_losses)} train "
+            f"losses and the final val loss, max abs diff {diff:.3e} "
+            f"(limit {CLI_TOL}); first/last train loss {card_losses[0]:.5f}"
+            f"/{card_losses[-1]:.5f}, val {card_val:.5f}")
+        check(diff <= CLI_TOL, f"card and CPU training differ by {diff}")
+
+
 def main() -> int:
     import torch
 
@@ -415,6 +830,7 @@ def main() -> int:
         return 2
     from graphsage_tpu_torch.ops import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     card_line = card()
     log(card_line)
@@ -423,18 +839,31 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    _, nvcc_log = build.build("gather_mean")
-    log(f"built gather_mean in {time.perf_counter() - t0:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "Compiling entry" in line or "registers" in line:
-            log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"[phase {name}: {time.perf_counter() - t0:.2f} s]")
+        return result
 
-    kernels = [check_gather_mean(dev, card_line)]
-    kernels[0]["launches"] = serve_full_width(dev)
-    cli_predict(dev)
+    def build_kernels():
+        _, nvcc_log = build.build("gather_mean")
+        for line in nvcc_log.splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+        sass_summary()
 
-    log(json.dumps({"kernels": kernels}))
+    phase("build K1+K2 (gather_mean.cu)", build_kernels)
+    k1 = phase("K1 vs plain", check_gather_mean, dev, card_line)
+    k2 = phase("K2 vs plain", check_gather_mean_dropout, dev, card_line)
+    data = phase("bench data", bench_data, dev)
+    k1["launches"] = phase("serving", serve_full_width, dev, data)
+    phase("predict CLI", cli_predict, dev)
+    k2["launches"] = phase("training", train_full_width, dev, data)
+    phase("fused vs unfused training", fused_vs_unfused_training, dev, data)
+    phase("supervised CLI", cli_supervised, dev)
+    log(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
+
+    log(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,10 +2,11 @@
 
 ``predict`` loads a dataset in the reference file contract, builds the
 full ("test") adjacency, restores a port checkpoint and sweeps the node
-set in fixed-size batches on the device. Ids are padded with the dummy
-node N and masked out; the batches run in a Python loop whose results
-land in preallocated device tensors, copied to the host once at the
-end. It writes ``preds.npy`` ([n, C] sigmoid probabilities or softmax
+set in fixed-size batches on the device (the sweep and its helpers live
+in ``train/supervised.py``, as in the JAX package). Ids are padded with
+the dummy node N and masked out; the batches run in a Python loop whose
+results land in preallocated device tensors, copied to the host once at
+the end. It writes ``preds.npy`` ([n, C] sigmoid probabilities or softmax
 distributions) and ``nodes.txt`` (original node ids), and reports loss
 and micro/macro F1 when the dataset carries labels.
 """
@@ -14,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -22,104 +22,21 @@ import torch
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
 from graphsage_tpu_torch.data.io import load_data
 from graphsage_tpu_torch.device import resolve_device
-from graphsage_tpu_torch.models.graphsage import SAGEConfig
 from graphsage_tpu_torch.models.supervised import (
     SupervisedConfig,
     init_supervised_params,
-    supervised_loss,
-    supervised_predict,
 )
 from graphsage_tpu_torch.train import checkpoint as ckpt
-from graphsage_tpu_torch.train.config import TrainFlags, build_layer_infos
+from graphsage_tpu_torch.train.config import TrainFlags
 from graphsage_tpu_torch.train.metrics import calc_f1
+from graphsage_tpu_torch.train.supervised import (
+    _run_eval_sweep,
+    build_supervised_config,
+    feature_table,
+    make_eval_sweep,
+)
 
 NODE_SETS = ("test", "val", "train", "all")
-FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
-    agg, concat, layers = build_layer_infos(flags, supervised=True)
-    if graph.feature_dim == 0 and flags.identity_dim == 0:
-        raise ValueError(
-            "Must have a positive value for identity feature dimension if no "
-            "input features given."
-        )
-    sage = SAGEConfig(
-        layers=layers,
-        feature_dim=graph.feature_dim,
-        aggregator=agg,
-        concat=concat,
-        model_size=flags.model_size,
-        identity_dim=flags.identity_dim,
-        num_nodes=graph.num_nodes,
-        dropout=flags.dropout,
-        sampler_mode=flags.sampler_mode,
-        fused_gather=flags.fused_gather,
-    )
-    return SupervisedConfig(
-        sage=sage,
-        num_classes=graph.num_classes,
-        sigmoid_loss=flags.sigmoid,
-        weight_decay=flags.weight_decay,
-    )
-
-
-def make_eval_sweep(config: SupervisedConfig, batch_size: int,
-                    num_nodes: int):
-    """sweep(params, features, adj, ids_all, labels_table, generator) ->
-    (per-batch losses [n_b], flat preds [n_b*B, C]), both on the device.
-
-    ``ids_all`` is a dummy-padded id stream of n_b*B ids and
-    ``labels_table`` has N+1 rows (the dummy's row is never scored: the
-    mask is ``ids != N``). Nothing is copied to the host.
-    """
-
-    @torch.inference_mode()
-    def sweep(params, features, adj, ids_all, labels_table, generator=None):
-        n_b = ids_all.shape[0] // batch_size
-        device = ids_all.device
-        losses = torch.zeros(n_b, device=device)
-        preds = torch.zeros(n_b * batch_size, config.num_classes,
-                            device=device)
-        for i in range(n_b):
-            ids = ids_all[i * batch_size:(i + 1) * batch_size]
-            labels = labels_table.index_select(0, ids)
-            mask = (ids != num_nodes).float()
-            loss, logits = supervised_loss(
-                params, features, adj, ids, labels, mask, config,
-                generator=generator, deterministic=True,
-            )
-            losses[i] = loss
-            preds[i * batch_size:(i + 1) * batch_size] = supervised_predict(
-                logits, config
-            )
-        return losses, preds
-
-    return sweep
-
-
-def run_eval_sweep(sweep_fn, params, features, adj, nodes, labels_np,
-                   batch_size: int, num_nodes: int, generator=None):
-    """Pad ``nodes`` into batches, run the sweep on ``adj``'s device and
-    copy the results to the host once -> (mean loss, preds [n, C],
-    labels [n, C], seconds)."""
-    t0 = time.perf_counter()
-    device = adj.device
-    n_b = max(1, -(-len(nodes) // batch_size))
-    ids_all = np.full((n_b * batch_size,), num_nodes, dtype=np.int32)
-    ids_all[: len(nodes)] = nodes
-    labels_table = np.zeros(
-        (num_nodes + 1, labels_np.shape[1]), dtype=np.float32
-    )
-    labels_table[: labels_np.shape[0]] = labels_np
-    losses, preds = sweep_fn(
-        params, features, adj, torch.from_numpy(ids_all).to(device),
-        torch.from_numpy(labels_table).to(device), generator,
-    )
-    host = torch.cat([losses, preds.reshape(-1)]).cpu().numpy()
-    loss = float(np.mean(host[:n_b]))
-    preds = host[n_b:].reshape(n_b * batch_size, -1)[: len(nodes)]
-    return loss, preds, labels_np[nodes], time.perf_counter() - t0
 
 
 def _prepare(flags: TrainFlags, graph, device):
@@ -131,14 +48,7 @@ def _prepare(flags: TrainFlags, graph, device):
     _, _, full_adj_np = build_both_adjs(
         graph, flags.max_degree, seed=flags.seed
     )
-    feats_np = graph.padded_features()
-    if flags.feature_dtype not in FEATURE_DTYPES:
-        raise ValueError(
-            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}"
-        )
-    features = None if feats_np is None else torch.from_numpy(feats_np).to(
-        device=device, dtype=FEATURE_DTYPES[flags.feature_dtype]
-    )
+    features = feature_table(graph, flags, device)
     return graph, features, torch.from_numpy(full_adj_np).to(device)
 
 
@@ -153,14 +63,8 @@ def _restore_params(flags: TrainFlags, config: SupervisedConfig, device):
             f"no checkpoint found under {flags.checkpoint_dir!r}"
         )
     params, step = restored
-    expected = init_supervised_params(torch.Generator(), config)
-    got = {k: tuple(v.shape) for k, v in params.items()}
-    want = {k: tuple(v.shape) for k, v in expected.items()}
-    if got != want:
-        raise ValueError(
-            "checkpoint does not match the model: "
-            f"stored {got}, expected {want}"
-        )
+    ckpt.check_matches(params,
+                       init_supervised_params(torch.Generator(), config))
     if flags.identity_dim > 0:
         print(
             "WARNING: identity_dim > 0 is transductive: the identity table "
@@ -213,7 +117,7 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
     params, step = _restore_params(flags, config, device)
     sweep = make_eval_sweep(config, flags.batch_size, graph.num_nodes)
     generator = torch.Generator(device=device).manual_seed(flags.seed + 1)
-    loss, preds, labels, dt = run_eval_sweep(
+    loss, preds, labels, dt = _run_eval_sweep(
         sweep, params, features, full_adj, node_idx, labels_np,
         flags.batch_size, graph.num_nodes, generator,
     )

@@ -30,6 +30,14 @@ from graphsage_tpu_torch.nn.aggregators import (
 from graphsage_tpu_torch.nn.init import glorot
 from graphsage_tpu_torch.nn.sampler import uniform_sample
 from graphsage_tpu_torch.ops.gather import fused_gather_mean
+from graphsage_tpu_torch.ops.philox import philox_dropout
+
+# Tags (the last counter word of the Philox streams) of the two masks of
+# the fused innermost hop, the JAX package's fold_in tags: K2 masks the
+# feature columns of the neighbor rows, the identity tag the identity
+# columns of the same rows.
+KERNEL_DROP_TAG = 0x5EED
+IDENTITY_DROP_TAG = 0x1D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +123,14 @@ def sample_frontier(generator, adj, ids, fanouts: Sequence[int],
 
 
 def gather_features(params, features, idx, config: SAGEConfig):
-    """Float32 rows of one frontier: [identity embedding | features]."""
+    """Rows of one frontier: [identity embedding | features], in the
+    table's dtype (a bf16 table's rows stay bf16, as ``jnp.take``
+    keeps them; with an identity table ``torch.cat`` promotes to f32)."""
     parts = []
     if config.identity_dim > 0:
         parts.append(params["embeds"].index_select(0, idx))
     if features is not None and config.feature_dim > 0:
-        parts.append(features.index_select(0, idx).float())
+        parts.append(features.index_select(0, idx))
     if len(parts) == 1:
         return parts[0]
     return torch.cat(parts, dim=1)
@@ -175,15 +185,19 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
 
 def sage_embed(params, features, adj, ids, config: SAGEConfig,
                generator: torch.Generator | None = None,
-               deterministic: bool = True):
+               deterministic: bool = True,
+               drop_key: tuple[int, int] | None = None):
     """Sample -> gather -> aggregate: [B] ids -> [B, out] raw
     (un-normalized) embeddings. ``generator`` (on ``adj``'s device)
     drives the sampler and, when not ``deterministic``, dropout.
 
     With ``config.fused_gather`` the mean and gcn aggregators reduce the
-    innermost hop with ``fused_gather_mean``; an identity table's columns
-    of those rows take a plain gather and mean beside it (the kernel
-    reads only the feature table).
+    innermost hop with ``fused_gather_mean`` (f32 mean, as the JAX
+    package's fused path); an identity table's columns of those rows
+    take a plain gather and mean beside it (the kernel reads only the
+    feature table). Training with dropout draws that hop's masks from
+    Philox streams: ``drop_key`` = (seed, step), host integers, with the
+    tags above, so each step's masks differ and nothing is read back.
     """
     samples = sample_frontier(generator, adj, ids, config.fanouts,
                               mode=config.sampler_mode)
@@ -195,17 +209,24 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     )
     last_mean = None
     if fused:
-        if not deterministic and config.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout inside the fused gather-mean comes with the "
-                "training slice of the PyTorch port (ROADMAP.md)"
+        inner_drop = 0.0 if deterministic else config.dropout
+        if inner_drop > 0.0 and drop_key is None:
+            raise ValueError(
+                "training the fused path with dropout needs drop_key=(seed, "
+                "step) for the in-kernel mask"
             )
+        seed, step = drop_key if inner_drop > 0.0 else (None, 0)
         inner_fanout = config.fanouts[0]
         last_mean = fused_gather_mean(
-            features, samples[-1].reshape(-1, inner_fanout)
+            features, samples[-1].reshape(-1, inner_fanout),
+            drop_rate=inner_drop, seed=seed,
+            offset=(step, KERNEL_DROP_TAG) if inner_drop > 0.0 else None,
         )
         if config.identity_dim > 0:
             id_rows = params["embeds"].index_select(0, samples[-1])
+            if inner_drop > 0.0:
+                id_rows = philox_dropout(id_rows, inner_drop, seed, step,
+                                         IDENTITY_DROP_TAG)
             id_mean = id_rows.view(-1, inner_fanout,
                                    config.identity_dim).mean(dim=1)
             last_mean = torch.cat([id_mean, last_mean], dim=1)

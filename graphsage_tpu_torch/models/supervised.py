@@ -1,8 +1,9 @@
 """Supervised GraphSAGE: embed -> l2-normalize -> dense head -> loss.
 
 Sigmoid (multilabel) or softmax loss over a mask-weighted batch mean,
-plus weight decay over the aggregator projections and the head. The
-optimizer comes with the training slice.
+plus weight decay over the aggregator projections and the head (in the
+loss, never in the optimizer), and the optimizer: each gradient element
+clipped to +-5, then Adam.
 """
 
 from __future__ import annotations
@@ -43,9 +44,11 @@ def init_supervised_params(generator: torch.Generator,
 
 
 def supervised_logits(params, features, adj, ids, config: SupervisedConfig,
-                      generator=None, deterministic: bool = True):
+                      generator=None, deterministic: bool = True,
+                      drop_key=None):
     emb = sage_embed(params, features, adj, ids, config.sage,
-                     generator=generator, deterministic=deterministic)
+                     generator=generator, deterministic=deterministic,
+                     drop_key=drop_key)
     return apply_dense(
         head_params(params), l2_normalize(emb, dim=1), act=None,
         dropout_rate=config.sage.dropout, generator=generator,
@@ -64,12 +67,14 @@ def _sigmoid_xent(logits, labels):
 
 def supervised_loss(params, features, adj, ids, labels, mask,
                     config: SupervisedConfig, generator=None,
-                    deterministic: bool = False):
+                    deterministic: bool = False, drop_key=None):
     """(masked mean loss + weight decay, logits). The sigmoid loss sums
-    over classes per node and divides by C; softmax reduces per node."""
+    over classes per node and divides by C; softmax reduces per node.
+    ``drop_key`` = (seed, step) keys the fused hop's dropout masks."""
     logits = supervised_logits(params, features, adj, ids, config,
                                generator=generator,
-                               deterministic=deterministic)
+                               deterministic=deterministic,
+                               drop_key=drop_key)
     if config.sigmoid_loss:
         per_node = _sigmoid_xent(logits, labels) / config.num_classes
     else:
@@ -89,3 +94,66 @@ def supervised_predict(logits, config: SupervisedConfig):
     if config.sigmoid_loss:
         return torch.sigmoid(logits)
     return torch.softmax(logits, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClippedAdam:
+    """``optax.chain(optax.clip(clip), optax.adam(lr, b1, b2, eps))`` over
+    the flat parameter dict: every gradient element clipped to
+    +-``clip``, then ``torch.optim.Adam``, whose step is optax's formula
+    (eps added outside the square root of the bias-corrected second
+    moment). ``init`` gives the optimizer state, the ``torch.optim.Adam``
+    that holds the moments; ``update`` applies one step in place."""
+
+    learning_rate: float
+    clip: float = 5.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: dict) -> torch.optim.Adam:
+        for p in params.values():
+            p.requires_grad_(True)
+        return torch.optim.Adam(list(params.values()), lr=self.learning_rate,
+                                betas=(self.b1, self.b2), eps=self.eps)
+
+    def update(self, opt_state: torch.optim.Adam, params: dict) -> None:
+        with torch.no_grad():
+            for p in params.values():
+                if p.grad is None:   # optax steps every leaf
+                    p.grad = torch.zeros_like(p)
+                p.grad.clamp_(-self.clip, self.clip)
+        opt_state.step()
+
+    @staticmethod
+    def state_dict(opt_state: torch.optim.Adam, params: dict) -> dict:
+        """The moments as optax keeps them: {"count": int, "mu": {key:
+        tensor}, "nu": {key: tensor}}, keyed by the parameter paths."""
+        count, mu, nu = 0, {}, {}
+        for k, p in params.items():
+            st = opt_state.state.get(p)
+            if st:
+                count = int(st["step"])
+                mu[k], nu[k] = st["exp_avg"].detach(), st["exp_avg_sq"].detach()
+            else:
+                mu[k], nu[k] = torch.zeros_like(p), torch.zeros_like(p)
+        return {"count": count, "mu": mu, "nu": nu}
+
+    @staticmethod
+    def load_state_dict(opt_state: torch.optim.Adam, params: dict,
+                        state: dict) -> None:
+        """Inverse of ``state_dict``: set every parameter's moments and
+        the step count."""
+        for k, p in params.items():
+            opt_state.state[p] = {
+                "step": torch.tensor(float(state["count"]),
+                                     dtype=torch.float32),
+                "exp_avg": state["mu"][k].to(p).clone(),
+                "exp_avg_sq": state["nu"][k].to(p).clone(),
+            }
+
+
+def make_optimizer(learning_rate: float, clip: float = 5.0) -> ClippedAdam:
+    """Adam (b1 0.9, b2 0.999, eps 1e-8) after clipping each gradient
+    element to +-``clip``, as the JAX package's ``make_optimizer``."""
+    return ClippedAdam(learning_rate, clip)

@@ -8,6 +8,12 @@ Both drop out both inputs. Each takes the neighbor input either as
 gather-mean kernel produces; the pre-reduced form skips the neighbor
 dropout (the kernel's caller owns it). The pooling and seq aggregators
 are later slices of the port.
+
+Rows of a bf16 feature table stay bf16 through dropout and the
+neighbor mean, which is rounded to bf16 as ``jnp.mean`` rounds it (an
+f32 sum and division, then the cast); only the matrix product promotes
+them to f32, as ``jnp.dot(bf16, f32, preferred_element_type=f32)``
+does in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +28,15 @@ _LATER_SLICES = {
     "twomaxpool": "the pooling slice",
     "seq": "the seq/LSTM slice",
 }
+
+
+def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Mean in f32, returned in ``x``'s dtype."""
+    return x.float().mean(dim=dim).to(x.dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.to(w.dtype) @ w
 
 
 def _combine(from_self, from_neighs, params, act, concat):
@@ -57,9 +72,9 @@ def apply_mean(params, self_vecs, neigh_vecs, *, act, concat,
     if neigh_vecs.dim() == 2:
         neigh_means = neigh_vecs
     else:
-        neigh_means = neigh_vecs.mean(dim=1)
-    from_neighs = neigh_means @ params["neigh_w"]
-    from_self = self_vecs @ params["self_w"]
+        neigh_means = _mean(neigh_vecs, 1)
+    from_neighs = _dot(neigh_means, params["neigh_w"])
+    from_self = _dot(self_vecs, params["self_w"])
     return _combine(from_self, from_neighs, params, act, concat)
 
 
@@ -89,9 +104,9 @@ def apply_gcn(params, self_vecs, neigh_vecs, *, act, concat,
             1.0 / (n_samples + 1)
         )
     else:
-        means = torch.cat([neigh_vecs, self_vecs[:, None, :]],
-                          dim=1).mean(dim=1)
-    out = means @ params["w"]
+        means = _mean(torch.cat([neigh_vecs, self_vecs[:, None, :]], dim=1),
+                      1)
+    out = _dot(means, params["w"])
     if "b" in params:
         out = out + params["b"]
     return act(out)

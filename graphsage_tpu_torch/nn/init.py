@@ -28,9 +28,12 @@ def zeros(shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
 def dropout(generator: torch.Generator | None, x: torch.Tensor, rate: float,
             deterministic: bool) -> torch.Tensor:
     """TF-style dropout: zero with prob ``rate``, scale kept by
-    1/(1-rate). ``generator`` lives on ``x``'s device."""
+    1/(1-rate), in ``x``'s dtype. ``generator`` lives on ``x``'s device.
+    ``keep`` is rounded to that dtype first, as JAX rounds the weakly
+    typed ``x / keep``."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    keep_x = float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(mask, x / keep_x, torch.zeros_like(x))

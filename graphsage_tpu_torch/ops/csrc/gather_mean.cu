@@ -1,10 +1,13 @@
-// Fused gather + neighbour mean for Hopper (sm_90a).
+// Fused gather + neighbour mean for Hopper (sm_90a), with and without
+// per-element dropout.
 //
-//   out[b, :] = (1/S) * sum_s feat[idx[b, s], :]      feat [N, F], idx [B, S]
+//   K1: out[b, :] = (1/S) * sum_s feat[idx[b, s], :]   feat [N, F], idx [B, S]
+//   K2: out[b, :] = (1/S) * sum_s keep[b,s,:] * scale * feat[idx[b, s], :]
 //
-// Replaces graphsage_tpu/ops/gather.py::_gather_mean_kernel (the
-// drop_rate=0 path of fused_gather_mean): the [B*S, F] gather is never
-// written to device memory, only the [B, F] f32 mean.
+// K1 replaces graphsage_tpu/ops/gather.py::_gather_mean_kernel (the
+// drop_rate=0 path of fused_gather_mean); K2 replaces the same kernel
+// with drop_rate>0 (_inkernel_dropout). The [B*S, F] gather and the
+// mask are never written to device memory, only the [B, F] f32 mean.
 //
 // What bounds it on the H100: memory bytes. Counting each distinct
 // gathered row once (repeats of a zipf hub row come from L2), plus the
@@ -27,6 +30,31 @@
 // a shared-memory cache), asynchronous copies (cp.async / TMA) to
 // overlap the S row loads, and several output rows per block for
 // narrow F.
+//
+// K2's random bits: the TPU kernel reseeds its on-chip generator per
+// grid step, which relies on the grid running in order. Hopper's blocks
+// run in no order, so K2 uses a counter-based generator instead,
+// Philox4x32-10 (Random123), keyed by a 64-bit seed, with the element
+// group's 64-bit index in two counter words and (step, tag) in the other
+// two. Every element's bits are a pure function of its position, which
+// graphsage_tpu_torch/ops/philox.py defines and computes the same way:
+//   row r = b*S + s, group g = r*ceil(F/4) + f/4, word f%4 of
+//   philox(g lo, g hi, step, tag; seed lo, seed hi); kept iff word < t.
+// Seed, step and tag arrive by value, so nothing is read back per step.
+//
+// What bounds K2: operations, not bytes. Its bytes are K1's, but one
+// Philox call per four elements costs 10 rounds of two 32x32->64
+// multiplies and two three-input XORs (the key schedule is the same
+// for every thread), about 10 integer instructions per element plus the
+// compare: at the serving hop shape (77M elements) that is of order
+// 0.05 ms at the H100's int32 rate, above the ~0.02 ms bytes bound.
+// Design (simple and correct first): K1's block-per-row layout; each
+// thread owns chunks of W = max(4, VEC) columns, i.e. whole Philox
+// groups, so each call's four words serve four elements; the chunk is
+// loaded VEC elements at a time (VEC divides F, so a vector is all in
+// or all out of the row; a row's last chunk may be partial). Left to a
+// later PR: fewer rounds or fewer bits per element, and overlapping the
+// generator with the row loads.
 //
 // Plain C interface for ctypes; each entry point returns
 // cudaGetLastError() after its launch.
@@ -83,17 +111,127 @@ __global__ void gather_mean_kernel(const T* __restrict__ feat,
   }
 }
 
+// Random123's Philox4x32 with 10 rounds.
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const uint32_t lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
+    const uint32_t lo1 = kPhiloxM1 * c.z;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+template <typename T, int VEC>
+__global__ void gather_mean_dropout_kernel(
+    const T* __restrict__ feat, const int32_t* __restrict__ idx,
+    float* __restrict__ out, int64_t n_rows, int S, int F, float inv_s,
+    uint32_t seed_lo, uint32_t seed_hi, uint32_t step, uint32_t tag,
+    uint32_t threshold, float scale) {
+  constexpr int W = VEC > 4 ? VEC : 4;  // columns per chunk: whole groups
+  extern __shared__ int64_t row_off[];
+  const int64_t b = blockIdx.x;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const int64_t r = idx[b * S + s];
+    if (r < 0 || r >= n_rows) __trap();
+    row_off[s] = r * F;
+  }
+  __syncthreads();
+
+  const int n_chunks = (F + W - 1) / W;
+  const int64_t groups_per_row = (F + 3) / 4;
+  float* out_row = out + b * F;
+  for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
+    const int col0 = c * W;
+    float acc[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) acc[k] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const int64_t g0 = (b * S + s) * groups_per_row + col0 / 4;
+      uint32_t bits[W];
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        const uint64_t g = static_cast<uint64_t>(g0 + q);
+        const uint4 r = philox4x32_10(
+            make_uint4(static_cast<uint32_t>(g),
+                       static_cast<uint32_t>(g >> 32), step, tag),
+            seed_lo, seed_hi);
+        bits[4 * q] = r.x;
+        bits[4 * q + 1] = r.y;
+        bits[4 * q + 2] = r.z;
+        bits[4 * q + 3] = r.w;
+      }
+#pragma unroll
+      for (int j = 0; j < W / VEC; ++j) {
+        const int col = col0 + j * VEC;
+        if (col < F) {
+          const Vec<T, VEC> x =
+              *reinterpret_cast<const Vec<T, VEC>*>(feat + row_off[s] + col);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float v = to_float(x.v[k]) * scale;
+            acc[j * VEC + k] += bits[j * VEC + k] < threshold ? v : 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W / VEC; ++j) {
+      const int col = col0 + j * VEC;
+      if (col < F) {
+        Vec<float, VEC> y;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) y.v[k] = acc[j * VEC + k] * inv_s;
+        *reinterpret_cast<Vec<float, VEC>*>(out_row + col) = y;
+      }
+    }
+  }
+}
+
+int block_threads(int work_items) {
+  int threads = (work_items + 31) / 32 * 32;
+  return threads > 1024 ? 1024 : threads;
+}
+
 template <typename T, int VEC>
 int launch(const void* feat, const void* idx, void* out, long long n_rows,
            int B, int S, int F, void* stream) {
-  const int n_vec = F / VEC;
-  int threads = (n_vec + 31) / 32 * 32;
-  if (threads > 1024) threads = 1024;
   const size_t smem = static_cast<size_t>(S) * sizeof(int64_t);
   gather_mean_kernel<T, VEC>
-      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<B, block_threads(F / VEC), smem,
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
           static_cast<float*>(out), n_rows, S, F, 1.0f / S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_dropout(const void* feat, const void* idx, void* out,
+                   long long n_rows, int B, int S, int F,
+                   unsigned long long seed, unsigned int step,
+                   unsigned int tag, unsigned int threshold, float scale,
+                   void* stream) {
+  constexpr int W = VEC > 4 ? VEC : 4;
+  const size_t smem = static_cast<size_t>(S) * sizeof(int64_t);
+  gather_mean_dropout_kernel<T, VEC>
+      <<<B, block_threads((F + W - 1) / W), smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
+          static_cast<float*>(out), n_rows, S, F, 1.0f / S,
+          static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
+          step, tag, threshold, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,6 +266,38 @@ int graphsage_gather_mean_bf16(const void* feat, const void* idx, void* out,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// K2: as above, plus the generator's seed, the (step, tag) counter
+// words, the keep threshold and the 1/keep scale.
+#define GRAPHSAGE_DROPOUT_ARGS                                              \
+  feat, idx, out, n_rows, B, S, F, seed, step, tag, threshold, scale, stream
+
+int graphsage_gather_mean_dropout_f32(
+    const void* feat, const void* idx, void* out, long long n_rows, int B,
+    int S, int F, int vec, unsigned long long seed, unsigned int step,
+    unsigned int tag, unsigned int threshold, float scale, void* stream) {
+  switch (vec) {
+    case 1: return launch_dropout<float, 1>(GRAPHSAGE_DROPOUT_ARGS);
+    case 2: return launch_dropout<float, 2>(GRAPHSAGE_DROPOUT_ARGS);
+    case 4: return launch_dropout<float, 4>(GRAPHSAGE_DROPOUT_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int graphsage_gather_mean_dropout_bf16(
+    const void* feat, const void* idx, void* out, long long n_rows, int B,
+    int S, int F, int vec, unsigned long long seed, unsigned int step,
+    unsigned int tag, unsigned int threshold, float scale, void* stream) {
+  switch (vec) {
+    case 1: return launch_dropout<__nv_bfloat16, 1>(GRAPHSAGE_DROPOUT_ARGS);
+    case 2: return launch_dropout<__nv_bfloat16, 2>(GRAPHSAGE_DROPOUT_ARGS);
+    case 4: return launch_dropout<__nv_bfloat16, 4>(GRAPHSAGE_DROPOUT_ARGS);
+    case 8: return launch_dropout<__nv_bfloat16, 8>(GRAPHSAGE_DROPOUT_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef GRAPHSAGE_DROPOUT_ARGS
 
 const char* graphsage_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,0 +1,91 @@
+"""The supervised training step and the chunk runner, on one device.
+
+The JAX package jits one function per step (forward, backward, the
+clipped Adam update) and runs a chunk of steps in one ``fori_loop``
+dispatch over a device-resident epoch stream. Here the step runs
+eagerly and a Python loop over the chunk's steps takes the place of the
+``fori_loop``: the epoch's id stream and the label table stay on the
+device, each step slices its ids and takes its labels there, and
+nothing is copied to the host inside a chunk. The host synchronises
+only where the caller reads a result (the print and validate
+boundaries of ``train/supervised.py``).
+"""
+
+from __future__ import annotations
+
+from graphsage_tpu_torch.models.supervised import (
+    SupervisedConfig,
+    supervised_loss,
+)
+
+
+def _require_num_nodes(num_nodes: int, stream: str = "stream") -> None:
+    """Factories that pad device-resident streams with the dummy id
+    ``num_nodes`` must reject an unset config: left at the default 0,
+    the pad id would silently mask out node 0 instead of the pad rows."""
+    if num_nodes <= 0:
+        raise ValueError(
+            "config.sage.num_nodes must be set (> 0): it is the dummy "
+            f"pad id for the device-resident {stream} — left at the "
+            "default 0 it would silently mask out node 0 instead of "
+            "the pad rows"
+        )
+
+
+def make_supervised_train_step(config: SupervisedConfig, optimizer):
+    """step(params, opt_state, generator, features, adj, ids, labels,
+    mask, drop_key=None) -> (params, opt_state, loss, logits).
+
+    ``params`` (a flat dict of leaf tensors) and ``opt_state`` (from
+    ``optimizer.init(params)``) are updated in place and returned.
+    ``generator`` drives the sampler and the plain dropouts;
+    ``drop_key`` = (seed, step) keys the fused hop's in-kernel dropout.
+    """
+
+    def step(params, opt_state, generator, features, adj, ids, labels, mask,
+             drop_key=None):
+        opt_state.zero_grad(set_to_none=True)
+        loss, logits = supervised_loss(
+            params, features, adj, ids, labels, mask, config,
+            generator=generator, deterministic=False, drop_key=drop_key,
+        )
+        loss.backward()
+        optimizer.update(opt_state, params)
+        return params, opt_state, loss.detach(), logits.detach()
+
+    return step
+
+
+def make_supervised_chunk_runner(config: SupervisedConfig, optimizer,
+                                 batch_size: int):
+    """runner(params, opt_state, generator, features, adj, ids_perm,
+    labels_table, start_step, n_steps, drop_seed=0) -> (params,
+    opt_state, last_loss, last_logits, last_ids).
+
+    Runs steps ``start_step .. start_step + n_steps - 1`` of an epoch
+    whose shuffled, dummy-padded id stream ``ids_perm`` and label table
+    (N+1 rows) live on the device; step i reads ids
+    ``ids_perm[i*B:(i+1)*B]``, masks them with ``ids != N`` and keys its
+    in-kernel dropout with (``drop_seed``, i), as the JAX runner folds
+    the step index into its key. Results stay on the device.
+    """
+    num_nodes = config.sage.num_nodes
+    _require_num_nodes(num_nodes, "id stream")
+    step_fn = make_supervised_train_step(config, optimizer)
+
+    def runner(params, opt_state, generator, features, adj, ids_perm,
+               labels_table, start_step: int, n_steps: int,
+               drop_seed: int = 0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        for i in range(start_step, start_step + n_steps):
+            ids = ids_perm[i * batch_size:(i + 1) * batch_size]
+            labels = labels_table.index_select(0, ids)
+            mask = (ids != num_nodes).float()
+            params, opt_state, loss, logits = step_fn(
+                params, opt_state, generator, features, adj, ids, labels,
+                mask, drop_key=(drop_seed, i),
+            )
+        return params, opt_state, loss, logits, ids
+
+    return runner

@@ -1,7 +1,7 @@
 """Typed configuration mirroring the reference flag surface.
 
-The fields are those the port's serving path reads; the training,
-unsupervised and multi-device fields come with their slices.
+The fields are those the port's serving and supervised training paths
+read; the unsupervised and multi-device fields come with their slices.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class TrainFlags:
     learning_rate: float = 0.01
     model_size: str = "small"
     train_prefix: str = ""
+    epochs: int = 10
     dropout: float = 0.0
     weight_decay: float = 0.0
     max_degree: int = 128
@@ -43,11 +44,17 @@ class TrainFlags:
     sigmoid: bool = False
     identity_dim: int = 0
     base_log_dir: str = "."
+    validate_iter: int = 5000
+    validate_batch_size: int = 256   # -1: the full val set
+    print_every: int = 5
+    max_total_steps: int = 10**10
     sampler_mode: str = "shared_perm"  # or "independent", "first_k"
     fused_gather: bool = True   # CUDA gather+mean for the innermost hop
     feature_dtype: str = "float32"  # or "bfloat16"
     seed: int = 123
-    checkpoint_dir: str = ""    # torch checkpoint root
+    checkpoint_dir: str = ""    # torch checkpoint root ("" = disabled)
+    checkpoint_every: int = 0   # steps; 0 = only at the end
+    resume: bool = False
 
     def log_dir(self, task: str) -> str:
         """Reference layout: <base>/<sup|unsup>-<data>/<model>_<size>_<lr>/

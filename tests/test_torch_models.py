@@ -2,6 +2,8 @@
 graphsage_tpu/models under the deterministic first_k sampler, with the
 JAX package's weights carried across by the bridge."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,11 +68,8 @@ def test_sage_embed_matches_jax(toy, aggregator, layers, identity_dim,
 
 
 def test_bf16_table_single_layer_matches_jax(toy):
-    """A bf16 table where both packages average in f32: a one-layer model
-    has only the innermost hop, which the fused path reduces in f32 on
-    both sides. (Deeper models differ: the JAX package rounds the outer
-    hops' neighbor mean of bf16 rows to bf16, the port does not;
-    ROADMAP.md, section C.)"""
+    """A bf16 table in a one-layer model: only the innermost hop, which
+    both packages' fused paths reduce in f32."""
     g, feats, adj, ids = toy
     jcfg, tcfg = _configs("mean", ((4, 8),), 0, True, g.num_nodes)
     jparams = jg.init_sage_params(jax.random.key(0), jcfg)
@@ -82,6 +81,53 @@ def test_bf16_table_single_layer_matches_jax(toy):
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("aggregator,identity_dim,fused", [
+    ("mean", 0, True), ("gcn", 0, True), ("mean", 4, True),
+    ("mean", 0, False), ("gcn", 0, False),
+])
+def test_bf16_table_two_layers_matches_jax(toy, aggregator, identity_dim,
+                                           fused):
+    """The outer hops' bf16 rows stay bf16 through the neighbor mean,
+    which rounds to bf16 as jnp.mean does; then one training step (loss,
+    gradients, Adam) on both sides. Tolerances as the f32 tests: the
+    rounding points are the same, the f32 sums differ in order only."""
+    from graphsage_tpu.parallel import dp as jdp
+    from graphsage_tpu_torch.parallel import dp as tdp
+
+    g, feats, adj, ids = toy
+    jcfg, tcfg = _configs(aggregator, FANOUTS_2, identity_dim, fused,
+                          g.num_nodes)
+    jparams = jg.init_sage_params(jax.random.key(0), jcfg)
+    jfeats = jnp.asarray(feats, dtype=jnp.bfloat16)
+    tfeats = t(feats).to(torch.bfloat16)
+    ref = jg.sage_embed(jparams, jfeats, jnp.asarray(adj), jnp.asarray(ids),
+                        jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), tfeats, t(adj), t(ids), tcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+    jsup = js.SupervisedConfig(sage=jcfg, num_classes=3)
+    tsup = ts.SupervisedConfig(sage=tcfg, num_classes=3)
+    labels = np.eye(3, dtype=np.float32)[g.labels[ids[:-1]].argmax(1)]
+    labels = np.concatenate([labels, np.zeros((1, 3), np.float32)])
+    mask = (ids != g.num_nodes).astype(np.float32)
+    jsp = js.init_supervised_params(jax.random.key(2), jsup)
+    jopt = js.make_optimizer(0.01)
+    jnew, _, jloss, _ = jdp.make_supervised_train_step(jsup, jopt)(
+        jsp, jopt.init(jsp), jax.random.key(0), jfeats, jnp.asarray(adj),
+        jnp.asarray(ids), jnp.asarray(labels), jnp.asarray(mask))
+    params = port_params(jsp)
+    opt = ts.make_optimizer(0.01)
+    params, _, loss, _ = tdp.make_supervised_train_step(tsup, opt)(
+        params, opt.init(params), None, tfeats, t(adj), t(ids), t(labels),
+        t(mask))
+    np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5)
+    want = port_params(jnew)
+    for k, v in params.items():
+        np.testing.assert_allclose(v.detach().numpy(), want[k].numpy(),
+                                   atol=1e-4, err_msg=k)
 
 
 def test_frontier_order(toy):
@@ -98,14 +144,47 @@ def test_frontier_order(toy):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_fused_training_dropout_is_a_later_slice(toy):
+@pytest.mark.parametrize("aggregator,identity_dim", [
+    ("mean", 0), ("gcn", 0), ("mean", 4),
+])
+def test_fused_training_dropout_trains(toy, aggregator, identity_dim):
+    """dropout > 0 keeps the fused path (K2's plain version on the CPU):
+    the training forward is finite, deterministic for one (seed, step)
+    and stochastic across steps, parameter gradients flow, and eval is
+    unaffected by the dropout setting."""
     g, feats, adj, ids = toy
-    _, tcfg = _configs("mean", FANOUTS_2, 0, True, g.num_nodes)
-    tcfg = tg.SAGEConfig(**{**tcfg.__dict__, "dropout": 0.5})
+    _, tcfg = _configs(aggregator, FANOUTS_2, identity_dim, True,
+                       g.num_nodes)
+    tcfg = dataclasses.replace(tcfg, dropout=0.3)
     params = tg.init_sage_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tg.sage_embed(params, t(feats), t(adj), t(ids), tcfg,
-                      generator=torch.Generator(), deterministic=False)
+    args = (t(feats), t(adj), t(ids), tcfg)
+
+    def train_fwd(p, step):
+        return tg.sage_embed(p, *args,
+                             generator=torch.Generator().manual_seed(1),
+                             deterministic=False, drop_key=(99, step))
+
+    out = train_fwd(params, 0)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, train_fwd(params, 0))
+    assert not torch.equal(out, train_fwd(params, 1))
+    with pytest.raises(ValueError, match="drop_key"):
+        tg.sage_embed(params, *args, generator=torch.Generator(),
+                      deterministic=False)
+
+    for p in params.values():
+        p.requires_grad_(True)
+    grads = torch.autograd.grad((train_fwd(params, 0) ** 2).sum(),
+                                list(params.values()))
+    assert all(torch.isfinite(gr).all() for gr in grads)
+    assert any(float(gr.abs().max()) > 0 for gr in grads)
+
+    with torch.no_grad():
+        out_eval = tg.sage_embed(params, *args)
+        out_eval0 = tg.sage_embed(params, t(feats), t(adj), t(ids),
+                                  dataclasses.replace(tcfg, dropout=0.0))
+    np.testing.assert_allclose(out_eval.numpy(), out_eval0.numpy(),
+                               rtol=1e-6)
 
 
 def test_l2_normalize_matches_jax():

@@ -1,7 +1,9 @@
 """The port's gather-mean (graphsage_tpu_torch/ops/gather.py) against the
-JAX package's Pallas kernel (interpret mode) and reference, and the
-wrapper's CPU/CUDA routing."""
+JAX package's Pallas kernel (interpret mode) and reference, the plain
+version of K2 (Philox dropout inside the gather-mean) and its generator,
+and the wrapper's CPU/CUDA routing."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,9 +11,10 @@ import torch
 
 from graphsage_tpu.ops.gather import fused_gather_mean as jax_fused
 from graphsage_tpu.ops.gather import gather_mean_reference as jax_reference
-from graphsage_tpu_torch.ops import build, gather
+from graphsage_tpu_torch.ops import build, gather, philox
 from graphsage_tpu_torch.ops.gather import (
     fused_gather_mean,
+    gather_mean_dropout_reference,
     gather_mean_reference,
 )
 from tests._torch_common import t
@@ -104,3 +107,126 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build("gather_mean")
     assert not any(tmp_path.iterdir())
+
+
+# ------------------------------------------------- K2: Philox dropout
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     "408f276d 41c83b0e a20bc7c6 6d5451fd"),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0), "d16cfe09 94fdcceb 5001e420 24126ea1"),
+])
+def test_philox_known_answers(counter, key, want):
+    """Random123's known-answer vectors for Philox4x32-10."""
+    words = philox.philox4x32([torch.tensor([c]) for c in counter], key)
+    assert " ".join(f"{int(w[0]):08x}" for w in words) == want
+
+
+def test_mulhilo_is_the_64bit_product():
+    rng = np.random.default_rng(0)
+    b = np.concatenate([rng.integers(0, 2**32, 1000), [0, 2**32 - 1]])
+    for a in (philox.PHILOX_M0, philox.PHILOX_M1, 2**32 - 1):
+        hi, lo = philox._mulhilo(a, torch.from_numpy(b))
+        prod = [a * int(x) for x in b]
+        assert hi.tolist() == [p >> 32 for p in prod]
+        assert lo.tolist() == [p & 0xFFFFFFFF for p in prod]
+
+
+def _ones_s1(n_rows=2048, F=64, seed=0):
+    """An all-ones table and S=1 idx: the output is the mask times
+    1/keep, element by element."""
+    idx = np.random.default_rng(seed).integers(0, 32, (n_rows, 1),
+                                               dtype=np.int32)
+    return torch.ones(32, F), t(idx)
+
+
+def test_dropout_plain_statistics():
+    table, idx = _ones_s1()   # 131072 elements
+    out = fused_gather_mean(table, idx, 0.4, seed=7, offset=(0, 0x5EED))
+    assert abs(float((out == 0).float().mean()) - 0.4) < 0.02
+    kept = out[out != 0]
+    assert torch.equal(kept, torch.full_like(kept, np.float32(1 / 0.6)))
+
+
+def test_dropout_plain_streams():
+    """Deterministic for one (seed, step, tag); another seed, step or
+    tag gives another mask; identical rows far apart differ."""
+    table, idx = _ones_s1(n_rows=512)
+
+    def mask(seed=7, step=3, tag=1, ids=idx):
+        return fused_gather_mean(table, ids, 0.5, seed=seed,
+                                 offset=(step, tag)) == 0
+
+    base = mask()
+    assert torch.equal(base, mask())
+    for other in (mask(seed=8), mask(step=4), mask(tag=2),
+                  mask(seed=7 + 2**32)):
+        assert not torch.equal(base, other)
+    same = mask(ids=torch.zeros(4096, 1, dtype=torch.int32))
+    assert not torch.equal(same[:2048], same[2048:])
+
+
+def test_dropout_plain_zero_rate_is_the_mean():
+    feats, idx = _inputs(8, 5, 16, seed=2)
+    out = fused_gather_mean(t(feats), t(idx), 0.0, seed=1, offset=(0, 0))
+    assert torch.equal(out, gather_mean_reference(t(feats), t(idx)))
+    assert torch.equal(
+        philox.philox_dropout(t(feats), 0.0, 1, 0, 0), t(feats))
+
+
+def test_dropout_plain_matches_jax_fallback_statistics():
+    """The JAX package's fallback (tests/test_ops.py) on the same input:
+    the same zero fraction up to sampling noise and the same 1/keep."""
+    table, idx = _ones_s1()
+    ours = fused_gather_mean(table, idx, 0.4, seed=7, offset=(0, 1)).numpy()
+    theirs = np.asarray(jax_fused(jnp.asarray(table.numpy()),
+                                  jnp.asarray(idx.numpy()), drop_rate=0.4,
+                                  drop_key=jax.random.key(7)))
+    assert abs((ours == 0).mean() - (theirs == 0).mean()) < 0.01
+    np.testing.assert_allclose(ours[ours != 0], theirs[theirs != 0][0],
+                               rtol=1e-6)
+
+
+def test_dropout_plain_is_the_element_mask():
+    """K2's plain version equals an explicit mask over [B*S, F] rows."""
+    feats, idx = _inputs(6, 5, 13, seed=4)
+    out = gather_mean_dropout_reference(t(feats), t(idx), 0.3, 5, (2, 9))
+    keep = philox.dropout_keep_mask(30, 13, 0.3, 5, 2, 9).numpy()
+    bits = philox.dropout_bits(30, 13, 5, 2, 9).numpy()
+    assert np.array_equal(keep, bits < philox.dropout_threshold(0.3))
+    rows = np.where(keep, feats[idx.reshape(-1)] * np.float32(1 / 0.7), 0)
+    np.testing.assert_allclose(out.numpy(), rows.reshape(6, 5, 13).mean(1),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(drop_rate=0.5), "seed and offset"),
+    (dict(drop_rate=0.5, seed=1), "seed and offset"),
+    (dict(drop_rate=1.0, seed=1, offset=(0, 0)), "drop_rate"),
+    (dict(drop_rate=-0.1), "drop_rate"),
+    (dict(drop_rate=0.5, seed=-1, offset=(0, 0)), "seed"),
+    (dict(drop_rate=0.5, seed=1, offset=(2**32, 0)), "step and tag"),
+])
+def test_dropout_wrapper_rejects_bad_streams(kw, err):
+    feats, idx = _inputs(2, 2, 4, seed=0)
+    with pytest.raises(ValueError, match=err):
+        fused_gather_mean(t(feats), t(idx), **kw)
+
+
+def test_cpu_dropout_takes_the_plain_version(monkeypatch):
+    feats, idx = _inputs(4, 3, 8, seed=1)
+    monkeypatch.setattr(fused_gather_mean, "dropout_launches", 0)
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(build, "load", no_build)
+    fused_gather_mean(t(feats), t(idx), 0.5, seed=3, offset=(0, 0))
+    assert fused_gather_mean.dropout_launches == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_gather_mean(torch.zeros((5, 8), device="meta"),
+                          torch.zeros((2, 3), dtype=torch.int32,
+                                      device="meta"),
+                          0.5, seed=3, offset=(0, 0))
