@@ -7,13 +7,14 @@ NumPy-only data layer).
 
 Layout:
   data/      dataset contract loader, padded adjacency, synthetic fixtures
-  nn/        initializers, dense, the mean/gcn aggregators, the sampler
+  nn/        initializers, dense, the mean, gcn and pooling aggregators,
+             the sampler
   ops/       hand-written CUDA kernels and their plain PyTorch versions
   models/    the sample-and-aggregate pyramid and the supervised head
   train/     flags, F1 metrics, torch checkpoints
   params     the weight bridge to and from the JAX parameter pytree
   infer      serving: checkpoint -> class predictions
-  cli        ``python -m graphsage_tpu_torch predict ...``
+  cli        ``python -m graphsage_tpu_torch supervised|predict ...``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

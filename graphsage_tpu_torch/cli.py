@@ -39,7 +39,8 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
                    default=d.sampler_mode)
     p.add_argument("--fused_gather", action=argparse.BooleanOptionalAction,
                    default=d.fused_gather,
-                   help="CUDA gather+mean kernel for the innermost hop")
+                   help="CUDA kernel for the innermost hop: gather-mean "
+                   "(mean, gcn) or gather-MLP-pool (meanpool)")
     p.add_argument("--feature_dtype", choices=("float32", "bfloat16"),
                    default=d.feature_dtype)
     p.add_argument("--seed", type=int, default=d.seed)

@@ -12,7 +12,8 @@ doubles all later input dims; the last layer uses the identity
 activation.
 
 Parameters are a flat dict of tensors keyed by the JAX pytree's paths:
-``aggs.{i}.{neigh_w,self_w,w,b}`` and ``embeds`` (see ``params.py``).
+``aggs.{i}.{neigh_w,self_w,w,b}``, the pooling MLP's
+``aggs.{i}.mlp.{j}.{w,b}`` and ``embeds`` (see ``params.py``).
 """
 
 from __future__ import annotations
@@ -26,16 +27,18 @@ from graphsage_tpu_torch.nn.aggregators import (
     apply_aggregator,
     decay_weights,
     init_aggregator,
+    mlp_layers,
 )
 from graphsage_tpu_torch.nn.init import glorot
 from graphsage_tpu_torch.nn.sampler import uniform_sample
 from graphsage_tpu_torch.ops.gather import fused_gather_mean
 from graphsage_tpu_torch.ops.philox import philox_dropout
+from graphsage_tpu_torch.ops.pool import gather_mlp_pool_train
 
 # Tags (the last counter word of the Philox streams) of the two masks of
-# the fused innermost hop, the JAX package's fold_in tags: K2 masks the
-# feature columns of the neighbor rows, the identity tag the identity
-# columns of the same rows.
+# the fused innermost hop, the JAX package's fold_in tags: K2 (or K6 for
+# meanpool) masks the feature columns of the neighbor rows, the identity
+# tag the identity columns of the same rows.
 KERNEL_DROP_TAG = 0x5EED
 IDENTITY_DROP_TAG = 0x1D
 
@@ -59,7 +62,7 @@ class SAGEConfig:
     num_nodes: int = 0     # N (for the identity table; row N is the dummy)
     dropout: float = 0.0
     sampler_mode: str = "shared_perm"
-    fused_gather: bool = False  # CUDA gather+mean for the innermost hop
+    fused_gather: bool = False  # CUDA kernel for the innermost hop
 
     @property
     def input_dim(self) -> int:
@@ -142,9 +145,11 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
                       last_hop_neigh_mean=None):
     """Fold the hop pyramid; ``hidden[h]`` holds frontier h's rows.
 
-    ``last_hop_neigh_mean``: optional pre-reduced [B*support, F] mean
-    for the innermost hop (layer 0's last aggregator call), from the
-    fused gather-mean; ``hidden[-1]`` is then None.
+    ``last_hop_neigh_mean``: optional pre-reduced input for the
+    innermost hop (layer 0's last aggregator call): the [B*support, F]
+    mean of the fused gather-mean, or for meanpool the [B*support, H]
+    pooled MLP output of the fused gather-MLP-pool; ``hidden[-1]`` is
+    then None.
     """
     n_layers = len(config.layers)
     fanouts = config.fanouts
@@ -167,6 +172,8 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
                 neigh = last_hop_neigh_mean
                 if config.aggregator == "gcn":
                     extra = {"n_samples": fanouts[0]}
+                elif config.aggregator == "meanpool":
+                    extra = {"pre_pooled": True}
             else:
                 neigh = hidden[hop + 1].reshape(
                     batch_size * support[hop],
@@ -195,20 +202,22 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     innermost hop with ``fused_gather_mean`` (f32 mean, as the JAX
     package's fused path); an identity table's columns of those rows
     take a plain gather and mean beside it (the kernel reads only the
-    feature table). Training with dropout draws that hop's masks from
+    feature table). meanpool without an identity table (the MLP mixes
+    all columns) runs that hop's gather, first MLP layer and mean pool
+    through ``gather_mlp_pool_train``; maxpool is not routed, as in the
+    JAX package. Training with dropout draws that hop's masks from
     Philox streams: ``drop_key`` = (seed, step), host integers, with the
     tags above, so each step's masks differ and nothing is read back.
     """
     samples = sample_frontier(generator, adj, ids, config.fanouts,
                               mode=config.sampler_mode)
-    fused = (
-        config.fused_gather
-        and config.aggregator in ("mean", "gcn")
-        and features is not None
-        and config.feature_dim > 0
-    )
+    has_features = features is not None and config.feature_dim > 0
+    fused = (config.fused_gather and config.aggregator in ("mean", "gcn")
+             and has_features)
+    pool_fused = (config.fused_gather and config.aggregator == "meanpool"
+                  and has_features and config.identity_dim == 0)
     last_mean = None
-    if fused:
+    if fused or pool_fused:
         inner_drop = 0.0 if deterministic else config.dropout
         if inner_drop > 0.0 and drop_key is None:
             raise ValueError(
@@ -216,11 +225,18 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
                 "step) for the in-kernel mask"
             )
         seed, step = drop_key if inner_drop > 0.0 else (None, 0)
+        offset = (step, KERNEL_DROP_TAG) if inner_drop > 0.0 else None
         inner_fanout = config.fanouts[0]
+        idx2 = samples[-1].reshape(-1, inner_fanout)
+    if pool_fused:
+        mlp0 = mlp_layers(agg_params(params, 0))[0]
+        last_mean = gather_mlp_pool_train(
+            features, idx2, mlp0["w"], mlp0["b"], "mean",
+            drop_rate=inner_drop, seed=seed, offset=offset,
+        )
+    elif fused:
         last_mean = fused_gather_mean(
-            features, samples[-1].reshape(-1, inner_fanout),
-            drop_rate=inner_drop, seed=seed,
-            offset=(step, KERNEL_DROP_TAG) if inner_drop > 0.0 else None,
+            features, idx2, drop_rate=inner_drop, seed=seed, offset=offset,
         )
         if config.identity_dim > 0:
             id_rows = params["embeds"].index_select(0, samples[-1])
@@ -230,11 +246,13 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
             id_mean = id_rows.view(-1, inner_fanout,
                                    config.identity_dim).mean(dim=1)
             last_mean = torch.cat([id_mean, last_mean], dim=1)
-        hidden = [gather_features(params, features, s, config)
-                  for s in samples[:-1]] + [None]
-    else:
-        hidden = [gather_features(params, features, s, config)
-                  for s in samples]
+    # the innermost frontier's rows are gathered only when no kernel
+    # reduced them
+    gathered = samples if last_mean is None else samples[:-1]
+    hidden = [gather_features(params, features, s, config)
+              for s in gathered]
+    if last_mean is not None:
+        hidden.append(None)
     return aggregate_pyramid(
         params, hidden, ids.shape[0], config,
         generator=None if deterministic else generator,

@@ -1,2 +1,2 @@
-"""Layers as plain functions on tensors: initializers, dense, the
-mean/gcn aggregators and the on-device neighbor sampler."""
+"""Layers as plain functions on tensors: initializers, dense, the mean,
+gcn and pooling aggregators and the on-device neighbor sampler."""

@@ -1,13 +1,21 @@
-"""The mean and gcn aggregators, as init/apply function pairs.
+"""The aggregators, as init/apply function pairs.
 
-  mean — neighbor mean -> two matmuls (self/neigh), add or concat
-  gcn  — mean over {neighbors + self} -> one shared matmul
+  mean       — neighbor mean -> two matmuls (self/neigh), add or concat
+  gcn        — mean over {neighbors + self} -> one shared matmul
+  maxpool    — per-neighbor MLP -> elementwise max -> two matmuls
+  meanpool   — the same with a mean reduction
+  twomaxpool — a 2-layer MLP, then the max
 
-Both drop out both inputs. Each takes the neighbor input either as
-[n, S, d] rows or as the pre-reduced [n, d] mean that the fused
+mean and gcn drop out both inputs. Each takes the neighbor input either
+as [n, S, d] rows or as the pre-reduced [n, d] mean that the fused
 gather-mean kernel produces; the pre-reduced form skips the neighbor
-dropout (the kernel's caller owns it). The pooling and seq aggregators
-are later slices of the port.
+dropout (the kernel's caller owns it). The pooling aggregators drop out
+only the MLP's input (each Dense drops its input), never the self
+input; maxpool and meanpool also take ``pre_pooled`` [n, H] input, the
+fused gather -> MLP -> pool kernel's result, and then skip the MLP and
+the reduce. The max is ``torch.amax``, whose gradient splits evenly
+among ties as ``jnp.max``'s does. The seq aggregator is a later slice
+of the port.
 
 Rows of a bf16 feature table stay bf16 through dropout and the
 neighbor mean, which is rounded to bf16 as ``jnp.mean`` rounds it (an
@@ -20,12 +28,13 @@ from __future__ import annotations
 
 import torch
 
+from graphsage_tpu_torch.nn.dense import apply_dense, init_dense
 from graphsage_tpu_torch.nn.init import dropout, glorot, zeros
 
+POOL_HIDDEN = {"small": 512, "big": 1024}
+TWOPOOL_HIDDEN = {"small": (512, 256), "big": (1024, 512)}
+
 _LATER_SLICES = {
-    "maxpool": "the pooling slice",
-    "meanpool": "the pooling slice",
-    "twomaxpool": "the pooling slice",
     "seq": "the seq/LSTM slice",
 }
 
@@ -112,11 +121,105 @@ def apply_gcn(params, self_vecs, neigh_vecs, *, act, concat,
     return act(out)
 
 
+# ------------------------------------------------------------- pooling
+
+def mlp_layers(params) -> list:
+    """The per-neighbor MLP's layers [{"w", "b"}, ...] from the flat keys
+    ``mlp.{j}.w`` and ``mlp.{j}.b``."""
+    n = sum(1 for k in params if k.startswith("mlp.") and k.endswith(".w"))
+    return [{"w": params[f"mlp.{j}.w"], "b": params[f"mlp.{j}.b"]}
+            for j in range(n)]
+
+
+def _init_pool(generator, input_dim, output_dim, hidden_dims, bias, device):
+    p = {}
+    d = input_dim
+    for j, h in enumerate(hidden_dims):
+        layer = init_dense(generator, d, h, device=device)
+        p.update({f"mlp.{j}.{k}": v for k, v in layer.items()})
+        d = h
+    p["neigh_w"] = glorot(generator, (d, output_dim), device)
+    p["self_w"] = glorot(generator, (input_dim, output_dim), device)
+    if bias:
+        p["b"] = zeros((output_dim,), device)
+    return p
+
+
+def _max_pool(h: torch.Tensor) -> torch.Tensor:
+    return torch.amax(h, dim=1)
+
+
+def _mean_pool(h: torch.Tensor) -> torch.Tensor:
+    return h.mean(dim=1)
+
+
+def _apply_pool(params, self_vecs, neigh_vecs, reduce_fn, *, act, concat,
+                dropout_rate, generator, deterministic, pre_pooled=False):
+    """``neigh_vecs`` is [n, S, d]: the per-neighbor MLP, then the reduce
+    over S; or, with ``pre_pooled``, the reduced [n, H] MLP output."""
+    if pre_pooled:
+        h = neigh_vecs
+    else:
+        n, s, d = neigh_vecs.shape
+        h = neigh_vecs.reshape(n * s, d)
+        for layer in mlp_layers(params):
+            h = apply_dense(layer, h, act=torch.relu,
+                            dropout_rate=dropout_rate, generator=generator,
+                            deterministic=deterministic)
+        h = reduce_fn(h.view(n, s, -1))
+    from_neighs = _dot(h, params["neigh_w"])
+    from_self = _dot(self_vecs, params["self_w"])
+    return _combine(from_self, from_neighs, params, act, concat)
+
+
+def init_maxpool(generator, input_dim, output_dim, model_size="small",
+                 bias=False, device="cpu") -> dict:
+    return _init_pool(generator, input_dim, output_dim,
+                      (POOL_HIDDEN[model_size],), bias, device)
+
+
+def apply_maxpool(params, self_vecs, neigh_vecs, *, act, concat,
+                  dropout_rate=0.0, generator=None, deterministic=True,
+                  pre_pooled=False):
+    return _apply_pool(params, self_vecs, neigh_vecs, _max_pool, act=act,
+                       concat=concat, dropout_rate=dropout_rate,
+                       generator=generator, deterministic=deterministic,
+                       pre_pooled=pre_pooled)
+
+
+init_meanpool = init_maxpool
+
+
+def apply_meanpool(params, self_vecs, neigh_vecs, *, act, concat,
+                   dropout_rate=0.0, generator=None, deterministic=True,
+                   pre_pooled=False):
+    return _apply_pool(params, self_vecs, neigh_vecs, _mean_pool, act=act,
+                       concat=concat, dropout_rate=dropout_rate,
+                       generator=generator, deterministic=deterministic,
+                       pre_pooled=pre_pooled)
+
+
+def init_twomaxpool(generator, input_dim, output_dim, model_size="small",
+                    bias=False, device="cpu") -> dict:
+    return _init_pool(generator, input_dim, output_dim,
+                      TWOPOOL_HIDDEN[model_size], bias, device)
+
+
+def apply_twomaxpool(params, self_vecs, neigh_vecs, *, act, concat,
+                     dropout_rate=0.0, generator=None, deterministic=True):
+    return _apply_pool(params, self_vecs, neigh_vecs, _max_pool, act=act,
+                       concat=concat, dropout_rate=dropout_rate,
+                       generator=generator, deterministic=deterministic)
+
+
 # ------------------------------------------------------------ registry
 
 AGGREGATORS = {
     "mean": (init_mean, apply_mean),
     "gcn": (init_gcn, apply_gcn),
+    "maxpool": (init_maxpool, apply_maxpool),
+    "meanpool": (init_meanpool, apply_meanpool),
+    "twomaxpool": (init_twomaxpool, apply_twomaxpool),
 }
 
 
@@ -143,6 +246,7 @@ def apply_aggregator(name, params, self_vecs, neigh_vecs, **kw):
 
 def decay_weights(name, params) -> list:
     """The weights weight decay applies to: the aggregator's own
-    self/neigh projections (gcn's single weight) and bias."""
+    self/neigh projections (gcn's single weight) and bias, never the
+    pooling MLP."""
     _lookup(name)
     return [params[k] for k in ("w", "neigh_w", "self_w", "b") if k in params]

@@ -1,5 +1,9 @@
 """Dense layer: dropout -> matmul -> +bias -> activation, with
-glorot-uniform weights and a zero bias."""
+glorot-uniform weights and a zero bias.
+
+A bf16 input is dropped out in bf16 and promoted to the weight's f32
+for the product, as ``jnp.dot(x, w, preferred_element_type=f32)``
+promotes it in the JAX package."""
 
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ def apply_dense(
     deterministic: bool = True,
 ) -> torch.Tensor:
     x = dropout(generator, x, dropout_rate, deterministic)
-    out = x @ params["w"]
+    out = x.to(params["w"].dtype) @ params["w"]
     if "b" in params:
         out = out + params["b"]
     if act is not None:

@@ -4,7 +4,8 @@ them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc
 for ``sm_90a`` into ``build/kernels/lib<name>.so`` at the root of the
 checkout (listed in ``.gitignore``). A library is rebuilt when it is
-missing or older than its source, and is written under a temporary name
+missing or older than its source or a shared ``csrc/*.cuh`` header,
+and is written under a temporary name
 and renamed, so concurrent processes never load a half-written file.
 Nothing is built when a module is imported: the first kernel launch
 builds, or a caller that wants the build time up front calls
@@ -44,7 +45,8 @@ def build(name: str) -> tuple[Path, str]:
     """(path of lib<name>.so, compiler output; empty if it was current)."""
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")

@@ -64,12 +64,12 @@
 
 #include <cstdint>
 
+#include "philox.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using graphsage::philox_group;
+using graphsage::to_float;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
@@ -111,29 +111,6 @@ __global__ void gather_mean_kernel(const T* __restrict__ feat,
   }
 }
 
-// Random123's Philox4x32 with 10 rounds.
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
 template <typename T, int VEC>
 __global__ void gather_mean_dropout_kernel(
     const T* __restrict__ feat, const int32_t* __restrict__ idx,
@@ -163,11 +140,8 @@ __global__ void gather_mean_dropout_kernel(
       uint32_t bits[W];
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
-        const uint64_t g = static_cast<uint64_t>(g0 + q);
-        const uint4 r = philox4x32_10(
-            make_uint4(static_cast<uint32_t>(g),
-                       static_cast<uint32_t>(g >> 32), step, tag),
-            seed_lo, seed_hi);
+        const uint4 r = philox_group(static_cast<uint64_t>(g0 + q), step,
+                                     tag, seed_lo, seed_hi);
         bits[4 * q] = r.x;
         bits[4 * q + 1] = r.y;
         bits[4 * q + 2] = r.z;

@@ -49,7 +49,7 @@ class TrainFlags:
     print_every: int = 5
     max_total_steps: int = 10**10
     sampler_mode: str = "shared_perm"  # or "independent", "first_k"
-    fused_gather: bool = True   # CUDA gather+mean for the innermost hop
+    fused_gather: bool = True   # CUDA kernel for the innermost hop
     feature_dtype: str = "float32"  # or "bfloat16"
     seed: int = 123
     checkpoint_dir: str = ""    # torch checkpoint root ("" = disabled)

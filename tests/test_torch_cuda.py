@@ -18,6 +18,15 @@ from graphsage_tpu_torch.ops.gather import (
     gather_mean_dropout_reference,
     gather_mean_reference,
 )
+from graphsage_tpu_torch.ops.philox import dropout_keep_mask
+from graphsage_tpu_torch.ops.pool import (
+    fused_gather_mlp_pool,
+    gather_mlp_pool_reference,
+    gather_mlp_pool_train,
+    gather_mlp_pool_with_rows,
+    gathered_rows_reference,
+    pool_rows,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +132,87 @@ def test_zero_rate_launches_k1(cuda):
     assert (fused_gather_mean.launches, fused_gather_mean.dropout_launches) \
         == (k1 + 1, k2)
     torch.testing.assert_close(out, gather_mean_reference(table, idx))
+
+
+# K5/K6 vs plain: z sums F products in another order than cuBLAS
+POOL_TOLERANCE = dict(rtol=1e-5, atol=5e-5)
+
+
+def _pool_operands(cuda, seed, n, F, H, dtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    table = torch.randn(n + 1, F, generator=gen, device=cuda)
+    table[n] = 0
+    table[min(7, n)] = table[min(3, n)]   # max ties
+    w = torch.randn(F, H, generator=gen, device=cuda) / F ** 0.5
+    b = torch.randn(H, generator=gen, device=cuda) * 0.1
+    return table.to(dtype), w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduce", ["mean", "max"])
+@pytest.mark.parametrize("B,S,F,H", [
+    (1, 1, 1, 1), (7, 25, 602, 512), (33, 1, 17, 24), (9, 10, 17, 24),
+    (3, 200, 33, 130), (130, 25, 602, 512),
+])
+def test_pool_kernel_matches_plain(cuda, dtype, reduce, B, S, F, H):
+    """K5 at ragged shapes: S=1, odd F, H off the 128-column tile, B off
+    the block's rows, S beyond the block's 128 rows, max ties."""
+    table, w, b = _pool_operands(cuda, B + S + F + H, 50, F, H, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    idx = torch.randint(0, 51, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = 3
+    before = fused_gather_mlp_pool.launches
+    out = fused_gather_mlp_pool(table, idx, w, b, reduce)
+    torch.cuda.synchronize()
+    assert fused_gather_mlp_pool.launches == before + 1
+    torch.testing.assert_close(
+        out, gather_mlp_pool_reference(table, idx, w, b, reduce),
+        **POOL_TOLERANCE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_residual_is_the_plain_dropped_rows(cuda, dtype):
+    """K6's residual equals the plain dropped rows bit for bit (so its
+    mask is dropout_keep_mask's), the pooled output is pool(relu(X@w+b))."""
+    table, w, b = _pool_operands(cuda, 4, 80, 602, 512, dtype)
+    idx = torch.randint(0, 80, (300, 25), device=cuda, dtype=torch.int32)
+    key = dict(seed=2**63 + 12345, offset=(7, 0x5EED))
+    before = fused_gather_mlp_pool.train_launches
+    out, x = gather_mlp_pool_with_rows(table, idx, w, b, "mean", 0.5, **key)
+    torch.cuda.synchronize()
+    assert fused_gather_mlp_pool.train_launches == before + 1
+    x_ref = gathered_rows_reference(table, idx, 0.5, **key)
+    assert torch.equal(x, x_ref)
+    keep = dropout_keep_mask(300 * 25, 602, 0.5, key["seed"], *key["offset"],
+                             device=cuda)
+    assert torch.equal(x != 0, keep & (gathered_rows_reference(table, idx)
+                                       != 0))
+    torch.testing.assert_close(out, pool_rows(x_ref, w, b, "mean", 25),
+                               **POOL_TOLERANCE)
+
+
+@pytest.mark.parametrize("reduce", ["mean", "max"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_pool_train_grads_match_autograd(cuda, reduce, rate):
+    """The Function (K6 forward, route_pool_grad backward) against
+    autograd of the plain composition, max ties included; under no_grad
+    it launches K5. rtol 1e-4, atol 1e-5 as tests/test_pool.py."""
+    table, w, b = _pool_operands(cuda, 5, 60, 96, 160)
+    idx = torch.randint(0, 61, (40, 10), device=cuda, dtype=torch.int32)
+    idx[0] = 3
+    idx[1, :2] = torch.tensor([3, 7], device=cuda)
+    key = dict(seed=99, offset=(1, 2)) if rate else {}
+    cot = torch.randn(40, 160, device=cuda)
+    w1, b1 = w.clone().requires_grad_(), b.clone().requires_grad_()
+    (gather_mlp_pool_train(table, idx, w1, b1, reduce, rate, **key)
+     * cot).sum().backward()
+    w2, b2 = w.clone().requires_grad_(), b.clone().requires_grad_()
+    (pool_rows(gathered_rows_reference(table, idx, rate, **key), w2, b2,
+               reduce, 10) * cot).sum().backward()
+    torch.testing.assert_close(w1.grad, w2.grad, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(b1.grad, b2.grad, rtol=1e-4, atol=1e-5)
+    k5 = fused_gather_mlp_pool.launches
+    with torch.no_grad():
+        gather_mlp_pool_train(table, idx, w1, b1, reduce, rate, **key)
+    assert fused_gather_mlp_pool.launches == k5 + 1

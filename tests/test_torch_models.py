@@ -12,6 +12,8 @@ import torch
 
 from graphsage_tpu.models import graphsage as jg
 from graphsage_tpu.models import supervised as js
+from graphsage_tpu.ops import pool as jpool
+from graphsage_tpu.ops.gather import pad_feature_dim
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
 from graphsage_tpu_torch.data.synthetic import make_synthetic_graph
 from graphsage_tpu_torch.models import graphsage as tg
@@ -235,6 +237,128 @@ def test_init_shapes_match_jax():
     jcfg, tcfg = _configs("mean", FANOUTS_2, 4, True, 120)
     jsup = js.SupervisedConfig(sage=jcfg, num_classes=5)
     tsup = ts.SupervisedConfig(sage=tcfg, num_classes=5)
+    want = {k: tuple(v.shape) for k, v in port_params(
+        js.init_supervised_params(jax.random.key(0), jsup)).items()}
+    got = {k: tuple(v.shape) for k, v in ts.init_supervised_params(
+        torch.Generator().manual_seed(0), tsup).items()}
+    assert got == want
+
+
+# ------------------------------------------------------------- pooling
+
+POOL_F = 20   # a logical width of its own: the JAX pool kernel's jit cache
+#               does not key on the interpret hook (tests/test_pool.py:257)
+
+
+def _pool_case(aggregator, fused, layers=FANOUTS_2, num_nodes=60):
+    rng = np.random.default_rng(9)
+    feats = np.vstack([
+        rng.standard_normal((num_nodes, POOL_F)).astype(np.float32),
+        np.zeros((1, POOL_F), np.float32),
+    ])
+    adj = rng.integers(0, num_nodes, (num_nodes + 1, 6), dtype=np.int32)
+    ids = np.concatenate([np.arange(0, num_nodes, 7), [num_nodes]]).astype(
+        np.int32)
+    kw = dict(feature_dim=POOL_F, aggregator=aggregator, concat=True,
+              num_nodes=num_nodes, sampler_mode="first_k", fused_gather=fused)
+    jcfg = jg.SAGEConfig(
+        layers=tuple(jg.LayerInfo(s, d) for s, d in layers), **kw)
+    tcfg = tg.SAGEConfig(
+        layers=tuple(tg.LayerInfo(s, d) for s, d in layers), **kw)
+    return feats, adj, ids, jcfg, tcfg
+
+
+@pytest.mark.parametrize("aggregator,fused", [
+    ("meanpool", True), ("meanpool", False), ("maxpool", False),
+    ("maxpool", True),
+])
+def test_pool_sage_embed_matches_jax(monkeypatch, aggregator, fused):
+    """sage_embed and its parameter gradients for the pooling models.
+    Fused meanpool: the port's gather_mlp_pool_train (its plain version
+    here) against the JAX package's Pallas kernel in interpret mode, the
+    custom VJP's residual backward on both sides. maxpool is never
+    routed through the fused kernel, fused_gather or not. Outputs rtol
+    1e-5, atol 1e-5; gradients rtol 1e-4, atol 1e-6 (tests/test_pool.py)."""
+    feats, adj, ids, jcfg, tcfg = _pool_case(aggregator, fused)
+    if fused:
+        monkeypatch.setattr(jpool, "_FORCE_INTERPRET", True)
+    jfeats = jnp.asarray(pad_feature_dim(feats))
+    jparams = jg.init_sage_params(jax.random.key(3), jcfg)
+
+    def jloss(p):
+        return jnp.sum(jg.sage_embed(p, jfeats, jnp.asarray(adj),
+                                     jnp.asarray(ids), jax.random.key(4),
+                                     jcfg) ** 2)
+
+    ref = jg.sage_embed(jparams, jfeats, jnp.asarray(adj), jnp.asarray(ids),
+                        jax.random.key(4), jcfg)
+    jgrads = port_params(jax.grad(jloss)(jparams))
+
+    params = port_params(jparams)
+    for p in params.values():
+        p.requires_grad_(True)
+    out = tg.sage_embed(params, t(feats), t(adj), t(ids), tcfg)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    grads = torch.autograd.grad((out ** 2).sum(), list(params.values()))
+    for k, gr in zip(params, grads):
+        np.testing.assert_allclose(gr.numpy(), jgrads[k].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("layers", [((4, 8),), FANOUTS_2],
+                         ids=["one_layer", "two_layers"])
+def test_pool_bf16_table_matches_jax(layers):
+    """meanpool (fused) with a bf16 table: the innermost hop's rows are
+    upcast to f32 before the MLP in both packages, the outer hops' rows
+    stay bf16 until the MLP's product promotes them. 1e-5 as the f32
+    tests: bf16 -> f32 is exact, the rounding points are the same."""
+    feats, adj, ids, jcfg, tcfg = _pool_case("meanpool", True, layers)
+    jparams = jg.init_sage_params(jax.random.key(5), jcfg)
+    ref = jg.sage_embed(jparams, jnp.asarray(feats, dtype=jnp.bfloat16),
+                        jnp.asarray(adj), jnp.asarray(ids),
+                        jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), t(feats).to(torch.bfloat16),
+                        t(adj), t(ids), tcfg)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_meanpool_fused_dropout_trains():
+    """dropout > 0 keeps the fused meanpool path (K6's plain version on
+    the CPU): deterministic for one (seed, step), a new mask per step,
+    gradients reach the innermost hop's MLP."""
+    feats, adj, ids, _, tcfg = _pool_case("meanpool", True)
+    tcfg = dataclasses.replace(tcfg, dropout=0.3)
+    params = tg.init_sage_params(torch.Generator().manual_seed(0), tcfg)
+    for p in params.values():
+        p.requires_grad_(True)
+
+    def train_fwd(step):
+        return tg.sage_embed(params, t(feats), t(adj), t(ids), tcfg,
+                             generator=torch.Generator().manual_seed(1),
+                             deterministic=False, drop_key=(99, step))
+
+    out = train_fwd(0)
+    assert torch.equal(out, train_fwd(0))
+    assert not torch.equal(out, train_fwd(1))
+    (out ** 2).sum().backward()
+    assert float(params["aggs.0.mlp.0.w"].grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("aggregator,model_size", [
+    ("maxpool", "small"), ("meanpool", "big"), ("twomaxpool", "small"),
+])
+def test_pool_init_shapes_match_jax(aggregator, model_size):
+    kw = dict(feature_dim=8, aggregator=aggregator, concat=True,
+              model_size=model_size, num_nodes=50)
+    jsup = js.SupervisedConfig(sage=jg.SAGEConfig(
+        layers=tuple(jg.LayerInfo(s, d) for s, d in FANOUTS_2), **kw),
+        num_classes=5)
+    tsup = ts.SupervisedConfig(sage=tg.SAGEConfig(
+        layers=tuple(tg.LayerInfo(s, d) for s, d in FANOUTS_2), **kw),
+        num_classes=5)
     want = {k: tuple(v.shape) for k, v in port_params(
         js.init_supervised_params(jax.random.key(0), jsup)).items()}
     got = {k: tuple(v.shape) for k, v in ts.init_supervised_params(

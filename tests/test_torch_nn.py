@@ -1,5 +1,5 @@
-"""The port's nn layer (init, dense, sampler, mean/gcn aggregators)
-against graphsage_tpu/nn on the same inputs and weights."""
+"""The port's nn layer (init, dense, sampler, the mean, gcn and pooling
+aggregators) against graphsage_tpu/nn on the same inputs and weights."""
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +100,118 @@ def test_dense_matches_jax():
                                atol=1e-6)
 
 
+def test_dense_bf16_input_matches_jax():
+    """A bf16 input against an f32 weight is promoted, as jnp.dot with
+    preferred_element_type=f32 promotes it; tolerance as the f32 test
+    (bf16 -> f32 is exact, the f32 sums differ in order only)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((9, 12)).astype(np.float32)
+    jp = jax_init_dense(jax.random.key(4), 12, 5)
+    out = apply_dense(port_params(jp), t(x).to(torch.bfloat16),
+                      act=torch.relu)
+    ref = jax_apply_dense(jp, jnp.asarray(x, dtype=jnp.bfloat16),
+                          act=jax.nn.relu)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name,concat,bias,model_size,pre_pooled", [
+    (name, concat, bias, size, pre)
+    for name, concat, bias, size in (
+        ("maxpool", True, False, "small"), ("maxpool", False, True, "small"),
+        ("meanpool", True, False, "small"), ("meanpool", False, True, "big"),
+        ("twomaxpool", True, False, "small"),
+        ("twomaxpool", False, True, "big"))
+    # twomaxpool takes no pre-pooled input in either package
+    for pre in ((False,) if name == "twomaxpool" else (False, True))
+])
+def test_pool_aggregator_matches_jax(name, concat, bias, model_size,
+                                     pre_pooled):
+    """3-D neighbor rows through the per-neighbor MLP and the reduce, or
+    (maxpool, meanpool) the pre-pooled [n, H] MLP output; the duplicated
+    neighbor rows give max ties. rtol 1e-5, atol 1e-6 as above."""
+    n, S, d, out_dim = 7, 4, 10, 6
+    rng = np.random.default_rng([len(name), concat, bias, pre_pooled])
+    self_vecs = rng.standard_normal((n, d)).astype(np.float32)
+    jp = jax_aggs.init_aggregator(name, jax.random.key(2), d, out_dim,
+                                  model_size=model_size, bias=bias)
+    hidden = jp["mlp"][-1]["w"].shape[1]
+    if pre_pooled:
+        neigh = rng.standard_normal((n, hidden)).astype(np.float32)
+        extra = {"pre_pooled": True}
+    else:
+        neigh = rng.standard_normal((n, S, d)).astype(np.float32)
+        neigh[:, 1] = neigh[:, 0]
+        extra = {}
+    if bias:
+        jp["b"] = jnp.asarray(rng.standard_normal(out_dim).astype(np.float32))
+    ref = jax_aggs.apply_aggregator(
+        name, jp, jnp.asarray(self_vecs), jnp.asarray(neigh),
+        act=jax.nn.relu, concat=concat, **extra)
+    params = port_params(jp)
+    assert f"mlp.{len(jp['mlp']) - 1}.w" in params
+    out = aggregators.apply_aggregator(
+        name, params, t(self_vecs), t(neigh), act=torch.relu, concat=concat,
+        **extra)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    decayed = aggregators.decay_weights(name, params)
+    assert len(decayed) == len(jax_aggs.decay_weights(name, jp))
+    assert not any(w is params["mlp.0.w"] for w in decayed)
+    shapes = {k: tuple(v.shape) for k, v in aggregators.init_aggregator(
+        name, torch.Generator().manual_seed(0), d, out_dim,
+        model_size=model_size, bias=bias).items()}
+    assert shapes == {k: tuple(v.shape) for k, v in params.items()}
+
+
+def test_pool_dropout_only_inside_the_mlp():
+    """Pooling aggregators drop the MLP's input, never the self input:
+    with pre-pooled input (no MLP) dropout changes nothing; with 3-D
+    input it does."""
+    n, S, d = 32, 3, 8
+    p = aggregators.init_aggregator("meanpool",
+                                    torch.Generator().manual_seed(0), d, 4)
+    self_vecs = torch.ones(n, d)
+    kw = dict(act=lambda x: x, concat=True, dropout_rate=0.5)
+    pooled = torch.rand(n, aggregators.POOL_HIDDEN["small"])
+    a = aggregators.apply_meanpool(p, self_vecs, pooled, pre_pooled=True,
+                                   generator=torch.Generator().manual_seed(1),
+                                   deterministic=False, **kw)
+    b = aggregators.apply_meanpool(p, self_vecs, pooled, pre_pooled=True,
+                                   **kw)
+    assert torch.equal(a, b)
+    neigh = torch.ones(n, S, d)
+    c = aggregators.apply_meanpool(p, self_vecs, neigh,
+                                   generator=torch.Generator().manual_seed(1),
+                                   deterministic=False, **kw)
+    e = aggregators.apply_meanpool(p, self_vecs, neigh, **kw)
+    assert torch.equal(c[:, :4], e[:, :4])        # the self half
+    assert not torch.allclose(c[:, 4:], e[:, 4:])
+
+
+def test_maxpool_grad_splits_ties_as_jax():
+    """torch.amax's gradient splits evenly among tied neighbors, as
+    jnp.max's does (torch.max(dim=) would route it to one)."""
+    rng = np.random.default_rng(8)
+    neigh = rng.standard_normal((3, 4, 5)).astype(np.float32)
+    neigh[:, 2] = neigh[:, 0]
+    jp = jax_aggs.init_aggregator("maxpool", jax.random.key(5), 5, 3)
+    self_vecs = rng.standard_normal((3, 5)).astype(np.float32)
+
+    def jloss(x):
+        return jnp.sum(jax_aggs.apply_maxpool(
+            jp, jnp.asarray(self_vecs), x, act=lambda v: v, concat=True))
+
+    ref = jax.grad(jloss)(jnp.asarray(neigh))
+    x = t(neigh).requires_grad_()
+    aggregators.apply_maxpool(port_params(jp), t(self_vecs), x,
+                              act=lambda v: v, concat=True).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("name,concat,bias", [
     ("mean", True, False), ("mean", False, False), ("mean", False, True),
@@ -157,7 +269,6 @@ def test_aggregator_neighbor_dropout_skips_reduced_input():
 
 
 @pytest.mark.parametrize("name,err,match", [
-    ("maxpool", NotImplementedError, "pooling slice"),
     ("seq", NotImplementedError, "seq/LSTM slice"),
     ("nope", ValueError, "unknown aggregator"),
 ])

@@ -24,7 +24,8 @@ def _jax_params(aggregator, identity_dim):
 
 
 @pytest.mark.parametrize("aggregator,identity_dim", [
-    ("mean", 0), ("mean", 4), ("gcn", 4),
+    ("mean", 0), ("mean", 4), ("gcn", 4), ("meanpool", 0), ("maxpool", 4),
+    ("twomaxpool", 0),
 ])
 def test_bridge_round_trips_every_leaf(aggregator, identity_dim):
     tree = _jax_params(aggregator, identity_dim)
@@ -59,3 +60,24 @@ def test_checkpoint_round_trips_exactly(tmp_path):
         assert torch.equal(restored[k], v)
     assert not [f for f in (tmp_path / "ck").iterdir()
                 if f.suffix == ".tmp"]
+
+
+def test_pool_checkpoint_round_trips_mlp_and_moments(tmp_path):
+    """The pooling MLP's keys (aggs.{i}.mlp.{j}.{w,b}) and their Adam
+    moments survive a checkpoint exactly, and go back to the JAX pytree
+    as the list of Dense layers."""
+    tree = _jax_params("twomaxpool", 0)
+    params = params_from_jax(tree)
+    assert {"aggs.0.mlp.0.w", "aggs.0.mlp.1.b", "aggs.2.mlp.1.w"} <= \
+        params.keys()
+    assert len(params_to_jax(params)["aggs"][1]["mlp"]) == 2
+    moments = {k: v * 0.5 for k, v in params.items()}
+    opt_state = {"count": 4, "mu": moments, "nu": {
+        k: v * v for k, v in moments.items()}}
+    checkpoint.save(str(tmp_path), params, 4, opt_state)
+    saved, saved_opt, step = checkpoint.restore_train_state(str(tmp_path))
+    assert step == 4 and saved_opt["count"] == 4
+    for k, v in params.items():
+        assert torch.equal(saved[k], v)
+        assert torch.equal(saved_opt["mu"][k], opt_state["mu"][k])
+        assert torch.equal(saved_opt["nu"][k], opt_state["nu"][k])

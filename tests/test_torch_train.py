@@ -99,7 +99,9 @@ def _assert_params_close(port: dict, jax_tree, atol, rtol=0.0):
 @pytest.mark.parametrize("aggregator,sigmoid,weight_decay,identity_dim", [
     ("mean", False, 0.0, 0), ("gcn", False, 0.0, 0), ("mean", True, 0.0, 0),
     ("gcn", True, 0.0, 0), ("mean", False, 0.01, 0), ("mean", False, 0.0, 4),
-    ("gcn", False, 0.01, 4),
+    ("gcn", False, 0.01, 4), ("meanpool", False, 0.0, 0),
+    ("meanpool", True, 0.01, 0), ("maxpool", False, 0.01, 0),
+    ("meanpool", False, 0.0, 4),
 ])
 def test_train_step_matches_jax(toy, aggregator, sigmoid, weight_decay,
                                 identity_dim):
@@ -387,3 +389,40 @@ def test_train_on_cuda_without_a_card_raises(tmp_path):
         tsup.train(TrainFlags(train_prefix=str(tmp_path / "x" / "x")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["supervised", "--train_prefix", str(tmp_path / "x")])
+
+
+def test_cli_supervised_meanpool_trains_and_resumes(tmp_path, capsys):
+    """--model graphsage_meanpool through the CLI on the CPU (the fused
+    pool path, dropout 0.2): the loss falls, and --resume continues with
+    the MLP weights and their Adam moments from the checkpoint."""
+    g = make_synthetic_graph(num_nodes=120, num_classes=3, feat_dim=8,
+                             seed=4)
+    prefix = str(tmp_path / "toy" / "toy")
+    write_dataset(g, prefix)
+    argv = ["supervised", "--train_prefix", prefix, "--model",
+            "graphsage_meanpool", "--samples_1", "4", "--samples_2", "3",
+            "--dim_1", "8", "--dim_2", "8", "--max_degree", "8",
+            "--batch_size", "16", "--print_every", "1", "--validate_iter",
+            "3", "--validate_batch_size", "8", "--base_log_dir",
+            str(tmp_path), "--checkpoint_dir", str(tmp_path / "ck"),
+            "--dropout", "0.2", "--learning_rate", "0.003", "--device",
+            "cpu"]
+    assert cli.main(argv + ["--epochs", "3"]) == 0
+    losses = [float(x) for x in re.findall(r"train_loss= (\S+)",
+                                           capsys.readouterr().out)]
+    assert np.mean(losses[-3:]) < np.mean(losses[:3])
+    log_dir = tmp_path / "sup-toy" / "graphsage_meanpool_small_0.0030"
+    assert STATS.fullmatch((log_dir / "test_stats.txt").read_text())
+
+    saved, opt_state, step = checkpoint.restore_train_state(
+        str(tmp_path / "ck"))
+    assert saved["aggs.0.mlp.0.w"].shape == (8, 512)
+    assert opt_state["mu"]["aggs.1.mlp.0.w"].shape == (16, 512)
+    assert float(opt_state["nu"]["aggs.0.mlp.0.w"].abs().max()) > 0
+    assert cli.main(argv + ["--epochs", "1", "--resume"]) == 0
+    assert f"Resumed from checkpoint at step {step}" in \
+        capsys.readouterr().out
+    resumed, opt_state2, step2 = checkpoint.restore_train_state(
+        str(tmp_path / "ck"))
+    assert step2 > step and opt_state2["count"] == step2
+    assert not torch.equal(resumed["aggs.0.mlp.0.w"], saved["aggs.0.mlp.0.w"])
