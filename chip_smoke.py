@@ -12,35 +12,45 @@ Phases; any failure exits non-zero without the final ok line:
      hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
      library-route times beside the kernel's bound. K1 is the
      gather-mean, K2 the gather-mean with Philox dropout (identical
-     masks, equal means, the rate's zero fraction, the 1/keep scale), K5
-     the gather -> MLP -> pool (mean and max, ties), K6 the same writing
-     its dropped rows as the backward's residual (residual bit-equal to
-     the plain dropped rows, the mask identical, and the gradients of
-     its autograd Function against autograd of the plain composition)
+     masks, equal means, the rate's zero fraction, the 1/keep scale), K3
+     the gather-mean that loads each distinct sample once (at the hop
+     through the sampler, and at S = 1, all samples equal, all
+     distinct, F = 17, B = 7 and S at its shared-memory limit), K4 the
+     row gather (bit-equal to index_select), K5 the gather -> MLP ->
+     pool (mean and max, ties), K6 the same writing its dropped rows as
+     the backward's residual (residual bit-equal to the plain dropped
+     rows, the mask identical, and the gradients of its autograd
+     Function against autograd of the plain composition)
   4. serving at full width, bench.py's model: 100k nodes, 602 features,
      41 classes, fanouts 25/10, dims 128/128, batch 512, zipf(1.05)
      adjacency, seeded random weights. The eval sweep answers every node
-     (196 requests of 512), once with GraphSAGE-mean (K1 once per
-     batch) and once with GraphSAGE-meanpool, MLP hidden width 512 (K5
-     once per batch). Checks the predictions and their agreement with
-     the unfused path, then times requests one by one and profiles 20
-     batches
-  5. ``python -m graphsage_tpu_torch predict`` on a small synthetic
-     dataset from a port checkpoint, held against the CPU path
-  6. training at full width: the same models and data with dropout 0.5
+     (196 requests of 512) with GraphSAGE-mean (K1 once per batch), with
+     GraphSAGE-mean and dedup_gather (K3 once per batch, no K1), with
+     GraphSAGE-meanpool, MLP hidden width 512 (K5 once per batch) and
+     with GraphSAGE-seq, LSTM hidden width 128, and rows_gather (K4 once
+     per batch). Checks the predictions and their agreement with the
+     path without the kernel (K3: with the K1 sweep), then times
+     requests one by one and profiles 20 batches. A few batches of
+     GraphSAGE-maxpool with rows_gather (K4) against the plain gather
+  5. training at full width: the same models and data with dropout 0.5
      and Adam at lr 1e-2 (benchmarks/agg_sweep.py's "mean_drop" and
      "meanpool_fused_drop"), through the chunk runner: timed chunks of
      50 steps (s/step, edges/s), K2 (mean) or K6 (meanpool) once per
      step, the loss finite at every chunk end, the host
-     synchronisations per step, and a profile of a few steps
-  7. fused vs unfused training at dropout 0 (K1 or K6 against the plain
-     gather): equal gradients and params after a few steps from the
-     same state
-  8. ``python -m graphsage_tpu_torch supervised`` (graphsage_mean and
-     graphsage_meanpool) on the card against the same training on the
-     CPU (first_k, dropout 0): every logged train loss and the final
-     val loss agree
-  9. one JSON line of per-kernel numbers, then the ok line (last)
+     synchronisations per step, and a profile of a few steps; and
+     GraphSAGE-seq with rows_gather, dropout 0 (agg_sweep.py's "seq"),
+     K4 once per step, in shorter chunks
+  6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
+     the plain gather): equal gradients and params after a few steps
+     from the same state
+  7. the CLI on the card against the CPU, the card-side processes
+     started together: ``python -m graphsage_tpu_torch predict`` (and
+     with ``--dedup_gather``) on a small synthetic dataset from a port
+     checkpoint, and ``supervised`` (graphsage_mean, graphsage_meanpool,
+     graphsage_seq with --rows_gather) with first_k sampling and dropout
+     0: the predictions, every logged train loss and the final val loss
+     agree
+  8. one JSON line of per-kernel numbers, then the ok line (last)
 
 Needs no network and one card; builds into build/kernels/.
 """
@@ -88,6 +98,7 @@ DROPOUT = 0.5             # agg_sweep.py's "mean_drop", "meanpool_fused_drop"
 LEARNING_RATE = 1e-2
 EDGES_PER_STEP = BATCH * (FANOUTS[1] + FANOUTS[1] * FANOUTS[0])  # 133120
 TRAIN_CHUNK = 50                       # steps per timed chunk
+SEQ_TRAIN_CHUNK = 10      # the seq cell's chunks: ~10x the device work
 CLI_TOL = 1e-4                         # card vs CPU training losses
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -105,23 +116,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("K1", "K2", "K5", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
     from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
+    from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
     from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
 
-    return {"K1": gm.launches, "K2": gm.dropout_launches, "K5": gp.launches,
+    return {"K1": gm.launches, "K2": gm.dropout_launches,
+            "K3": gm.dedup_launches, "K4": gr.launches, "K5": gp.launches,
             "K6": gp.train_launches}
 
 
 def reset_counts() -> None:
     from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
+    from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
     from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
 
-    gm.launches = gm.dropout_launches = 0
+    gm.launches = gm.dropout_launches = gm.dedup_launches = 0
+    gr.launches = 0
     gp.launches = gp.train_launches = 0
 
 
@@ -378,6 +393,227 @@ def check_gather_mean_dropout(dev, card_line: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+    }
+
+
+def hop_idx_sets(dev, data, n_sets: int, seed: int) -> list:
+    """``n_sets`` innermost-hop idx [5120, 25] of bench.py's model, each
+    from a batch of 512 distinct nodes through the sampler
+    (``shared_perm``) over the zipf adjacency, as serving draws them."""
+    import torch
+
+    from graphsage_tpu_torch.models.graphsage import sample_frontier
+
+    _, adj, _ = data
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_sets):
+        ids = torch.from_numpy(rng.choice(NUM_NODES, BATCH, replace=False)
+                               .astype(np.int32)).to(dev)
+        samples = sample_frontier(gen, adj, ids, FANOUTS, mode="shared_perm")
+        out.append(samples[-1].reshape(HOP_ROWS, FANOUTS[0]).contiguous())
+    return out
+
+
+def check_gather_mean_dedup(dev, card_line: str, data) -> dict:
+    """K3 against its plain version (f32 and bf16 tables) at the hop, its
+    idx from the sampler over bench.py's zipf adjacency, and at ragged
+    shapes; beside it K1 on the same idx; times, bound and the distinct
+    rows per output row."""
+    import torch
+    import torch.nn.functional as fnn
+
+    from graphsage_tpu_torch.ops.gather import (
+        MAX_DEDUP_SAMPLES,
+        dedup_compact,
+        fused_gather_mean,
+        gather_mean_dedup_reference,
+    )
+
+    features = data[0]
+    table_bf16 = features.to(torch.bfloat16)
+    idx_sets = hop_idx_sets(dev, data, 8, seed=20)
+    err = {}
+
+    def compare(name, tab, idx):
+        out = fused_gather_mean(tab, idx, dedup=True)
+        ref = gather_mean_dedup_reference(tab, idx)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"K3 {name}: bad output")
+        err[name] = max(err.get(name, 0.0), float((out - ref).abs().max()))
+        return out
+
+    k1_diff = 0.0
+    for idx in idx_sets[:2]:
+        out = compare("hop f32", features, idx)
+        k1_diff = max(k1_diff, float(
+            (out - fused_gather_mean(features, idx)).abs().max()))
+        compare("hop bf16", table_bf16, idx)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 4000
+
+    def randint(B, S):
+        return torch.randint(0, n, (B, S), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    ragged = {
+        "S=1": (randint(7, 1), FEAT_DIM),
+        "all equal": (randint(5, 1).expand(5, FANOUTS[0]).contiguous(),
+                      FEAT_DIM),
+        "all distinct": (torch.stack([
+            torch.randperm(n, generator=gen, device=dev)[:FANOUTS[0]]
+            for _ in range(5)]).to(torch.int32), FEAT_DIM),
+        "F=17": (randint(9, FANOUTS[0]), 17),
+        "B=7": (randint(7, FANOUTS[0]), FEAT_DIM),
+        f"S={MAX_DEDUP_SAMPLES}": (randint(3, MAX_DEDUP_SAMPLES), 33),
+    }
+    for name, (idx, F) in ragged.items():
+        tab = torch.randn(n, F, generator=gen, device=dev)
+        compare(name, tab, idx)
+        compare(name + " bf16", tab.to(torch.bfloat16), idx)
+    n_u_one = int(dedup_compact(ragged["all equal"][0])[1].max())
+    torch.cuda.synchronize()
+    worst = max(err.values())
+    log("K3 vs plain, max abs err: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in err.items()) + f" (limit {F32_TOL}); K3 "
+        f"vs K1 at the hop {k1_diff:.3e}; n_u of the all-equal rows "
+        f"{n_u_one}")
+    check(worst <= F32_TOL, f"K3 error {worst} > {F32_TOL}")
+    check(k1_diff <= F32_TOL, f"K3 and K1 differ by {k1_diff}")
+    check(n_u_one == 1, "dedup_compact: all-equal rows not one value")
+
+    ms = cuda_ms(cycling(lambda idx: fused_gather_mean(features, idx,
+                                                       dedup=True),
+                         idx_sets))
+    plain_ms = cuda_ms(cycling(
+        lambda idx: gather_mean_dedup_reference(features, idx), idx_sets),
+        iters=10, warmup=1)
+    library_ms = cuda_ms(cycling(
+        lambda idx: fnn.embedding_bag(idx, features, mode="mean"), idx_sets))
+    k1_ms = cuda_ms(cycling(lambda idx: fused_gather_mean(features, idx),
+                            idx_sets))
+    bf16_ms = cuda_ms(cycling(
+        lambda idx: fused_gather_mean(table_bf16, idx, dedup=True),
+        idx_sets))
+    per_row = [float(dedup_compact(idx)[1].float().mean())
+               for idx in idx_sets]
+    bounds = []
+    for idx, n_u in zip(idx_sets, per_row):
+        distinct = int(torch.unique(idx).numel())
+        n_bytes = (distinct * FEAT_DIM * 4 + HOP_ROWS * FEAT_DIM * 4
+                   + idx.numel() * 4)
+        n_ops = 2 * n_u * HOP_ROWS * FEAT_DIM     # w * row, then the add
+        bounds.append((n_bytes / HBM_BYTES_PER_S * 1e3,
+                       n_ops / F32_OPS_PER_S * 1e3, distinct))
+    bytes_ms = float(np.mean([b[0] for b in bounds]))
+    ops_ms = float(np.mean([b[1] for b in bounds]))
+    distinct = float(np.mean([b[2] for b in bounds]))
+    log(f"K3 at idx [{HOP_ROWS},{FANOUTS[0]}] from the sampler into "
+        f"[{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms (bf16 table "
+        f"{bf16_ms:.4f}), plain {plain_ms:.4f} ms, embedding_bag "
+        f"{library_ms:.4f} ms, K1 on the same idx {k1_ms:.4f} ms; distinct "
+        f"rows per output row {np.mean(per_row):.3f} of {FANOUTS[0]} (min "
+        f"{min(per_row):.3f}, max {max(per_row):.3f} over "
+        f"{len(idx_sets)} launches), {distinct:.0f} distinct rows per "
+        f"launch; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+        f"{bytes_ms:.4f}, ops {ops_ms:.4f}); bound share "
+        f"{max(bytes_ms, ops_ms) / ms:.3f}; on {card_line}")
+    return {
+        "name": "gather_mean_dedup",
+        "route": "cuda",
+        "source": "graphsage_tpu_torch/ops/csrc/gather_mean.cu",
+        "replaces": "graphsage_tpu/ops/gather.py:200",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def check_gather_rows(dev, card_line: str, data) -> dict:
+    """K4 bit-equal to index_select (f32 and bf16 tables) at the hop and
+    at ragged shapes; its time, index_select's (the plain version and
+    the one library call at once) and its bound."""
+    import torch
+
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_rows,
+        gather_rows_reference,
+    )
+
+    features = data[0]
+    table_bf16 = features.to(torch.bfloat16)
+    idx_sets = hop_idx_sets(dev, data, 8, seed=22)
+    checked = []
+
+    def compare(name, tab, idx):
+        out = fused_gather_rows(tab, idx)
+        ref = gather_rows_reference(tab, idx)
+        check(out.dtype == tab.dtype and torch.equal(out, ref),
+              f"K4 {name}: not equal to index_select")
+        checked.append(name)
+
+    for idx in idx_sets[:2]:
+        compare("hop f32", features, idx)
+        compare("hop bf16", table_bf16, idx)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for B, S, F in ((1, 1, 1), (7, 25, 602), (9, 10, 17), (33, 1, 640),
+                    (7, 3, 8)):
+        tab = torch.randn(65, F, generator=gen, device=dev)
+        idx = torch.randint(0, 65, (B, S), generator=gen, device=dev,
+                            dtype=torch.int32)
+        compare(f"[{B},{S}] F={F}", tab, idx)
+        compare(f"[{B},{S}] F={F} bf16", tab.to(torch.bfloat16), idx)
+    # a table 8 bytes off a 16-byte boundary: narrower copies
+    base = torch.randn(65 * 640 + 2, generator=gen, device=dev)
+    compare("unaligned", base[2:].view(65, 640),
+            torch.randint(0, 65, (6, 4), generator=gen, device=dev,
+                          dtype=torch.int32))
+    torch.cuda.synchronize()
+    log(f"K4 vs index_select: bit-equal in all {len(checked)} cases "
+        f"({', '.join(checked)})")
+
+    ms = cuda_ms(cycling(lambda idx: fused_gather_rows(features, idx),
+                         idx_sets))
+    plain_ms = cuda_ms(cycling(
+        lambda idx: gather_rows_reference(features, idx), idx_sets))
+    bf16_ms = cuda_ms(cycling(lambda idx: fused_gather_rows(table_bf16, idx),
+                              idx_sets))
+    bf16_plain_ms = cuda_ms(cycling(
+        lambda idx: gather_rows_reference(table_bf16, idx), idx_sets))
+    rows = HOP_ROWS * FANOUTS[0]
+
+    def bound(elem_bytes):
+        return float(np.mean([
+            (int(torch.unique(idx).numel()) * FEAT_DIM * elem_bytes
+             + rows * FEAT_DIM * elem_bytes + idx.numel() * 4)
+            / HBM_BYTES_PER_S * 1e3 for idx in idx_sets]))
+
+    bound_ms, bf16_bound_ms = bound(4), bound(2)
+    log(f"K4 at idx [{HOP_ROWS},{FANOUTS[0]}] from the sampler into "
+        f"[{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms, "
+        f"index_select {plain_ms:.4f} ms (the plain version and the "
+        f"library call), kernel / index_select {ms / plain_ms:.3f}; bound "
+        f"{bound_ms:.4f} ms (bytes: {rows} rows written), bound share "
+        f"{bound_ms / ms:.3f}; bf16 table: kernel {bf16_ms:.4f} ms, "
+        f"index_select {bf16_plain_ms:.4f} ms, bound {bf16_bound_ms:.4f} "
+        f"ms, share {bf16_bound_ms / bf16_ms:.3f}; on {card_line}")
+    return {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "graphsage_tpu_torch/ops/csrc/gather_rows.cu",
+        "replaces": "graphsage_tpu/ops/gather.py:483",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": plain_ms,
     }
 
 
@@ -702,15 +938,11 @@ def bench_data(dev):
     return features, torch.from_numpy(adj_np).to(dev), labels_np
 
 
-# aggregator -> the kernel its fused innermost hop launches in serving
-# and in training with dropout
-SERVE_KERNEL = {"mean": "K1", "meanpool": "K5"}
-TRAIN_KERNEL = {"mean": "K2", "meanpool": "K6"}
-
-
 def bench_config(fused: bool, dropout: float = 0.0,
-                 aggregator: str = "mean"):
-    """bench.py's model (meanpool: MLP hidden width 512, "small")."""
+                 aggregator: str = "mean", dedup: bool = False,
+                 rows: bool = False):
+    """bench.py's model (meanpool and maxpool: MLP hidden width 512, seq:
+    LSTM hidden width 128, "small")."""
     from graphsage_tpu_torch.models.graphsage import LayerInfo, SAGEConfig
     from graphsage_tpu_torch.models.supervised import SupervisedConfig
 
@@ -719,13 +951,22 @@ def bench_config(fused: bool, dropout: float = 0.0,
                 LayerInfo(FANOUTS[1], DIMS[1])),
         feature_dim=FEAT_DIM, aggregator=aggregator, concat=True,
         model_size="small", num_nodes=NUM_NODES, sampler_mode="shared_perm",
-        fused_gather=fused, dropout=dropout)
+        fused_gather=fused, dropout=dropout, dedup_gather=dedup,
+        rows_gather=rows)
     return SupervisedConfig(sage=sage, num_classes=NUM_CLASSES)
 
 
-def serve_full_width(dev, data, aggregator: str) -> int:
-    """The eval sweep over all 100k nodes; returns the launch count of
-    the aggregator's serving kernel (K1 or K5)."""
+def serve_full_width(dev, data, label: str, config, kernel: str,
+                     ref_config=None, ref_preds=None, repeats: int = 2,
+                     n_requests: int | None = None):
+    """The eval sweep over all 100k nodes with ``config`` (weights from
+    seed 0); returns the launch count of ``kernel`` in it, which must be
+    one per batch with no other kernel, and the predictions. These are
+    held to 1e-5 of ``ref_preds`` (another sweep over the same samples
+    with the same weights) or else of ``ref_config``'s path over the
+    first 4 batches. Then ``repeats`` more sweeps, ``n_requests``
+    requests one at a time (every batch by default) and a profile of 20
+    batches."""
     import torch
 
     from graphsage_tpu_torch.models.supervised import init_supervised_params
@@ -736,14 +977,9 @@ def serve_full_width(dev, data, aggregator: str) -> int:
     from graphsage_tpu_torch.train.supervised import make_eval_sweep
 
     features, adj, labels_np = data
-    kernel = SERVE_KERNEL[aggregator]
-
-    def config(fused):
-        return bench_config(fused, aggregator=aggregator)
-
     params = init_supervised_params(torch.Generator().manual_seed(0),
-                                    config(True), device=dev)
-    sweep = make_eval_sweep(config(True), BATCH, NUM_NODES)
+                                    config, device=dev)
+    sweep = make_eval_sweep(config, BATCH, NUM_NODES)
     nodes = np.arange(NUM_NODES)
     n_b = -(-NUM_NODES // BATCH)
 
@@ -760,10 +996,10 @@ def serve_full_width(dev, data, aggregator: str) -> int:
     counts = launch_counts()
     launches = counts[kernel]
 
-    log(f"{aggregator}: served {NUM_NODES} nodes in {n_b} batches of "
+    log(f"{label}: served {NUM_NODES} nodes in {n_b} batches of "
         f"{BATCH}: {dt * 1e3:.2f} ms, {NUM_NODES / dt:.1f} nodes/s; kernel "
         f"launches {counts}")
-    check_counts(counts, kernel, n_b, f"{aggregator} serving sweep")
+    check_counts(counts, kernel, n_b, f"{label} serving sweep")
     check(preds.shape == (NUM_NODES, NUM_CLASSES),
           f"preds shape {preds.shape}")
     check(bool(np.isfinite(preds).all()) and np.isfinite(loss),
@@ -775,22 +1011,27 @@ def serve_full_width(dev, data, aggregator: str) -> int:
     log(f"loss {loss:.5f}, f1_micro {f1_mic:.5f}, f1_macro {f1_mac:.5f} "
         f"(random weights and labels: chance is ~{1 / NUM_CLASSES:.4f})")
 
-    # the same first batches through the plain gather path (same sampler
-    # stream, hence the same samples) give the same predictions
-    n_ref = 4 * BATCH
-    _, ref_preds, _, _ = run_eval_sweep(
-        make_eval_sweep(config(False), BATCH, NUM_NODES), params, features,
-        adj, nodes[:n_ref], labels_np, BATCH, NUM_NODES, generator())
-    diff = float(np.abs(ref_preds - preds[:n_ref]).max())
-    log(f"{aggregator} fused vs unfused path, first {n_ref} nodes: max abs "
-        f"diff {diff:.3e} (limit 1e-5)")
-    check(diff <= 1e-5, f"fused and unfused predictions differ by {diff}")
+    # the same samples (same sampler stream) through the reference path
+    # give the same predictions
+    if ref_preds is not None:
+        diff = float(np.abs(ref_preds - preds).max())
+        log(f"{label} vs the reference sweep, all {NUM_NODES} nodes: max "
+            f"abs diff {diff:.3e} (limit 1e-5)")
+    else:
+        n_ref = 4 * BATCH
+        _, ref4, _, _ = run_eval_sweep(
+            make_eval_sweep(ref_config, BATCH, NUM_NODES), params, features,
+            adj, nodes[:n_ref], labels_np, BATCH, NUM_NODES, generator())
+        diff = float(np.abs(ref4 - preds[:n_ref]).max())
+        log(f"{label} with vs without {kernel}, first {n_ref} nodes: max "
+            f"abs diff {diff:.3e} (limit 1e-5)")
+    check(diff <= 1e-5, f"{label}: predictions differ by {diff}")
 
-    for rep in range(2):
+    for rep in range(repeats):
         _, _, _, dt_rep = run_eval_sweep(
             sweep, params, features, adj, nodes, labels_np, BATCH,
             NUM_NODES, generator())
-        log(f"{aggregator} sweep repeat {rep + 1}: {dt_rep * 1e3:.2f} ms, "
+        log(f"{label} sweep repeat {rep + 1}: {dt_rep * 1e3:.2f} ms, "
             f"{NUM_NODES / dt_rep:.1f} nodes/s")
 
     # requests one at a time: one batch of 512 ids in, predictions back
@@ -802,21 +1043,59 @@ def serve_full_width(dev, data, aggregator: str) -> int:
     labels_table[:NUM_NODES] = torch.from_numpy(labels_np).to(dev)
     gen = generator()
     lat = []
-    for i in range(n_b):
+    for i in range(n_requests or n_b):
         t1 = time.perf_counter()
         _, p = sweep(params, features, adj,
                      ids_dev[i * BATCH:(i + 1) * BATCH], labels_table, gen)
         p.cpu()
         lat.append((time.perf_counter() - t1) * 1e3)
-    log(f"{aggregator} per request of {BATCH} nodes: p50 "
+    log(f"{label} per request of {BATCH} nodes ({len(lat)} requests): p50 "
         f"{np.percentile(lat, 50):.3f} ms, "
         f"p90 {np.percentile(lat, 90):.3f} ms, max {max(lat):.3f} ms")
 
     profile_window(
         lambda: sweep(params, features, adj, ids_dev[:20 * BATCH],
                       labels_table, gen),
-        f"{aggregator} sweep of 20 batches")
-    return launches
+        f"{label} sweep of 20 batches")
+    return launches, preds
+
+
+def serve_rows_batches(dev, data, aggregator: str, n_batches: int = 4):
+    """``n_batches`` of the eval sweep with ``aggregator`` through K4
+    (rows_gather) and through the plain gather, with the same weights and
+    samples: K4 once per batch, the predictions within 1e-5."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import init_supervised_params
+    from graphsage_tpu_torch.train.supervised import (
+        _run_eval_sweep as run_eval_sweep,
+    )
+    from graphsage_tpu_torch.train.supervised import make_eval_sweep
+
+    features, adj, labels_np = data
+    nodes = np.arange(n_batches * BATCH)
+    params = init_supervised_params(
+        torch.Generator().manual_seed(0),
+        bench_config(True, aggregator=aggregator), device=dev)
+    out = {}
+    for rows in (True, False):
+        config = bench_config(True, aggregator=aggregator, rows=rows)
+        reset_counts()
+        _, preds, _, dt = run_eval_sweep(
+            make_eval_sweep(config, BATCH, NUM_NODES), params, features, adj,
+            nodes, labels_np, BATCH, NUM_NODES,
+            torch.Generator(device=dev).manual_seed(1))
+        out[rows] = (preds, launch_counts(), dt)
+    diff = float(np.abs(out[True][0] - out[False][0]).max())
+    log(f"{aggregator} with rows_gather, {n_batches} batches (first calls "
+        f"included): {out[True][2] * 1e3:.2f} ms, launches {out[True][1]}; "
+        f"plain gather {out[False][2] * 1e3:.2f} ms; predictions max abs "
+        f"diff {diff:.3e} (limit 1e-5)")
+    check_counts(out[True][1], "K4", n_batches, f"{aggregator} rows_gather")
+    check_counts(out[False][1], "K4", 0, f"{aggregator} plain gather")
+    check(bool(np.isfinite(out[True][0]).all()), "non-finite predictions")
+    check(diff <= 1e-5, f"{aggregator}: K4 and plain predictions differ by "
+          f"{diff}")
 
 
 def profile_window(fn, label: str):
@@ -847,75 +1126,21 @@ def profile_window(fn, label: str):
         return
     log(f"profiler, {label}: wall "
         f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-        f"({busy_us / wall_us:.3f} of the window, profiler on)")
+        f"({busy_us / wall_us:.3f} of the window, profiler on), "
+        f"{sum(r[1] for r in rows)} device kernels")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
 
 
 # ------------------------------------------------------------ phase 5
 
-def cli_predict(dev) -> None:
-    """``python -m graphsage_tpu_torch predict`` on the card, checked
-    against the CPU path on the same checkpoint (first_k sampling)."""
-    import torch
-
-    from graphsage_tpu_torch.data.io import load_data
-    from graphsage_tpu_torch.data.synthetic import (
-        make_synthetic_graph,
-        write_dataset,
-    )
-    from graphsage_tpu_torch.infer import predict
-    from graphsage_tpu_torch.models.supervised import init_supervised_params
-    from graphsage_tpu_torch.train import checkpoint
-    from graphsage_tpu_torch.train.config import TrainFlags
-    from graphsage_tpu_torch.train.supervised import build_supervised_config
-
-    scratch = os.path.join(ROOT, "build")   # listed in .gitignore
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        prefix = os.path.join(tmp, "toy", "toy")
-        write_dataset(make_synthetic_graph(num_nodes=300, num_classes=5,
-                                           feat_dim=32, seed=3), prefix)
-        flags = TrainFlags(train_prefix=prefix, samples_1=5, samples_2=4,
-                           dim_1=16, dim_2=16, max_degree=12, batch_size=64,
-                           sampler_mode="first_k",
-                           checkpoint_dir=os.path.join(tmp, "ckpt"))
-        config = build_supervised_config(flags, load_data(prefix))
-        checkpoint.save(flags.checkpoint_dir, init_supervised_params(
-            torch.Generator().manual_seed(0), config), 1)
-        out_dir = os.path.join(tmp, "preds")
-        cmd = [sys.executable, "-m", "graphsage_tpu_torch", "predict",
-               "--train_prefix", prefix, "--checkpoint_dir",
-               flags.checkpoint_dir, "--samples_1", "5", "--samples_2", "4",
-               "--dim_1", "16", "--dim_2", "16", "--max_degree", "12",
-               "--batch_size", "64", "--sampler_mode", "first_k",
-               "--nodes", "all", "--out_dir", out_dir,
-               "--device", str(dev)]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=600, check=False)
-        log(proc.stdout.strip())
-        check(proc.returncode == 0,
-              f"predict CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
-        for name in ("preds.npy", "nodes.txt"):
-            check(os.path.exists(os.path.join(out_dir, name)),
-                  f"predict CLI wrote no {name}")
-        preds = np.load(os.path.join(out_dir, "preds.npy"))
-        cpu = predict(flags, out_dir=os.path.join(tmp, "cpu"), nodes="all",
-                      device="cpu")
-        cpu_preds = np.load(os.path.join(cpu["out_dir"], "preds.npy"))
-        diff = float(np.abs(preds - cpu_preds).max())
-        log(f"predict CLI on {dev} vs CPU: preds {preds.shape}, max abs "
-            f"diff {diff:.3e} (limit 1e-5)")
-        check(preds.shape == (300, 5), f"preds shape {preds.shape}")
-        check(diff <= 1e-5, f"card and CPU predictions differ by {diff}")
-
-
-# ------------------------------------------------------------ phase 6
-
-def train_full_width(dev, data, aggregator: str) -> int:
-    """bench.py's model with dropout 0.5 and Adam through the chunk
-    runner; returns the launch count of the aggregator's training kernel
-    (K2 or K6) over the timed chunks."""
+def train_full_width(dev, data, label: str, config, kernel: str,
+                     chunks: int = 3, chunk_steps: int = TRAIN_CHUNK,
+                     n_sync: int = 10, n_profile: int = 5) -> int:
+    """bench.py's model in ``config``, Adam at lr 1e-2, through the chunk
+    runner: ``chunks`` timed chunks of ``chunk_steps`` steps; returns the
+    launch count of ``kernel``, which must be one per step with no other
+    kernel, over the timed chunks."""
     import traceback
     import warnings
 
@@ -929,8 +1154,6 @@ def train_full_width(dev, data, aggregator: str) -> int:
     from graphsage_tpu_torch.train.supervised import labels_table_of
 
     features, adj, labels_np = data
-    kernel = TRAIN_KERNEL[aggregator]
-    config = bench_config(True, DROPOUT, aggregator)
     params = init_supervised_params(torch.Generator().manual_seed(0), config,
                                     device=dev)
     optimizer = make_optimizer(LEARNING_RATE)
@@ -961,29 +1184,28 @@ def train_full_width(dev, data, aggregator: str) -> int:
 
     reset_counts()
     times, losses = [], []
-    for _ in range(3):
+    for _ in range(chunks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, logits = chunk(TRAIN_CHUNK)
+        loss, logits = chunk(chunk_steps)
         losses.append(float(loss))           # the print boundary
         times.append(time.perf_counter() - t0)
         check(np.isfinite(losses[-1]), f"non-finite loss {losses[-1]}")
     counts = launch_counts()
-    n_steps = 3 * TRAIN_CHUNK
-    check_counts(counts, kernel, n_steps, f"{aggregator} training")
+    n_steps = chunks * chunk_steps
+    check_counts(counts, kernel, n_steps, f"{label} training")
     check(logits.shape == (BATCH, NUM_CLASSES)
           and bool(torch.isfinite(logits).all()), "bad training logits")
     for i, (dt, lv) in enumerate(zip(times, losses)):
-        log(f"{aggregator} train chunk {i + 1}: {TRAIN_CHUNK} steps in "
+        log(f"{label} train chunk {i + 1}: {chunk_steps} steps in "
             f"{dt * 1e3:.2f} ms,"
-            f" {dt / TRAIN_CHUNK * 1e3:.4f} ms/step, "
-            f"{EDGES_PER_STEP * TRAIN_CHUNK / dt:.1f} edges/s, loss "
+            f" {dt / chunk_steps * 1e3:.4f} ms/step, "
+            f"{EDGES_PER_STEP * chunk_steps / dt:.1f} edges/s, loss "
             f"{lv:.5f}")
-    log(f"{aggregator} training: launches {counts} in {n_steps} steps; "
+    log(f"{label} training: launches {counts} in {n_steps} steps; "
         f"{EDGES_PER_STEP} edges per step; losses {losses}")
 
     # host synchronisations inside a chunk, with the stack of each
-    n_sync = 10
     stacks, notices = [], []
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -1010,34 +1232,40 @@ def train_full_width(dev, data, aggregator: str) -> int:
     where = {}
     for st in stacks:
         where[st] = where.get(st, 0) + 1
-    log(f"{aggregator} sync debug mode over {n_sync} steps: {len(stacks)} "
+    log(f"{label} sync debug mode over {n_sync} steps: {len(stacks)} "
         f"synchronising "
         f"calls, {len(stacks) / n_sync:.2f} per step"
         + "".join(f"\n  {n}x {st}" for st, n in sorted(where.items()))
         + "".join(f"\n  not counted: {m}" for m in notices))
 
-    profile_window(lambda: chunk(5), f"{aggregator}, 5 training steps")
+    profile_window(lambda: chunk(n_profile),
+                   f"{label}, {n_profile} training steps")
     return counts[kernel]
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 6
 
-def fused_vs_unfused_training(dev, data, aggregator: str) -> None:
+def fused_vs_unfused_training(dev, data, label: str, fused_config,
+                              plain_config, kernel: str,
+                              p_limit: float | None) -> None:
     """4 steps at dropout 0 from the same weights and generator state,
-    through the fused kernel (K1 for mean; K6 forward and its autograd
-    backward for meanpool) and through the plain gather: the same
-    samples (the sampler's stream is shared), so the first step's
-    gradients agree to f32 rounding (1e-5), and so do the 4 losses.
+    through ``kernel`` (``fused_config``: K1 or K3 for mean; K6 forward
+    and its autograd backward for meanpool; K4's rows for seq) and
+    through the plain gather (``plain_config``): the same samples (the
+    sampler's stream is shared), so the first step's gradients agree to
+    f32 rounding (1e-5), and so do the 4 losses.
 
-    The params after 4 Adam steps: for mean within 1e-4, the tolerance
-    of the CPU tests' Adam steps (Adam divides by |g| + eps, which
-    amplifies last-bit gradient differences where |g| is near eps). For
-    meanpool no per-element bound holds: by steps 3-4 the rounding has
-    moved a few of the 2 x 512 MLP units across relu's kink, their
+    The params after 4 Adam steps: for mean within ``p_limit`` 1e-4, the
+    tolerance of the CPU tests' Adam steps (Adam divides by |g| + eps,
+    which amplifies last-bit gradient differences where |g| is near
+    eps); for seq 1e-6, since K4's rows are bit-equal to index_select's
+    and the rest of the step is the same code. For meanpool no
+    per-element bound holds (``p_limit`` None): by steps 3-4 the rounding
+    has moved a few of the 2 x 512 MLP units across relu's kink, their
     gradients part, and Adam steps such elements by up to lr whatever
     their size (measured: 108 of 131072 elements of aggs.1.mlp.0.w
     beyond 1e-4, up to 1.6e-3, while the first step's gradients agree to
-    9e-10). Both are held, per tensor, to a difference of the two runs'
+    9e-10). All are held, per tensor, to a difference of the two runs'
     updates below 1% of the update's norm."""
     import torch
 
@@ -1049,14 +1277,12 @@ def fused_vs_unfused_training(dev, data, aggregator: str) -> None:
     from graphsage_tpu_torch.train.supervised import labels_table_of
 
     features, adj, labels_np = data
-    kernel = {"mean": "K1", "meanpool": "K6"}[aggregator]
     ids_perm = torch.from_numpy(np.random.default_rng(6).permutation(
         NUM_NODES)[:4 * BATCH].astype(np.int32)).to(dev)
     labels_table = torch.from_numpy(labels_table_of(labels_np,
                                                     NUM_NODES)).to(dev)
     out = {}
-    for fused in (True, False):
-        config = bench_config(fused, aggregator=aggregator)
+    for fused, config in ((True, fused_config), (False, plain_config)):
         params = init_supervised_params(torch.Generator().manual_seed(7),
                                         config, device=dev)
         start = {k: v.clone() for k, v in params.items()}
@@ -1085,15 +1311,14 @@ def fused_vs_unfused_training(dev, data, aggregator: str) -> None:
     rel = max(float((fused_p[k] - plain_p[k]).detach().norm()
                     / (plain_p[k] - start[k]).detach().norm().clamp(min=1e-30))
               for k in start)
-    p_limit = 1e-4 if aggregator == "mean" else None
-    log(f"{aggregator} fused vs unfused training, 4 steps at dropout 0: "
+    log(f"{label} with vs without {kernel}, training, 4 steps at dropout 0: "
         f"first-step grads max abs diff {g_diff:.3e} (limit 1e-5), losses "
         f"{l_diff:.3e} (limit 1e-5), params after 4 Adam steps {p_diff:.3e} "
         f"(limit {p_limit or 'none, see the docstring'}), update difference "
         f"over update norm, worst tensor {rel:.3e} (limit 1e-2); launches "
         f"{out[True][3]} vs {out[False][3]}")
-    check_counts(out[True][3], kernel, 4, f"{aggregator} fused training")
-    check_counts(out[False][3], kernel, 0, f"{aggregator} unfused training")
+    check_counts(out[True][3], kernel, 4, f"{label} training with {kernel}")
+    check_counts(out[False][3], kernel, 0, f"{label} plain training")
     check(g_diff <= 1e-5, f"fused and unfused gradients differ by {g_diff}")
     check(l_diff <= 1e-5, f"fused and unfused losses differ by {l_diff}")
     check(p_limit is None or p_diff <= p_limit,
@@ -1102,12 +1327,72 @@ def fused_vs_unfused_training(dev, data, aggregator: str) -> None:
           f"their norm")
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 7
 
-def cli_supervised(dev, model: str) -> None:
-    """``python -m graphsage_tpu_torch supervised`` on the card against
-    the same training on the CPU: first_k sampling and dropout 0 leave
-    no random draw on the device, so the logged losses agree."""
+def predict_job(dev, tmp: str, extra: dict):
+    """(label, command, finish) of ``python -m graphsage_tpu_torch
+    predict`` on the card; ``finish(rc, stdout, stderr)`` checks it
+    against the CPU path on the same checkpoint (first_k sampling).
+    ``extra``: boolean flags set on both, e.g. {"dedup_gather": True}."""
+    import torch
+
+    from graphsage_tpu_torch.data.io import load_data
+    from graphsage_tpu_torch.data.synthetic import (
+        make_synthetic_graph,
+        write_dataset,
+    )
+    from graphsage_tpu_torch.infer import predict
+    from graphsage_tpu_torch.models.supervised import init_supervised_params
+    from graphsage_tpu_torch.train import checkpoint
+    from graphsage_tpu_torch.train.config import TrainFlags
+    from graphsage_tpu_torch.train.supervised import build_supervised_config
+
+    label = " ".join(["predict CLI"] + [f"--{k}" for k in extra])
+    prefix = os.path.join(tmp, "toy", "toy")
+    write_dataset(make_synthetic_graph(num_nodes=300, num_classes=5,
+                                       feat_dim=32, seed=3), prefix)
+    flags = TrainFlags(train_prefix=prefix, samples_1=5, samples_2=4,
+                       dim_1=16, dim_2=16, max_degree=12, batch_size=64,
+                       sampler_mode="first_k",
+                       checkpoint_dir=os.path.join(tmp, "ckpt"), **extra)
+    config = build_supervised_config(flags, load_data(prefix))
+    checkpoint.save(flags.checkpoint_dir, init_supervised_params(
+        torch.Generator().manual_seed(0), config), 1)
+    out_dir = os.path.join(tmp, "preds")
+    cmd = [sys.executable, "-m", "graphsage_tpu_torch", "predict",
+           "--train_prefix", prefix, "--checkpoint_dir",
+           flags.checkpoint_dir, "--samples_1", "5", "--samples_2", "4",
+           "--dim_1", "16", "--dim_2", "16", "--max_degree", "12",
+           "--batch_size", "64", "--sampler_mode", "first_k",
+           "--nodes", "all", "--out_dir", out_dir,
+           "--device", str(dev)] + [f"--{k}" for k in extra]
+
+    def finish(rc: int, stdout: str, stderr: str) -> None:
+        log(stdout.strip())
+        check(rc == 0, f"{label} exited {rc}: {stderr[-2000:]}")
+        for name in ("preds.npy", "nodes.txt"):
+            check(os.path.exists(os.path.join(out_dir, name)),
+                  f"{label} wrote no {name}")
+        preds = np.load(os.path.join(out_dir, "preds.npy"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = predict(flags, out_dir=os.path.join(tmp, "cpu"),
+                          nodes="all", device="cpu")
+        cpu_preds = np.load(os.path.join(cpu["out_dir"], "preds.npy"))
+        diff = float(np.abs(preds - cpu_preds).max())
+        log(f"{label} on {dev} vs CPU: preds {preds.shape}, max abs diff "
+            f"{diff:.3e} (limit 1e-5)")
+        check(preds.shape == (300, 5), f"preds shape {preds.shape}")
+        check(diff <= 1e-5, f"card and CPU predictions differ by {diff}")
+
+    return label, cmd, finish
+
+
+def supervised_job(dev, tmp: str, model: str, extra: dict):
+    """(label, command, finish) of ``python -m graphsage_tpu_torch
+    supervised`` on the card; ``finish(rc, stdout, stderr)`` runs the
+    same training on the CPU: first_k sampling and dropout 0 leave no
+    random draw on the device, so the logged losses agree. ``extra``:
+    boolean flags set on both, e.g. {"rows_gather": True}."""
     from graphsage_tpu_torch.data.synthetic import (
         make_synthetic_graph,
         write_dataset,
@@ -1115,56 +1400,93 @@ def cli_supervised(dev, model: str) -> None:
     from graphsage_tpu_torch.train.config import TrainFlags
     from graphsage_tpu_torch.train.supervised import train
 
-    scratch = os.path.join(ROOT, "build")   # listed in .gitignore
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        prefix = os.path.join(tmp, "toy", "toy")
-        write_dataset(make_synthetic_graph(num_nodes=400, num_classes=5,
-                                           feat_dim=32, seed=3), prefix)
-        args = dict(samples_1=5, samples_2=4, dim_1=16, dim_2=16,
-                    max_degree=12, batch_size=32, epochs=3, print_every=2,
-                    validate_iter=3, validate_batch_size=16,
-                    sampler_mode="first_k", dropout=0.0, seed=9)
-        cmd = [sys.executable, "-m", "graphsage_tpu_torch", "supervised",
-               "--train_prefix", prefix, "--base_log_dir",
-               os.path.join(tmp, "card"), "--device", str(dev),
-               "--model", model]
-        for k, v in args.items():
-            cmd += [f"--{k}", str(v)]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=600, check=False)
-        log("\n".join(proc.stdout.strip().splitlines()[-6:]))
-        check(proc.returncode == 0,
-              f"supervised CLI exited {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
+    label = " ".join(["supervised CLI --model", model]
+                     + [f"--{k}" for k in extra])
+    prefix = os.path.join(tmp, "toy", "toy")
+    write_dataset(make_synthetic_graph(num_nodes=400, num_classes=5,
+                                       feat_dim=32, seed=3), prefix)
+    args = dict(samples_1=5, samples_2=4, dim_1=16, dim_2=16,
+                max_degree=12, batch_size=32, epochs=3, print_every=2,
+                validate_iter=3, validate_batch_size=16,
+                sampler_mode="first_k", dropout=0.0, seed=9)
+    cmd = [sys.executable, "-m", "graphsage_tpu_torch", "supervised",
+           "--train_prefix", prefix, "--base_log_dir",
+           os.path.join(tmp, "card"), "--device", str(dev),
+           "--model", model]
+    for k, v in args.items():
+        cmd += [f"--{k}", str(v)]
+    cmd += [f"--{k}" for k in extra]
+
+    def logged(base):
+        log_dir = os.path.join(base, "sup-toy", f"{model}_small_0.0100")
+        for name in ("val_stats.txt", "test_stats.txt"):
+            check(os.path.exists(os.path.join(log_dir, name)),
+                  f"no {name} in {log_dir}")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as fp:
+            recs = [json.loads(line) for line in fp]
+        return ([r["train_loss"] for r in recs if "train_loss" in r],
+                recs[-1]["final_val_loss"])
+
+    def finish(rc: int, stdout: str, stderr: str) -> None:
+        log("\n".join(stdout.strip().splitlines()[-3:]))
+        check(rc == 0, f"{label} exited {rc}: {stderr[-2000:]}")
         flags = TrainFlags(train_prefix=prefix, model=model,
-                           base_log_dir=os.path.join(tmp, "cpu"), **args)
+                           base_log_dir=os.path.join(tmp, "cpu"), **args,
+                           **extra)
         with contextlib.redirect_stdout(io.StringIO()):
             train(flags, device="cpu")
-
-        def logged(base):
-            log_dir = os.path.join(base, "sup-toy",
-                                   f"{model}_small_0.0100")
-            for name in ("val_stats.txt", "test_stats.txt"):
-                check(os.path.exists(os.path.join(log_dir, name)),
-                      f"no {name} in {log_dir}")
-            with open(os.path.join(log_dir, "metrics.jsonl")) as fp:
-                recs = [json.loads(line) for line in fp]
-            return ([r["train_loss"] for r in recs if "train_loss" in r],
-                    recs[-1]["final_val_loss"])
-
         card_losses, card_val = logged(os.path.join(tmp, "card"))
         cpu_losses, cpu_val = logged(os.path.join(tmp, "cpu"))
         check(len(card_losses) == len(cpu_losses) > 0,
               f"{len(card_losses)} vs {len(cpu_losses)} logged losses")
         diff = max(abs(a - b) for a, b in zip(card_losses + [card_val],
                                               cpu_losses + [cpu_val]))
-        log(f"supervised CLI --model {model} on {dev} vs CPU: "
-            f"{len(card_losses)} train "
-            f"losses and the final val loss, max abs diff {diff:.3e} "
-            f"(limit {CLI_TOL}); first/last train loss {card_losses[0]:.5f}"
-            f"/{card_losses[-1]:.5f}, val {card_val:.5f}")
+        log(f"{label} on {dev} vs CPU: {len(card_losses)} train losses and "
+            f"the final val loss, max abs diff {diff:.3e} (limit "
+            f"{CLI_TOL}); first/last train loss {card_losses[0]:.5f}/"
+            f"{card_losses[-1]:.5f}, val {card_val:.5f}")
         check(diff <= CLI_TOL, f"card and CPU training differ by {diff}")
+
+    return label, cmd, finish
+
+
+def cli_phases(dev) -> None:
+    """Every CLI check: ``predict`` (plain and ``--dedup_gather``) and
+    ``supervised`` (graphsage_mean, graphsage_meanpool, graphsage_seq
+    with ``--rows_gather``). The card-side processes start together,
+    since each takes seconds to reach the card; the CPU references run
+    here meanwhile, one after another. Every process is ended before
+    this returns."""
+    scratch = os.path.join(ROOT, "build")   # listed in .gitignore
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        jobs = [
+            predict_job(dev, os.path.join(tmp, "p0"), {}),
+            predict_job(dev, os.path.join(tmp, "p1"), {"dedup_gather": True}),
+            supervised_job(dev, os.path.join(tmp, "s0"), "graphsage_mean",
+                           {}),
+            supervised_job(dev, os.path.join(tmp, "s1"),
+                           "graphsage_meanpool", {}),
+            supervised_job(dev, os.path.join(tmp, "s2"), "graphsage_seq",
+                           {"rows_gather": True}),
+        ]
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for _, cmd, _ in jobs:
+                procs.append(subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+            for proc, (label, _, finish) in zip(procs, jobs):
+                stdout, stderr = proc.communicate(timeout=600)
+                log(f"[{label}: card process done at "
+                    f"{time.perf_counter() - t0:.2f} s]")
+                finish(proc.returncode, stdout, stderr)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
 
 def main() -> int:
@@ -1199,7 +1521,8 @@ def main() -> int:
             return name, time.perf_counter() - t0, nvcc_log
 
         with concurrent.futures.ThreadPoolExecutor() as pool:
-            results = list(pool.map(timed, ("gather_mean", "gather_mlp_pool")))
+            results = list(pool.map(timed, ("gather_mean", "gather_rows",
+                                            "gather_mlp_pool")))
         for name, seconds, nvcc_log in results:
             log(f"built {name}.cu in {seconds:.2f} s")
             for line in nvcc_log.splitlines():
@@ -1208,30 +1531,59 @@ def main() -> int:
                     log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
         sass_summary()
 
-    phase("build K1+K2 (gather_mean.cu), K5+K6 (gather_mlp_pool.cu)",
-          build_kernels)
+    phase("build K1+K2+K3 (gather_mean.cu), K4 (gather_rows.cu), K5+K6 "
+          "(gather_mlp_pool.cu)", build_kernels)
+    data = phase("bench data", bench_data, dev)
     k1 = phase("K1 vs plain", check_gather_mean, dev, card_line)
     k2 = phase("K2 vs plain", check_gather_mean_dropout, dev, card_line)
+    k3 = phase("K3 vs plain", check_gather_mean_dedup, dev, card_line, data)
+    k4 = phase("K4 vs plain", check_gather_rows, dev, card_line, data)
     k5 = phase("K5 vs plain", check_pool, dev, card_line)
     k6 = phase("K6 vs plain", check_pool_train, dev, card_line)
-    data = phase("bench data", bench_data, dev)
-    k1["launches"] = phase("mean serving", serve_full_width, dev, data,
-                           "mean")
-    k5["launches"] = phase("meanpool serving", serve_full_width, dev, data,
-                           "meanpool")
-    phase("predict CLI", cli_predict, dev)
-    k2["launches"] = phase("mean training", train_full_width, dev, data,
-                           "mean")
-    k6["launches"] = phase("meanpool training", train_full_width, dev, data,
-                           "meanpool")
-    for agg in ("mean", "meanpool"):
-        phase(f"{agg} fused vs unfused training", fused_vs_unfused_training,
-              dev, data, agg)
-    for model in ("graphsage_mean", "graphsage_meanpool"):
-        phase(f"supervised CLI {model}", cli_supervised, dev, model)
+
+    k1["launches"], mean_preds = phase(
+        "mean serving", serve_full_width, dev, data, "mean",
+        bench_config(True), "K1", bench_config(False))
+    k3["launches"], _ = phase(
+        "mean serving, dedup_gather", serve_full_width, dev, data,
+        "mean dedup_gather", bench_config(True, dedup=True), "K3", None,
+        mean_preds)
+    del mean_preds
+    k5["launches"], _ = phase(
+        "meanpool serving", serve_full_width, dev, data, "meanpool",
+        bench_config(True, aggregator="meanpool"), "K5",
+        bench_config(False, aggregator="meanpool"))
+    k4["launches"], _ = phase(
+        "seq serving, rows_gather", serve_full_width, dev, data,
+        "seq rows_gather", bench_config(True, aggregator="seq", rows=True),
+        "K4", bench_config(True, aggregator="seq"), None, 1, 64)
+    phase("maxpool serving, rows_gather", serve_rows_batches, dev, data,
+          "maxpool")
+    k2["launches"] = phase(
+        "mean training", train_full_width, dev, data, "mean",
+        bench_config(True, DROPOUT), "K2")
+    k6["launches"] = phase(
+        "meanpool training", train_full_width, dev, data, "meanpool",
+        bench_config(True, DROPOUT, "meanpool"), "K6")
+    phase("seq training, rows_gather", train_full_width, dev, data,
+          "seq rows_gather", bench_config(True, 0.0, "seq", rows=True), "K4",
+          2, SEQ_TRAIN_CHUNK, 4, 3)
+    for label, fused, plain, kernel, p_limit in (
+            ("mean", bench_config(True), bench_config(False), "K1", 1e-4),
+            ("meanpool", bench_config(True, aggregator="meanpool"),
+             bench_config(False, aggregator="meanpool"), "K6", None),
+            ("seq", bench_config(True, aggregator="seq", rows=True),
+             bench_config(True, aggregator="seq"), "K4", 1e-6),
+            ("mean dedup_gather", bench_config(True, dedup=True),
+             bench_config(False), "K3", 1e-4)):
+        phase(f"{label} training with vs without {kernel}",
+              fused_vs_unfused_training, dev, data, label, fused, plain,
+              kernel, p_limit)
+    phase("CLI: predict (and --dedup_gather), supervised (mean, meanpool, "
+          "seq --rows_gather) on the card against the CPU", cli_phases, dev)
     log(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
 
-    log(json.dumps({"kernels": [k1, k2, k5, k6]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

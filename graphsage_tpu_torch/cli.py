@@ -41,6 +41,15 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
                    default=d.fused_gather,
                    help="CUDA kernel for the innermost hop: gather-mean "
                    "(mean, gcn) or gather-MLP-pool (meanpool)")
+    p.add_argument("--dedup_gather", action=argparse.BooleanOptionalAction,
+                   default=d.dedup_gather,
+                   help="the fused gather-mean loads each distinct sample "
+                   "of a row once (K3; ignored under dropout)")
+    p.add_argument("--rows_gather", action=argparse.BooleanOptionalAction,
+                   default=d.rows_gather,
+                   help="CUDA row-gather kernel (K4) for the innermost "
+                   "hop's rows where no fused kernel reduces them "
+                   "(maxpool, twomaxpool, seq)")
     p.add_argument("--feature_dtype", choices=("float32", "bfloat16"),
                    default=d.feature_dtype)
     p.add_argument("--seed", type=int, default=d.seed)

@@ -13,7 +13,8 @@ activation.
 
 Parameters are a flat dict of tensors keyed by the JAX pytree's paths:
 ``aggs.{i}.{neigh_w,self_w,w,b}``, the pooling MLP's
-``aggs.{i}.mlp.{j}.{w,b}`` and ``embeds`` (see ``params.py``).
+``aggs.{i}.mlp.{j}.{w,b}``, the seq aggregator's
+``aggs.{i}.lstm.{kernel,bias}`` and ``embeds`` (see ``params.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from graphsage_tpu_torch.nn.aggregators import (
 )
 from graphsage_tpu_torch.nn.init import glorot
 from graphsage_tpu_torch.nn.sampler import uniform_sample
-from graphsage_tpu_torch.ops.gather import fused_gather_mean
+from graphsage_tpu_torch.ops.gather import (
+    fused_gather_mean,
+    fused_gather_rows,
+)
 from graphsage_tpu_torch.ops.philox import philox_dropout
 from graphsage_tpu_torch.ops.pool import gather_mlp_pool_train
 
@@ -63,6 +67,8 @@ class SAGEConfig:
     dropout: float = 0.0
     sampler_mode: str = "shared_perm"
     fused_gather: bool = False  # CUDA kernel for the innermost hop
+    dedup_gather: bool = False  # K3: the fused mean loads distinct rows once
+    rows_gather: bool = False   # K4 gathers the innermost hop's rows
 
     @property
     def input_dim(self) -> int:
@@ -198,16 +204,24 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     (un-normalized) embeddings. ``generator`` (on ``adj``'s device)
     drives the sampler and, when not ``deterministic``, dropout.
 
-    With ``config.fused_gather`` the mean and gcn aggregators reduce the
-    innermost hop with ``fused_gather_mean`` (f32 mean, as the JAX
-    package's fused path); an identity table's columns of those rows
-    take a plain gather and mean beside it (the kernel reads only the
-    feature table). meanpool without an identity table (the MLP mixes
-    all columns) runs that hop's gather, first MLP layer and mean pool
-    through ``gather_mlp_pool_train``; maxpool is not routed, as in the
-    JAX package. Training with dropout draws that hop's masks from
-    Philox streams: ``drop_key`` = (seed, step), host integers, with the
-    tags above, so each step's masks differ and nothing is read back.
+    The innermost hop's routes, as in the JAX package:
+    - ``fused_gather`` with mean or gcn: ``fused_gather_mean`` reduces
+      the hop (f32 mean; K3, each distinct row loaded once, with
+      ``dedup_gather`` and no dropout), and an identity table's columns
+      of those rows take a plain gather and mean beside it (the kernel
+      reads only the feature table);
+    - ``fused_gather`` with meanpool and no identity table (the MLP
+      mixes all columns): ``gather_mlp_pool_train`` runs the hop's
+      gather, first MLP layer and mean pool;
+    - ``rows_gather`` when neither took the hop (maxpool, twomaxpool,
+      seq, or any aggregator without ``fused_gather``):
+      ``fused_gather_rows`` (K4) gathers the hop's feature rows, and an
+      identity table's columns stay on a differentiable ``index_select``
+      in front of them, ``[identity | features]``;
+    - otherwise the plain gather.
+    Training with dropout draws the fused hop's masks from Philox
+    streams: ``drop_key`` = (seed, step), host integers, with the tags
+    above, so each step's masks differ and nothing is read back.
     """
     samples = sample_frontier(generator, adj, ids, config.fanouts,
                               mode=config.sampler_mode)
@@ -216,7 +230,11 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
              and has_features)
     pool_fused = (config.fused_gather and config.aggregator == "meanpool"
                   and has_features and config.identity_dim == 0)
-    last_mean = None
+    use_rows = config.rows_gather and has_features and not (
+        fused or pool_fused)
+    inner_fanout = config.fanouts[0]
+    idx2 = samples[-1].reshape(-1, inner_fanout)
+    last_mean = last_rows = None
     if fused or pool_fused:
         inner_drop = 0.0 if deterministic else config.dropout
         if inner_drop > 0.0 and drop_key is None:
@@ -226,8 +244,6 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
             )
         seed, step = drop_key if inner_drop > 0.0 else (None, 0)
         offset = (step, KERNEL_DROP_TAG) if inner_drop > 0.0 else None
-        inner_fanout = config.fanouts[0]
-        idx2 = samples[-1].reshape(-1, inner_fanout)
     if pool_fused:
         mlp0 = mlp_layers(agg_params(params, 0))[0]
         last_mean = gather_mlp_pool_train(
@@ -237,6 +253,7 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     elif fused:
         last_mean = fused_gather_mean(
             features, idx2, drop_rate=inner_drop, seed=seed, offset=offset,
+            dedup=config.dedup_gather,
         )
         if config.identity_dim > 0:
             id_rows = params["embeds"].index_select(0, samples[-1])
@@ -246,13 +263,19 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
             id_mean = id_rows.view(-1, inner_fanout,
                                    config.identity_dim).mean(dim=1)
             last_mean = torch.cat([id_mean, last_mean], dim=1)
-    # the innermost frontier's rows are gathered only when no kernel
-    # reduced them
-    gathered = samples if last_mean is None else samples[:-1]
+    elif use_rows:
+        last_rows = fused_gather_rows(features, idx2)
+        if config.identity_dim > 0:
+            last_rows = torch.cat(
+                [params["embeds"].index_select(0, samples[-1]), last_rows],
+                dim=1)
+    # the innermost frontier's rows take the plain gather only when no
+    # kernel reduced or gathered them
+    inner_done = last_mean is not None or last_rows is not None
     hidden = [gather_features(params, features, s, config)
-              for s in gathered]
-    if last_mean is not None:
-        hidden.append(None)
+              for s in (samples[:-1] if inner_done else samples)]
+    if inner_done:
+        hidden.append(last_rows)
     return aggregate_pyramid(
         params, hidden, ids.shape[0], config,
         generator=None if deterministic else generator,

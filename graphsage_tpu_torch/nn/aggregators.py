@@ -5,6 +5,8 @@
   maxpool    — per-neighbor MLP -> elementwise max -> two matmuls
   meanpool   — the same with a mean reduction
   twomaxpool — a 2-layer MLP, then the max
+  seq        — an LSTM over the neighbor sequence (``nn/lstm.py``), its
+               last output -> two matmuls
 
 mean and gcn drop out both inputs. Each takes the neighbor input either
 as [n, S, d] rows or as the pre-reduced [n, d] mean that the fused
@@ -14,8 +16,8 @@ only the MLP's input (each Dense drops its input), never the self
 input; maxpool and meanpool also take ``pre_pooled`` [n, H] input, the
 fused gather -> MLP -> pool kernel's result, and then skip the MLP and
 the reduce. The max is ``torch.amax``, whose gradient splits evenly
-among ties as ``jnp.max``'s does. The seq aggregator is a later slice
-of the port.
+among ties as ``jnp.max``'s does. seq takes no dropout, as in the
+reference.
 
 Rows of a bf16 feature table stay bf16 through dropout and the
 neighbor mean, which is rounded to bf16 as ``jnp.mean`` rounds it (an
@@ -30,13 +32,15 @@ import torch
 
 from graphsage_tpu_torch.nn.dense import apply_dense, init_dense
 from graphsage_tpu_torch.nn.init import dropout, glorot, zeros
+from graphsage_tpu_torch.nn.lstm import (
+    init_lstm,
+    lstm_last_output,
+    neighbor_lengths,
+)
 
 POOL_HIDDEN = {"small": 512, "big": 1024}
 TWOPOOL_HIDDEN = {"small": (512, 256), "big": (1024, 512)}
-
-_LATER_SLICES = {
-    "seq": "the seq/LSTM slice",
-}
+LSTM_HIDDEN = {"small": 128, "big": 256}
 
 
 def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -212,6 +216,32 @@ def apply_twomaxpool(params, self_vecs, neigh_vecs, *, act, concat,
                        generator=generator, deterministic=deterministic)
 
 
+# ----------------------------------------------------------------- seq
+
+def init_seq(generator, input_dim, output_dim, model_size="small",
+             bias=False, device="cpu") -> dict:
+    hidden = LSTM_HIDDEN[model_size]
+    p = {f"lstm.{k}": v for k, v in
+         init_lstm(generator, input_dim, hidden, device).items()}
+    p["neigh_w"] = glorot(generator, (hidden, output_dim), device)
+    p["self_w"] = glorot(generator, (input_dim, output_dim), device)
+    if bias:
+        p["b"] = zeros((output_dim,), device)
+    return p
+
+
+def apply_seq(params, self_vecs, neigh_vecs, *, act, concat,
+              dropout_rate=0.0, generator=None, deterministic=True):
+    """``neigh_vecs`` [n, S, d]: the LSTM's output at each sequence's
+    last non-zero row, then the neighbor projection."""
+    del dropout_rate, generator, deterministic
+    lstm = {"kernel": params["lstm.kernel"], "bias": params["lstm.bias"]}
+    neigh_h = lstm_last_output(lstm, neigh_vecs, neighbor_lengths(neigh_vecs))
+    from_neighs = _dot(neigh_h, params["neigh_w"])
+    from_self = _dot(self_vecs, params["self_w"])
+    return _combine(from_self, from_neighs, params, act, concat)
+
+
 # ------------------------------------------------------------ registry
 
 AGGREGATORS = {
@@ -220,18 +250,14 @@ AGGREGATORS = {
     "maxpool": (init_maxpool, apply_maxpool),
     "meanpool": (init_meanpool, apply_meanpool),
     "twomaxpool": (init_twomaxpool, apply_twomaxpool),
+    "seq": (init_seq, apply_seq),
 }
 
 
 def _lookup(name):
-    if name in AGGREGATORS:
-        return AGGREGATORS[name]
-    if name in _LATER_SLICES:
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet: it comes with "
-            f"{_LATER_SLICES[name]} of the PyTorch port (ROADMAP.md)"
-        )
-    raise ValueError(f"unknown aggregator {name!r}")
+    if name not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {name!r}")
+    return AGGREGATORS[name]
 
 
 def init_aggregator(name, generator, input_dim, output_dim,
@@ -247,6 +273,6 @@ def apply_aggregator(name, params, self_vecs, neigh_vecs, **kw):
 def decay_weights(name, params) -> list:
     """The weights weight decay applies to: the aggregator's own
     self/neigh projections (gcn's single weight) and bias, never the
-    pooling MLP."""
+    pooling MLP or the LSTM."""
     _lookup(name)
     return [params[k] for k in ("w", "neigh_w", "self_w", "b") if k in params]

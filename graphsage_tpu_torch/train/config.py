@@ -50,6 +50,8 @@ class TrainFlags:
     max_total_steps: int = 10**10
     sampler_mode: str = "shared_perm"  # or "independent", "first_k"
     fused_gather: bool = True   # CUDA kernel for the innermost hop
+    dedup_gather: bool = False  # K3: the fused mean loads distinct rows once
+    rows_gather: bool = False   # K4 gathers the pooled/seq hop's rows
     feature_dtype: str = "float32"  # or "bfloat16"
     seed: int = 123
     checkpoint_dir: str = ""    # torch checkpoint root ("" = disabled)

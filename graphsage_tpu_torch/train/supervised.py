@@ -59,6 +59,8 @@ def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
         dropout=flags.dropout,
         sampler_mode=flags.sampler_mode,
         fused_gather=flags.fused_gather,
+        dedup_gather=flags.dedup_gather,
+        rows_gather=flags.rows_gather,
     )
     return SupervisedConfig(
         sage=sage,

@@ -14,9 +14,13 @@ import pytest
 import torch
 
 from graphsage_tpu_torch.ops.gather import (
+    MAX_DEDUP_SAMPLES,
     fused_gather_mean,
+    fused_gather_rows,
+    gather_mean_dedup_reference,
     gather_mean_dropout_reference,
     gather_mean_reference,
+    gather_rows_reference,
 )
 from graphsage_tpu_torch.ops.philox import dropout_keep_mask
 from graphsage_tpu_torch.ops.pool import (
@@ -132,6 +136,88 @@ def test_zero_rate_launches_k1(cuda):
     assert (fused_gather_mean.launches, fused_gather_mean.dropout_launches) \
         == (k1 + 1, k2)
     torch.testing.assert_close(out, gather_mean_reference(table, idx))
+
+
+# ------------------------------------------------------------------ K3
+
+def _dedup_idx(cuda, kind, B, S, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if kind == "equal":        # one distinct sample per row
+        return torch.randint(0, n, (B, 1), generator=gen, device=cuda,
+                             dtype=torch.int32).expand(B, S).contiguous()
+    if kind == "distinct":     # no repeats within a row
+        return torch.stack([torch.randperm(n, generator=gen, device=cuda)[:S]
+                            for _ in range(B)]).to(torch.int32)
+    return torch.randint(0, n, (B, S), generator=gen, device=cuda,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,F,kind", [
+    (1, 1, 1, "random"), (7, 25, 602, "random"), (9, 25, 17, "random"),
+    (5, 25, 602, "equal"), (5, 25, 640, "distinct"), (300, 25, 602, "random"),
+    (3, MAX_DEDUP_SAMPLES, 33, "random"),
+])
+def test_dedup_kernel_matches_plain(cuda, dtype, B, S, F, kind):
+    """K3 at ragged shapes against its plain version (both sum w * row
+    in f32, in another order) and against K1's mean."""
+    n = 4000 if kind == "distinct" or S > 100 else 40
+    table = torch.randn(n, F, generator=torch.Generator(
+        device=cuda).manual_seed(F), device=cuda).to(dtype)
+    idx = _dedup_idx(cuda, kind, B, S, n, seed=B + S)
+    before = fused_gather_mean.dedup_launches
+    out = fused_gather_mean(table, idx, dedup=True)
+    torch.cuda.synchronize()
+    assert fused_gather_mean.dedup_launches == before + 1
+    torch.testing.assert_close(
+        out, gather_mean_dedup_reference(table, idx), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out, gather_mean_reference(table, idx),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, fused_gather_mean(table, idx, dedup=True))
+
+
+def test_dedup_with_dropout_launches_k2(cuda):
+    table = torch.randn(30, 64, device=cuda)
+    idx = torch.randint(0, 30, (16, 5), device=cuda, dtype=torch.int32)
+    k2, k3 = fused_gather_mean.dropout_launches, \
+        fused_gather_mean.dedup_launches
+    a = fused_gather_mean(table, idx, 0.5, seed=3, offset=(1, 2), dedup=True)
+    b = fused_gather_mean(table, idx, 0.5, seed=3, offset=(1, 2))
+    assert torch.equal(a, b)
+    assert (fused_gather_mean.dropout_launches,
+            fused_gather_mean.dedup_launches) == (k2 + 2, k3)
+
+
+# ------------------------------------------------------------------ K4
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,F", [
+    (1, 1, 1), (7, 25, 602), (9, 10, 17), (33, 1, 640), (2, 3, 8),
+    (512, 25, 602),
+])
+def test_rows_kernel_is_index_select(cuda, dtype, B, S, F):
+    """K4 is bit-equal to index_select at ragged shapes (odd F gives
+    2-byte bf16 copies, F = 602 f32 8-byte ones, F = 640 16-byte ones)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + S + F)
+    table = torch.randn(61, F, generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, 61, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = fused_gather_rows.launches
+    out = fused_gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert fused_gather_rows.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B * S, F)
+    assert torch.equal(out, gather_rows_reference(table, idx))
+
+
+def test_rows_kernel_unaligned_table(cuda):
+    """A table starting 8 bytes off a 16-byte boundary takes narrower
+    copies and the same result."""
+    base = torch.randn(41 * 640 + 2, device=cuda)
+    table = base[2:].view(41, 640)
+    idx = torch.randint(0, 41, (6, 4), device=cuda, dtype=torch.int32)
+    assert torch.equal(fused_gather_rows(table, idx),
+                       gather_rows_reference(table, idx))
 
 
 # K5/K6 vs plain: z sums F products in another order than cuBLAS

@@ -158,3 +158,41 @@ def test_unlabeled_dataset_needs_num_classes(tmp_path):
                         num_classes=3, graph=unlabeled, device="cpu")
     assert "f1_micro" not in out
     assert np.load(os.path.join(out["out_dir"], "preds.npy")).shape == (60, 3)
+
+
+def test_cli_predict_dedup_gather_matches_default(tmp_path, monkeypatch):
+    """``predict --dedup_gather`` reaches the fused gather-mean (K3's
+    plain version on the CPU) and gives the default path's predictions
+    from the same checkpoint and samples, up to f32 rounding of the two
+    means."""
+    from graphsage_tpu_torch.models import graphsage as tg
+
+    dedup_flags = []
+    orig = tg.fused_gather_mean
+
+    def recording(*a, **kw):
+        dedup_flags.append(kw["dedup"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tg, "fused_gather_mean", recording)
+    g = make_synthetic_graph(num_nodes=90, num_classes=3, feat_dim=8,
+                             seed=6)
+    flags = _flags(tmp_path, sampler_mode="shared_perm")
+    write_dataset(g, flags.train_prefix)
+    cfg = infer.build_supervised_config(flags, load_data(flags.train_prefix))
+    checkpoint.save(flags.checkpoint_dir, init_supervised_params(
+        torch.Generator().manual_seed(1), cfg), 1)
+    argv = ["predict", "--train_prefix", flags.train_prefix,
+            "--checkpoint_dir", flags.checkpoint_dir, "--samples_1", "4",
+            "--samples_2", "3", "--dim_1", "8", "--dim_2", "8",
+            "--max_degree", "8", "--batch_size", "16", "--nodes", "all",
+            "--device", "cpu", "--seed", "5"]
+    preds = {}
+    for extra in ([], ["--dedup_gather"]):
+        out = tmp_path / f"out{len(extra)}"
+        dedup_flags.clear()
+        assert cli.main(argv + ["--out_dir", str(out)] + extra) == 0
+        assert dedup_flags and set(dedup_flags) == {bool(extra)}
+        preds[len(extra)] = np.load(out / "preds.npy")
+    assert preds[0].shape == (90, 3)
+    np.testing.assert_allclose(preds[1], preds[0], rtol=1e-5, atol=1e-6)

@@ -12,6 +12,7 @@ import torch
 
 from graphsage_tpu.models import graphsage as jg
 from graphsage_tpu.models import supervised as js
+from graphsage_tpu.ops import gather as jgather
 from graphsage_tpu.ops import pool as jpool
 from graphsage_tpu.ops.gather import pad_feature_dim
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
@@ -364,3 +365,125 @@ def test_pool_init_shapes_match_jax(aggregator, model_size):
     got = {k: tuple(v.shape) for k, v in ts.init_supervised_params(
         torch.Generator().manual_seed(0), tsup).items()}
     assert got == want
+
+
+# ------------------------------------- dedup_gather and rows_gather
+
+def _jax_kernels_interpreted(monkeypatch):
+    """The JAX package's gather kernels in interpret mode, as
+    tests/test_ops.py runs them (sage_embed imports them at call time)."""
+    for name in ("fused_gather_mean", "fused_gather_rows"):
+        orig = getattr(jgather, name)
+        monkeypatch.setattr(jgather, name,
+                            lambda *a, _f=orig, **kw: _f(*a, interpret=True,
+                                                         **kw))
+
+
+def _recording(monkeypatch, name):
+    """Wrap the port's ``name`` in models/graphsage.py; returns the list
+    of the keyword arguments of its calls."""
+    calls = []
+    orig = getattr(tg, name)
+
+    def wrapped(*a, **kw):
+        calls.append(kw)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tg, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("aggregator,identity_dim,fused", [
+    ("seq", 0, True), ("seq", 4, False), ("maxpool", 4, True),
+    ("twomaxpool", 0, True), ("mean", 0, False),
+])
+def test_rows_gather_sage_embed_matches_jax(monkeypatch, aggregator,
+                                            identity_dim, fused):
+    """rows_gather where no fused kernel takes the innermost hop: the
+    port gathers its rows through fused_gather_rows (K4's plain version
+    here), the JAX package through its row kernel in interpret mode;
+    identity columns in front. tests/test_ops.py's rtol 1e-4, atol
+    1e-5."""
+    feats, adj, ids, jcfg, tcfg = _pool_case(aggregator, fused)
+    jcfg = dataclasses.replace(jcfg, rows_gather=True,
+                               identity_dim=identity_dim)
+    tcfg = dataclasses.replace(tcfg, rows_gather=True,
+                               identity_dim=identity_dim)
+    _jax_kernels_interpreted(monkeypatch)
+    calls = _recording(monkeypatch, "fused_gather_rows")
+    jparams = jg.init_sage_params(jax.random.key(6), jcfg)
+    ref = jg.sage_embed(jparams, jnp.asarray(feats), jnp.asarray(adj),
+                        jnp.asarray(ids), jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), t(feats), t(adj), t(ids),
+                        tcfg)
+    assert len(calls) == 1
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("aggregator,identity_dim", [
+    ("mean", 0), ("gcn", 0), ("mean", 4),
+])
+def test_dedup_gather_sage_embed_matches_jax(monkeypatch, toy, aggregator,
+                                             identity_dim):
+    """fused_gather with dedup_gather: the port's fused_gather_mean with
+    dedup (K3's plain version) against the JAX dedup kernel in interpret
+    mode. rtol 1e-4, atol 1e-5 as above."""
+    g, feats, adj, ids = toy
+    jcfg, tcfg = _configs(aggregator, FANOUTS_2, identity_dim, True,
+                          g.num_nodes)
+    jcfg = dataclasses.replace(jcfg, dedup_gather=True)
+    tcfg = dataclasses.replace(tcfg, dedup_gather=True)
+    _jax_kernels_interpreted(monkeypatch)
+    calls = _recording(monkeypatch, "fused_gather_mean")
+    jparams = jg.init_sage_params(jax.random.key(0), jcfg)
+    ref = jg.sage_embed(jparams, jnp.asarray(feats), jnp.asarray(adj),
+                        jnp.asarray(ids), jax.random.key(1), jcfg)
+    out = tg.sage_embed(port_params(jparams), t(feats), t(adj), t(ids),
+                        tcfg)
+    assert [kw["dedup"] for kw in calls] == [True]
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("aggregator,identity_dim,route", [
+    ("mean", 0, "fused_gather_mean"), ("mean", 4, "fused_gather_mean"),
+    ("meanpool", 0, "gather_mlp_pool_train"),
+    ("meanpool", 4, "fused_gather_rows"), ("maxpool", 0, "fused_gather_rows"),
+])
+def test_rows_gather_only_where_no_fused_route(monkeypatch, aggregator,
+                                               identity_dim, route):
+    """With every flag on, the fused routes keep the hop (mean/gcn: the
+    gather-mean, meanpool: the gather-MLP-pool); K4's wrapper takes it
+    only where neither does, as in the JAX package."""
+    feats, adj, ids, _, tcfg = _pool_case(aggregator, True)
+    tcfg = dataclasses.replace(tcfg, rows_gather=True, dedup_gather=True,
+                               identity_dim=identity_dim)
+    names = ("fused_gather_mean", "gather_mlp_pool_train",
+             "fused_gather_rows")
+    calls = {name: _recording(monkeypatch, name) for name in names}
+    params = tg.init_sage_params(torch.Generator().manual_seed(0), tcfg)
+    with torch.no_grad():
+        out = tg.sage_embed(params, t(feats), t(adj), t(ids), tcfg)
+    assert torch.isfinite(out).all()
+    assert {name: len(c) for name, c in calls.items()} == {
+        name: int(name == route) for name in names}
+
+
+def test_dedup_ignored_under_dropout_training(toy):
+    """Training with dropout takes K2's mask whether or not dedup_gather
+    is set: the same forward for the same (seed, step)."""
+    g, feats, adj, ids = toy
+    _, tcfg = _configs("mean", FANOUTS_2, 0, True, g.num_nodes)
+    tcfg = dataclasses.replace(tcfg, dropout=0.3)
+    params = tg.init_sage_params(torch.Generator().manual_seed(0), tcfg)
+
+    def train_fwd(cfg):
+        return tg.sage_embed(params, t(feats), t(adj), t(ids), cfg,
+                             generator=torch.Generator().manual_seed(1),
+                             deterministic=False, drop_key=(5, 2))
+
+    assert torch.equal(
+        train_fwd(dataclasses.replace(tcfg, dedup_gather=True)),
+        train_fwd(tcfg))

@@ -1,5 +1,6 @@
 """The port's nn layer (init, dense, sampler, the mean, gcn and pooling
-aggregators) against graphsage_tpu/nn on the same inputs and weights."""
+aggregators) against graphsage_tpu/nn on the same inputs and weights
+(the seq aggregator and its LSTM: tests/test_torch_lstm.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -269,7 +270,6 @@ def test_aggregator_neighbor_dropout_skips_reduced_input():
 
 
 @pytest.mark.parametrize("name,err,match", [
-    ("seq", NotImplementedError, "seq/LSTM slice"),
     ("nope", ValueError, "unknown aggregator"),
 ])
 def test_unported_aggregators_raise(name, err, match):

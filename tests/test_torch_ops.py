@@ -1,7 +1,9 @@
 """The port's gather-mean (graphsage_tpu_torch/ops/gather.py) against the
 JAX package's Pallas kernel (interpret mode) and reference, the plain
 version of K2 (Philox dropout inside the gather-mean) and its generator,
-and the wrapper's CPU/CUDA routing."""
+the plain versions of K3 (the deduplicating gather-mean) and K4 (the row
+gather) against the JAX package's kernels in interpret mode, and the
+wrappers' CPU/CUDA routing."""
 
 import jax
 import jax.numpy as jnp
@@ -9,13 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+from graphsage_tpu.ops.gather import dedup_compact as jax_dedup_compact
 from graphsage_tpu.ops.gather import fused_gather_mean as jax_fused
+from graphsage_tpu.ops.gather import fused_gather_rows as jax_fused_rows
 from graphsage_tpu.ops.gather import gather_mean_reference as jax_reference
 from graphsage_tpu_torch.ops import build, gather, philox
 from graphsage_tpu_torch.ops.gather import (
+    MAX_DEDUP_SAMPLES,
+    dedup_compact,
     fused_gather_mean,
+    fused_gather_rows,
+    gather_mean_dedup_reference,
     gather_mean_dropout_reference,
     gather_mean_reference,
+    gather_rows_reference,
 )
 from tests._torch_common import t
 
@@ -230,3 +239,171 @@ def test_cpu_dropout_takes_the_plain_version(monkeypatch):
                           torch.zeros((2, 3), dtype=torch.int32,
                                       device="meta"),
                           0.5, seed=3, offset=(0, 0))
+
+
+# ------------------------------------- K3: the deduplicating gather-mean
+
+def _assert_compact_equal(idx):
+    idx_u, n_u, w = dedup_compact(t(idx))
+    j_idx_u, j_n_u, j_w = (np.asarray(a) for a in
+                           jax_dedup_compact(jnp.asarray(idx)))
+    np.testing.assert_array_equal(n_u.numpy(), j_n_u)
+    np.testing.assert_array_equal(w.numpy(), j_w)
+    for row, n in enumerate(j_n_u):
+        np.testing.assert_array_equal(idx_u.numpy()[row, :n],
+                                      j_idx_u[row, :n])
+
+
+def test_dedup_compact_matches_jax_example():
+    """tests/test_ops.py's example, exactly."""
+    idx = np.array([[3, 1, 3, 3, 7], [2, 2, 2, 2, 2]], dtype=np.int32)
+    _assert_compact_equal(idx)
+    idx_u, n_u, w = dedup_compact(t(idx))
+    assert n_u.tolist() == [3, 1] and n_u.dtype == torch.int32
+    assert idx_u[0, :3].tolist() == [1, 3, 7] and idx_u[1, 0] == 2
+    np.testing.assert_allclose(
+        w.numpy(), [[0.2, 0.6, 0.2, 0, 0], [1, 0, 0, 0, 0]], rtol=1e-7)
+
+
+@pytest.mark.parametrize("B,S,n", [(8, 5, 10), (13, 25, 10), (6, 7, 1000),
+                                   (4, 1, 5), (5, 25, 2)])
+def test_dedup_compact_matches_jax(B, S, n):
+    """Random rows, from many repeats to all distinct: idx_u[:, :n_u],
+    n_u and w exactly equal."""
+    idx = np.random.default_rng(B * S + n).integers(0, n, (B, S),
+                                                    dtype=np.int32)
+    _assert_compact_equal(idx)
+
+
+@pytest.mark.parametrize("B,S,F", [(8, 5, 16), (13, 25, 32)])
+def test_gather_mean_dedup_matches_jax(B, S, F):
+    """K3's plain version against the JAX dedup kernel in interpret mode,
+    from a table of 10 rows (many duplicates), at tests/test_ops.py's
+    rtol 1e-5, atol 1e-6; and against the plain mean."""
+    rng = np.random.default_rng(B + S + F)
+    feats = rng.standard_normal((10, F)).astype(np.float32)
+    idx = rng.integers(0, 10, (B, S), dtype=np.int32)
+    out = fused_gather_mean(t(feats), t(idx), dedup=True)
+    assert out.dtype == torch.float32 and out.shape == (B, F)
+    np.testing.assert_array_equal(
+        out.numpy(), gather_mean_dedup_reference(t(feats), t(idx)).numpy())
+    pallas = jax_fused(jnp.asarray(feats), jnp.asarray(idx), interpret=True,
+                       dedup=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        out.numpy(), gather_mean_reference(t(feats), t(idx)).numpy(),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_gather_mean_dedup_bf16_table_matches_jax():
+    """A bf16 table: the rows are upcast exactly and summed in f32 on
+    both sides, so the f32 tolerance holds."""
+    rng = np.random.default_rng(12)
+    feats = rng.standard_normal((10, 16)).astype(np.float32)
+    idx = rng.integers(0, 10, (8, 6), dtype=np.int32)
+    out = fused_gather_mean(t(feats).to(torch.bfloat16), t(idx), dedup=True)
+    pallas = jax_fused(jnp.asarray(feats, dtype=jnp.bfloat16),
+                       jnp.asarray(idx), interpret=True, dedup=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_dedup_with_dropout_is_the_dropout_path():
+    """Under dropout, dedup is ignored and K2's plain version runs with
+    the same mask (tests/test_ops.py's rule: per-duplicate masks are
+    inexpressible after deduplication)."""
+    feats, idx = _inputs(8, 5, 16, seed=6, n=19)
+    key = dict(seed=4, offset=(3, 0x5EED))
+    a = fused_gather_mean(t(feats), t(idx), 0.3, dedup=True, **key)
+    b = fused_gather_mean(t(feats), t(idx), 0.3, dedup=False, **key)
+    assert torch.equal(a, b)
+
+
+def test_dedup_sample_limit():
+    """K3 keeps four words per sample in shared memory, so S is bounded
+    by MAX_DEDUP_SAMPLES; K1 and K2 take more."""
+    feats = torch.zeros(4, 2)
+    idx = torch.zeros(1, MAX_DEDUP_SAMPLES + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(MAX_DEDUP_SAMPLES)):
+        fused_gather_mean(feats, idx, dedup=True)
+    fused_gather_mean(feats, idx)
+    fused_gather_mean(feats, idx, 0.5, seed=1, offset=(0, 0), dedup=True)
+    fused_gather_mean(feats, idx[:, :MAX_DEDUP_SAMPLES].contiguous(),
+                      dedup=True)
+
+
+def test_cpu_dedup_takes_the_plain_version(monkeypatch):
+    feats, idx = _inputs(4, 3, 8, seed=1)
+    monkeypatch.setattr(fused_gather_mean, "dedup_launches", 0)
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(build, "load", no_build)
+    fused_gather_mean(t(feats), t(idx), dedup=True)
+    assert fused_gather_mean.dedup_launches == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_gather_mean(torch.zeros((5, 8), device="meta"),
+                          torch.zeros((2, 3), dtype=torch.int32,
+                                      device="meta"), dedup=True)
+
+
+# ------------------------------------------------- K4: the row gather
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,F", [(8, 5, 16), (13, 25, 32), (33, 3, 10)])
+def test_gather_rows_matches_jax(dtype, B, S, F):
+    """K4's plain version is bit-equal to the JAX row kernel in interpret
+    mode (B = 33 is off its 32-row tile), f32 and bf16."""
+    feats, idx = _inputs(B, S, F, seed=B + S + F)
+    table = t(feats).to(dtype)
+    out = fused_gather_rows(table, t(idx))
+    assert out.dtype == dtype and out.shape == (B * S, F)
+    assert torch.equal(out, gather_rows_reference(table, t(idx)))
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = jax_fused_rows(jnp.asarray(feats, dtype=jdtype),
+                            jnp.asarray(idx), interpret=True)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(pallas).astype(np.float32))
+
+
+def test_cpu_rows_take_the_plain_version(monkeypatch):
+    """CPU tensors never build or count; other devices raise; S is not
+    bounded by the gather-mean's shared memory."""
+    monkeypatch.setattr(fused_gather_rows, "launches", 0)
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(build, "load", no_build)
+    idx = torch.randint(0, 5, (2, gather.MAX_SAMPLES + 1), dtype=torch.int32)
+    assert fused_gather_rows(torch.randn(5, 3), idx).shape == (
+        2 * (gather.MAX_SAMPLES + 1), 3)
+    assert fused_gather_rows.launches == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_gather_rows(torch.zeros((5, 8), device="meta"),
+                          torch.zeros((2, 3), dtype=torch.int32,
+                                      device="meta"))
+
+
+@pytest.mark.parametrize("feats,idx,err", [
+    (torch.zeros(5, 8), torch.zeros(2, 3, dtype=torch.int64), TypeError),
+    (torch.zeros(5, 8, dtype=torch.float16),
+     torch.zeros(2, 3, dtype=torch.int32), TypeError),
+    (torch.zeros(8, 5).t(), torch.zeros(2, 3, dtype=torch.int32),
+     ValueError),
+    (torch.zeros(5, 8), torch.zeros(2, 0, dtype=torch.int32), ValueError),
+    (torch.zeros(5, 8), torch.zeros(6, dtype=torch.int32), ValueError),
+])
+def test_rows_wrapper_rejects_bad_inputs(feats, idx, err):
+    with pytest.raises(err):
+        fused_gather_rows(feats, idx)
+
+
+@pytest.mark.parametrize("row_bytes,feat_ptr,out_ptr,unit", [
+    (2408, 0, 0, 8), (2560, 0, 0, 16), (1204, 0, 0, 4), (34, 0, 0, 2),
+    (2560, 2408, 0, 8), (2560, 0, 4, 4), (4, 0, 0, 4),
+])
+def test_copy_width_divides_rows(row_bytes, feat_ptr, out_ptr, unit):
+    assert gather._copy_width(row_bytes, feat_ptr, out_ptr) == unit

@@ -25,7 +25,7 @@ def _jax_params(aggregator, identity_dim):
 
 @pytest.mark.parametrize("aggregator,identity_dim", [
     ("mean", 0), ("mean", 4), ("gcn", 4), ("meanpool", 0), ("maxpool", 4),
-    ("twomaxpool", 0),
+    ("twomaxpool", 0), ("seq", 0),
 ])
 def test_bridge_round_trips_every_leaf(aggregator, identity_dim):
     tree = _jax_params(aggregator, identity_dim)

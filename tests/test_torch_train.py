@@ -60,11 +60,13 @@ def toy():
 
 
 def _configs(num_nodes, aggregator="mean", sigmoid=False, weight_decay=0.0,
-             identity_dim=0, layers=((4, 8), (3, 8)), num_classes=4):
+             identity_dim=0, layers=((4, 8), (3, 8)), num_classes=4,
+             rows_gather=False):
     mult = 2 if aggregator == "gcn" else 1
     kw = dict(feature_dim=8, aggregator=aggregator,
               concat=aggregator != "gcn", identity_dim=identity_dim,
-              num_nodes=num_nodes, sampler_mode="first_k", fused_gather=True)
+              num_nodes=num_nodes, sampler_mode="first_k", fused_gather=True,
+              rows_gather=rows_gather)
     sup = dict(num_classes=num_classes, sigmoid_loss=sigmoid,
                weight_decay=weight_decay)
     jcfg = js.SupervisedConfig(sage=jg.SAGEConfig(
@@ -105,9 +107,26 @@ def _assert_params_close(port: dict, jax_tree, atol, rtol=0.0):
 ])
 def test_train_step_matches_jax(toy, aggregator, sigmoid, weight_decay,
                                 identity_dim):
+    _check_train_step(toy, *_configs(toy[0].num_nodes, aggregator, sigmoid,
+                                     weight_decay, identity_dim), sigmoid)
+
+
+@pytest.mark.parametrize("sigmoid,weight_decay,identity_dim", [
+    (False, 0.0, 0), (True, 0.01, 0), (False, 0.0, 4),
+])
+def test_seq_rows_gather_train_step_matches_jax(toy, sigmoid, weight_decay,
+                                                identity_dim):
+    """graphsage_seq with rows_gather (K4's plain version gathers the
+    innermost hop's rows; the JAX side takes them with jnp.take): the
+    loss, every gradient (the LSTM's included) and the params after one
+    Adam step, at the tolerances above."""
+    _check_train_step(toy, *_configs(toy[0].num_nodes, "seq", sigmoid,
+                                     weight_decay, identity_dim,
+                                     rows_gather=True), sigmoid)
+
+
+def _check_train_step(toy, jcfg, tcfg, sigmoid):
     g, feats, adj, _ = toy
-    jcfg, tcfg = _configs(g.num_nodes, aggregator, sigmoid, weight_decay,
-                          identity_dim)
     ids, labels, mask = _batch(g, sigmoid)
     jparams = js.init_supervised_params(jax.random.key(2), jcfg)
     args = (jnp.asarray(feats), jnp.asarray(adj), jnp.asarray(ids),
@@ -309,6 +328,28 @@ def test_node_batcher_matches_jax(toy):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
 
 
+def test_gather_flags_reach_config(toy):
+    """--dedup_gather and --rows_gather reach SAGEConfig through
+    build_supervised_config (tests/test_train.py's check), for both
+    subcommands' parsers; both default to off."""
+    g = toy[0]
+    f = TrainFlags(train_prefix="/x/x", model="graphsage_maxpool",
+                   rows_gather=True, dedup_gather=True)
+    sage = tsup.build_supervised_config(f, g).sage
+    assert sage.rows_gather and sage.dedup_gather
+    sage0 = tsup.build_supervised_config(TrainFlags(train_prefix="/x/x"),
+                                         g).sage
+    assert not sage0.rows_gather and not sage0.dedup_gather
+    for command in ("supervised", "predict"):
+        args = cli.build_parser().parse_args(
+            [command, "--train_prefix", "x", "--rows_gather",
+             "--dedup_gather"])
+        assert args.rows_gather and args.dedup_gather
+        args = cli.build_parser().parse_args(
+            [command, "--train_prefix", "x", "--no-rows_gather"])
+        assert not args.rows_gather and not args.dedup_gather
+
+
 def test_train_flags_defaults_match_jax():
     ours, theirs = TrainFlags(), JaxTrainFlags()
     for f in dataclasses.fields(ours):
@@ -426,3 +467,42 @@ def test_cli_supervised_meanpool_trains_and_resumes(tmp_path, capsys):
         str(tmp_path / "ck"))
     assert step2 > step and opt_state2["count"] == step2
     assert not torch.equal(resumed["aggs.0.mlp.0.w"], saved["aggs.0.mlp.0.w"])
+
+
+def test_cli_supervised_seq_rows_gather_trains_and_resumes(tmp_path, capsys):
+    """--model graphsage_seq --rows_gather through the CLI on the CPU:
+    the loss falls, and --resume continues with the LSTM's weights and
+    their Adam moments (aggs.{i}.lstm.{kernel,bias}) from the
+    checkpoint."""
+    g = make_synthetic_graph(num_nodes=120, num_classes=3, feat_dim=8,
+                             seed=4)
+    prefix = str(tmp_path / "toy" / "toy")
+    write_dataset(g, prefix)
+    argv = ["supervised", "--train_prefix", prefix, "--model",
+            "graphsage_seq", "--rows_gather", "--samples_1", "4",
+            "--samples_2", "3", "--dim_1", "8", "--dim_2", "8",
+            "--max_degree", "8", "--batch_size", "16", "--print_every", "1",
+            "--validate_iter", "3", "--validate_batch_size", "8",
+            "--base_log_dir", str(tmp_path), "--checkpoint_dir",
+            str(tmp_path / "ck"), "--learning_rate", "0.003", "--device",
+            "cpu"]
+    assert cli.main(argv + ["--epochs", "3"]) == 0
+    losses = [float(x) for x in re.findall(r"train_loss= (\S+)",
+                                           capsys.readouterr().out)]
+    assert np.mean(losses[-3:]) < np.mean(losses[:3])
+    log_dir = tmp_path / "sup-toy" / "graphsage_seq_small_0.0030"
+    assert STATS.fullmatch((log_dir / "test_stats.txt").read_text())
+
+    saved, opt_state, step = checkpoint.restore_train_state(
+        str(tmp_path / "ck"))
+    assert saved["aggs.0.lstm.kernel"].shape == (8 + 128, 512)
+    assert opt_state["mu"]["aggs.1.lstm.kernel"].shape == (16 + 128, 512)
+    assert float(opt_state["nu"]["aggs.0.lstm.kernel"].abs().max()) > 0
+    assert cli.main(argv + ["--epochs", "1", "--resume"]) == 0
+    assert f"Resumed from checkpoint at step {step}" in \
+        capsys.readouterr().out
+    resumed, opt_state2, step2 = checkpoint.restore_train_state(
+        str(tmp_path / "ck"))
+    assert step2 > step and opt_state2["count"] == step2
+    assert not torch.equal(resumed["aggs.0.lstm.kernel"],
+                           saved["aggs.0.lstm.kernel"])
