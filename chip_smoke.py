@@ -7,7 +7,9 @@ Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
      parity tests' "highest" matmul precision
   2. build the CUDA kernels from the checkout's sources (one nvcc per
-     source, all started together)
+     source, all started together); cuobjdump's instruction counts,
+     where the toolkit has it: K5/K6's instances at the hop must issue
+     tensor-core instructions (HGMMA)
   3. each kernel against its plain PyTorch version on the card, at the
      hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
      library-route times beside the kernel's bound. K1 is the
@@ -20,7 +22,9 @@ Phases; any failure exits non-zero without the final ok line:
      pool (mean and max, ties), K6 the same writing its dropped rows as
      the backward's residual (residual bit-equal to the plain dropped
      rows, the mask identical, and the gradients of its autograd
-     Function against autograd of the plain composition)
+     Function against autograd of the plain composition); K5/K6 against
+     the 3xTF32 bound, with one cuBLAS product in a single TF32 pass
+     beside them as an informational floor
   4. serving at full width, bench.py's model: 100k nodes, 602 features,
      41 classes, fanouts 25/10, dims 128/128, batch 512, zipf(1.05)
      adjacency, seeded random weights. The eval sweep answers every node
@@ -79,6 +83,7 @@ DIMS = (128, 128)
 HOP_ROWS = BATCH * FANOUTS[1]          # 5120 rows of the innermost hop
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM device memory
 F32_OPS_PER_S = 67e12                  # H100 SXM f32, outside tensor cores
+TF32_OPS_PER_S = 495e12                # H100 SXM TF32 tensor cores, dense
 # H100 SXM int32: 132 SMs x 64 lanes x 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K2's integer instructions per element, counted from its source: one
@@ -648,12 +653,23 @@ def pool_idx(dev, rng, B: int, S: int, n: int):
     return torch.from_numpy(idx).to(dev)
 
 
+def pool_products(elem_bytes: int, dropout: bool) -> int:
+    """TF32 products K5/K6 issue per product element: 3 (hi*hi + hi*lo +
+    lo*hi), or 2 for a bf16 table without dropout (its rows are exact in
+    TF32, lo = 0)."""
+    return 3 if elem_bytes == 4 or dropout else 2
+
+
 def pool_bounds(idx_sets, elem_bytes: int, residual: bool):
-    """(bound ms, bytes ms, operations ms) of one K5/K6 launch at the hop
-    shape, averaged over ``idx_sets``: each distinct gathered row read
-    once, w, b, idx read once, the output (and K6's residual) written
-    once; 2*F*H f32 operations per gathered row for the product, plus
-    bias, relu and the reduce, and for K6 the mask's int32 work."""
+    """(bound ms, bytes ms, operations ms, f32 CUDA-core ms) of one K5/K6
+    launch at the hop shape, averaged over ``idx_sets``: each distinct
+    gathered row read once, w, b, idx read once, the output (and K6's
+    residual) written once. Operations: the f32-accurate product as
+    3xTF32 (2 for a bf16 table without dropout) of 2*F*H per gathered row
+    at the tensor cores' TF32 rate; bias, relu and the reduce on the
+    CUDA cores, and for K6 the mask's int32 work, which overlap it. The
+    last value is the yardstick of the SIMT kernel K5/K6 replaced:
+    the product in f32 on the CUDA cores."""
     import torch
 
     B, S, F, H = HOP_ROWS, FANOUTS[0], FEAT_DIM, POOL_HIDDEN
@@ -661,11 +677,14 @@ def pool_bounds(idx_sets, elem_bytes: int, residual: bool):
         (int(torch.unique(idx).numel()) * F * elem_bytes + F * H * 4 + H * 4
          + B * S * 4 + B * H * 4 + (B * S * F * 4 if residual else 0))
         / HBM_BYTES_PER_S * 1e3 for idx in idx_sets]))
-    f32_ms = (2 * B * S * F * H + 3 * B * S * H) / F32_OPS_PER_S * 1e3
+    mma_ms = (pool_products(elem_bytes, residual) * 2 * B * S * F * H
+              / TF32_OPS_PER_S * 1e3)
+    epilogue_ms = 3 * B * S * H / F32_OPS_PER_S * 1e3
     int_ms = (B * S * F * K2_INT_OPS_PER_ELEM / INT32_OPS_PER_S * 1e3
               if residual else 0.0)
-    ops_ms = max(f32_ms, int_ms)
-    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+    ops_ms = max(mma_ms, epilogue_ms, int_ms)
+    f32_ms = (2 * B * S * F * H + 3 * B * S * H) / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms, f32_ms
 
 
 def check_pool(dev, card_line: str) -> dict:
@@ -738,16 +757,35 @@ def check_pool(dev, card_line: str) -> dict:
         lambda idx: gather_mlp_pool_reference(table, idx, w, b, "mean"),
         idx_sets), iters=20)
     library_ms = cuda_ms(cycling(library, idx_sets), iters=20)
-    bound_ms, bytes_ms, ops_ms = pool_bounds(idx_sets, 4, residual=False)
+    # informational: one cuBLAS product in a single TF32 pass, which the
+    # kernel may not take (it misses POOL_TOL); never library_ms
+    rows = table.index_select(0, idx_sets[0].view(-1))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_ms = cuda_ms(lambda: torch.addmm(b, rows, w), iters=20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del rows
+    bound_ms, bytes_ms, ops_ms, f32_ms = pool_bounds(idx_sets, 4,
+                                                     residual=False)
+    bf16_bound, _, bf16_ops, _ = pool_bounds(idx_sets, 2, residual=False)
+    flop = 2 * B * S * FEAT_DIM * H
     log(f"K5 at idx [{B},{S}] into [{NUM_NODES + 1},{FEAT_DIM}] f32, w "
         f"[{FEAT_DIM},{H}], mean: kernel {ms:.4f} ms (max {max_ms:.4f}, "
         f"bf16 table {bf16_ms:.4f}), plain {plain_ms:.4f} ms, library route "
         f"{library_ms:.4f} ms (four calls: index_select, addmm (cuBLAS f32, "
         f"TF32 off), relu, mean; no single PyTorch call computes this); "
-        f"bound {bound_ms:.4f} ms (operations {ops_ms:.4f} at "
-        f"{F32_OPS_PER_S:.3g} f32/s, bytes {bytes_ms:.4f}); bound share "
-        f"{bound_ms / ms:.3f}; {2 * B * S * FEAT_DIM * H / ms / 1e9:.2f} "
-        f"TFLOP/s; on {card_line}")
+        f"bound {bound_ms:.4f} ms (operations {ops_ms:.4f}: 3xTF32 at "
+        f"{TF32_OPS_PER_S:.3g}/s; bytes {bytes_ms:.4f}; the f32 "
+        f"CUDA-core bound {f32_ms:.4f}); bound share {bound_ms / ms:.3f} "
+        f"(of the f32 CUDA-core bound {f32_ms / ms:.3f}); "
+        f"{flop / ms / 1e9:.2f} TFLOP/s of f32 product, "
+        f"{3 * flop / ms / 1e9:.2f} of TF32; bf16 table: bound "
+        f"{bf16_bound:.4f} ms (operations {bf16_ops:.4f}, 2xTF32), share "
+        f"{bf16_bound / bf16_ms:.3f}, {2 * flop / bf16_ms / 1e9:.2f} TFLOP/s "
+        f"of TF32; informational floor: one cuBLAS addmm [{B * S},"
+        f"{FEAT_DIM}] x [{FEAT_DIM},{H}] with TF32 on {tf32_ms:.4f} ms "
+        f"(1xTF32, not the same accuracy; TF32 off again); on {card_line}")
     return {
         "name": "gather_mlp_pool",
         "route": "cuda",
@@ -867,13 +905,19 @@ def check_pool_train(dev, card_line: str) -> dict:
         lambda idx: gather_mlp_pool_reference(table, idx, w, b, "mean",
                                               DROPOUT, **key), idx_sets),
         iters=5, warmup=1)
-    bound_ms, bytes_ms, ops_ms = pool_bounds(idx_sets, 4, residual=True)
+    bound_ms, bytes_ms, ops_ms, f32_ms = pool_bounds(idx_sets, 4,
+                                                     residual=True)
     log(f"K6 at idx [{B},{S}] into [{NUM_NODES + 1},{F}] f32, w [{F},{H}], "
         f"mean, rate {DROPOUT}, residual [{B * S},{F}] f32: kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms (operations "
-        f"{ops_ms:.4f}, bytes {bytes_ms:.4f} with the residual); bound "
-        f"share {bound_ms / ms:.3f}; library: none (no PyTorch call draws a "
-        f"per-element mask inside a gather-MLP-pool); on {card_line}")
+        f"{ops_ms:.4f}: 3xTF32 at {TF32_OPS_PER_S:.3g}/s; bytes "
+        f"{bytes_ms:.4f} with the residual; the f32 CUDA-core bound "
+        f"{f32_ms:.4f}); bound share {bound_ms / ms:.3f} (of the f32 "
+        f"CUDA-core bound {f32_ms / ms:.3f}); "
+        f"{2 * B * S * F * H / ms / 1e9:.2f} TFLOP/s of f32 product, "
+        f"{6 * B * S * F * H / ms / 1e9:.2f} of TF32; library: none (no "
+        f"PyTorch call draws a per-element mask inside a gather-MLP-pool); "
+        f"on {card_line}")
     return {
         "name": "gather_mlp_pool_train",
         "route": "cuda",
@@ -889,34 +933,66 @@ def check_pool_train(dev, card_line: str) -> dict:
     }
 
 
-def sass_summary() -> None:
-    """Static instruction counts of K2 (f32, 2 elements per load) from
-    cuobjdump, where the toolkit has it: the record behind
-    K2_INT_OPS_PER_ELEM."""
+def sass_ops(lib: str) -> dict:
+    """{function name: {opcode: count}} of a built library's SASS, from
+    cuobjdump where the toolkit has it (else empty)."""
     from graphsage_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log("cuobjdump not found: no SASS summary")
-        return
-    lib = build.BUILD_DIR / "libgather_mean.so"
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=120, check=False).stdout
+        return {}
+    out = subprocess.run([tool, "-sass", str(build.BUILD_DIR / lib)],
+                         capture_output=True, text=True, timeout=120,
+                         check=False).stdout
+    functions = {}
     for block in out.split("Function : ")[1:]:
-        if "gather_mean_dropout_kernelIfLi2E" not in block.split("\n")[0]:
-            continue
-        ops = []
+        counts = {}
         for line in block.splitlines():
             text = line.split("*/", 1)[1] if "*/" in line else ""
             words = text.replace(";", " ").split()
             if line.strip().startswith("/*") and words:
-                ops.append(words[1] if words[0].startswith("@") else words[0])
-        counts = {}
-        for op in ops:
-            counts[op] = counts.get(op, 0) + 1
-        top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
-        log(f"SASS of K2<float,2>: {len(ops)} instructions; "
-            + ", ".join(f"{k} {v}" for k, v in top))
+                op = words[1] if words[0].startswith("@") else words[0]
+                counts[op] = counts.get(op, 0) + 1
+        functions[block.split("\n")[0].strip()] = counts
+    return functions
+
+
+def sass_summary() -> None:
+    """Static instruction counts from cuobjdump: K2 (f32, 2 elements per
+    load), the record behind K2_INT_OPS_PER_ELEM; and each K5/K6
+    instance's tensor-core (HGMMA, HMMA) and f32 FMA instructions. The
+    instances the hop runs (f32 table, mean: K5 without dropout, K6 with
+    dropout and the residual) must issue HGMMA."""
+    for name, counts in sass_ops("libgather_mean.so").items():
+        if "gather_mean_dropout_kernelIfLi2E" in name:
+            top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+            log(f"SASS of K2<float,2>: {sum(counts.values())} instructions; "
+                + ", ".join(f"{k} {v}" for k, v in top))
+    hop = {"IfLb0ELb0ELb0E": "K5 hop", "IfLb0ELb1ELb1E": "K6 hop"}
+    seen = set()
+    for name, counts in sass_ops("libgather_mlp_pool.so").items():
+        if "gather_mlp_pool_kernel" not in name:
+            continue
+        args = name.split("gather_mlp_pool_kernel", 1)[1]
+        flags = args.split("Lb")[1:4]
+        label = ("bf16" if "bfloat16" in args else "f32") + "".join(
+            f" {k}{f[0]}" for k, f in zip(("max", "drop", "x"), flags))
+        mma = {op: n for op, n in counts.items()
+               if op.split(".")[0] in ("HGMMA", "HMMA")}
+        ffma = sum(n for op, n in counts.items()
+                   if op.split(".")[0] == "FFMA")
+        tag = next((v for k, v in hop.items() if args.startswith(k)), "")
+        mma_ops = ", ".join(f"{k} {v}" for k, v in sorted(mma.items()))
+        log(f"SASS of gather_mlp_pool_kernel<{label}>"
+            f"{f' ({tag})' if tag else ''}: {sum(counts.values())} "
+            f"instructions; tensor-core {sum(mma.values())} ({mma_ops}); "
+            f"FFMA {ffma}")
+        if tag:
+            check(sum(mma.values()) > 0, f"{tag} instance issues no HGMMA")
+            seen.add(tag)
+    if seen:
+        check(seen == set(hop.values()), f"hop instances missing: {seen}")
 
 
 # ------------------------------------------------------------ phase 4

@@ -21,6 +21,9 @@ does it in one kernel:
   ``features`` and ``idx`` get no gradient: the feature table is not
   trained.
 
+K5/K6 run the product on the tensor cores in 3xTF32 (``tf32_split``
+states the split), f32-accurate as the plain versions' f32 product.
+
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
 versions below, which the tests and ``chip_smoke.py`` hold the kernels
 against. The table keeps its logical width F; the kernel takes any F
@@ -86,6 +89,22 @@ def gather_mlp_pool_reference(features, idx, w, b, reduce: str = "max",
         w, b, reduce, idx.shape[1])
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of x in f32 with hi = tf32(x) and lo = tf32(x - hi), each
+    rounded as the kernel's ``cvt.rna.tf32.f32`` rounds: to nearest, ties
+    away from zero (add 0x1000 to the bit pattern, clear its low 13
+    bits). hi + lo keeps ~21 of x's 24 significant bits. K5/K6 sum
+    hi*hi + hi*lo + lo*hi (3xTF32) of their operands on the tensor cores;
+    this documents that arithmetic and no path calls it."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def route_pool_grad(dy, x, w, b, reduce: str, S: int):
     """(grad_w, grad_b) of reduce_s relu(x @ w + b) from the saved rows x
     [B*S, F], as the JAX package's ``_route_pool_grad``: relu' is zero
@@ -149,7 +168,7 @@ def _check_inputs(features, idx, w, b, reduce, drop_rate, seed, offset):
 def _kernel(dtype: torch.dtype):
     fn = getattr(build.load("gather_mlp_pool"), _KERNELS[dtype])
     fn.argtypes = (
-        [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 7
         + [ctypes.c_longlong] + [ctypes.c_int] * 7
         + [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
            ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
@@ -163,6 +182,15 @@ def _error_string(err: int) -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
+
+
+@functools.cache
+def _wt_floats(F: int, H: int) -> int:
+    """Floats of the kernel's scratch for w's TF32 split."""
+    fn = build.load("gather_mlp_pool").graphsage_gather_mlp_pool_wt_floats
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(F, H)
 
 
 def _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
@@ -179,9 +207,12 @@ def _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
                      device=features.device) if want_x else None)
     if B == 0:
         return out, x
+    wt = torch.empty(_wt_floats(F, H), dtype=torch.float32,
+                     device=features.device)
     dropout = drop_rate > 0.0
     args = [features.data_ptr(), idx.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), x.data_ptr() if want_x else None, N, B, S, F, H,
+            out.data_ptr(), x.data_ptr() if want_x else None, wt.data_ptr(),
+            N, B, S, F, H,
             int(reduce == "max"), int(dropout), int(want_x),
             seed if dropout else 0, offset[0] if dropout else 0,
             offset[1] if dropout else 0,

@@ -238,16 +238,21 @@ def _pool_operands(cuda, seed, n, F, H, dtype=torch.float32):
 @pytest.mark.parametrize("reduce", ["mean", "max"])
 @pytest.mark.parametrize("B,S,F,H", [
     (1, 1, 1, 1), (7, 25, 602, 512), (33, 1, 17, 24), (9, 10, 17, 24),
-    (3, 200, 33, 130), (130, 25, 602, 512),
+    (3, 200, 33, 130), (130, 25, 602, 512), (5, 25, 8, 256),
+    (11, 25, 602, 130), (23, 12, 602, 24), (257, 1, 17, 256),
+    (3, 300, 8, 24), (2, 200, 602, 256), (0, 25, 602, 512),
 ])
 def test_pool_kernel_matches_plain(cuda, dtype, reduce, B, S, F, H):
-    """K5 at ragged shapes: S=1, odd F, H off the 128-column tile, B off
-    the block's rows, S beyond the block's 128 rows, max ties."""
+    """K5 at ragged shapes: S=1, F off the 8-column stage (17, 602) and
+    on it (8), H off the 128-column tile (24, 130) and two tiles (256),
+    B*S off the block's 256 rows, S beyond them (300, one row a block in
+    chunks), B = 0, max ties."""
     table, w, b = _pool_operands(cuda, B + S + F + H, 50, F, H, dtype)
     gen = torch.Generator(device=cuda).manual_seed(S)
     idx = torch.randint(0, 51, (B, S), generator=gen, device=cuda,
                         dtype=torch.int32)
-    idx[0] = 3
+    if B:
+        idx[0] = 3
     before = fused_gather_mlp_pool.launches
     out = fused_gather_mlp_pool(table, idx, w, b, reduce)
     torch.cuda.synchronize()
@@ -276,6 +281,23 @@ def test_pool_residual_is_the_plain_dropped_rows(cuda, dtype):
                                        != 0))
     torch.testing.assert_close(out, pool_rows(x_ref, w, b, "mean", 25),
                                **POOL_TOLERANCE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduce", ["mean", "max"])
+def test_pool_kernel_repeats_bit_for_bit(cuda, dtype, reduce):
+    """No float atomics: two launches on the same inputs give the same
+    bits, for K5 and for K6 (pooled output and residual)."""
+    table, w, b = _pool_operands(cuda, 6, 80, 602, 512, dtype)
+    idx = torch.randint(0, 81, (130, 25), device=cuda, dtype=torch.int32)
+    first = fused_gather_mlp_pool(table, idx, w, b, reduce)
+    assert torch.equal(first, fused_gather_mlp_pool(table, idx, w, b,
+                                                    reduce))
+    key = dict(seed=5, offset=(3, 4))
+    out, x = gather_mlp_pool_with_rows(table, idx, w, b, reduce, 0.5, **key)
+    out2, x2 = gather_mlp_pool_with_rows(table, idx, w, b, reduce, 0.5,
+                                         **key)
+    assert torch.equal(out, out2) and torch.equal(x, x2)
 
 
 @pytest.mark.parametrize("reduce", ["mean", "max"])
