@@ -9,7 +9,8 @@ Phases; any failure exits non-zero without the final ok line:
   2. build the CUDA kernels from the checkout's sources (one nvcc per
      source, all started together); cuobjdump's instruction counts,
      where the toolkit has it: K5/K6's instances at the hop must issue
-     tensor-core instructions (HGMMA)
+     tensor-core instructions (HGMMA), K7's bulk copies (UBLKCP) and
+     HMMA
   3. each kernel against its plain PyTorch version on the card, at the
      hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
      library-route times beside the kernel's bound. K1 is the
@@ -24,7 +25,13 @@ Phases; any failure exits non-zero without the final ok line:
      rows, the mask identical, and the gradients of its autograd
      Function against autograd of the plain composition); K5/K6 against
      the 3xTF32 bound, with one cuBLAS product in a single TF32 pass
-     beside them as an informational floor
+     beside them as an informational floor. K7, the gather-mean probe's
+     kernels (gather_probe.cu: K7a's bulk-copy ring with per-sample,
+     per-row and per-tile waits, its hot and compacted modes, K7b's
+     counts @ bf16 hot block, K7c's 2xTF32 counts @ hot rows with the
+     cold ring), at the probe's shape (N 100k, F 640, B 1024, S 25),
+     zipf and uniform ids, K 1024 and 4096, timed beside K1,
+     index_select + mean and embedding_bag
   4. serving at full width, bench.py's model: 100k nodes, 602 features,
      41 classes, fanouts 25/10, dims 128/128, batch 512, zipf(1.05)
      adjacency, seeded random weights. The eval sweep answers every node
@@ -54,7 +61,11 @@ Phases; any failure exits non-zero without the final ok line:
      graphsage_seq with --rows_gather) with first_k sampling and dropout
      0: the predictions, every logged train loss and the final val loss
      agree
-  8. one JSON line of per-kernel numbers, then the ok line (last)
+  8. the probe's entry point (python -m
+     graphsage_tpu_torch.benchmarks.gather_probe), zipf ids, short
+     trials: it exits 0 and launches every K7 instance and K1 and
+     nothing else (the launches of the kernels line)
+  9. one JSON line of per-kernel numbers, then the ok line (last)
 
 Needs no network and one card; builds into build/kernels/.
 """
@@ -99,6 +110,10 @@ POOL_TOL = 5e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, test_pool.py:70
 POOL_HIDDEN = 512                      # nn/aggregators.py, "small"
 BF16_REL_TOL = 2e-2                    # max error / max |plain|
+# K7 vs plain, max abs error: both sum the same f32 (or bf16-exact)
+# values in f32, in other orders; K7c's hot rows in 2xTF32 (~2^-22
+# relative); K7b and its plain version multiply the same bf16 block
+PROBE_TOL = 1e-5
 DROPOUT = 0.5             # agg_sweep.py's "mean_drop", "meanpool_fused_drop"
 LEARNING_RATE = 1e-2
 EDGES_PER_STEP = BATCH * (FANOUTS[1] + FANOUTS[1] * FANOUTS[0])  # 133120
@@ -121,21 +136,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+# K7's instances: (count key, JSON name, the TPU kernel it replaces)
+K7_INSTANCES = (
+    ("K7a.sample", "probe_gather_sample", "benchmarks/gather_probe.py:65"),
+    ("K7a.row", "probe_gather_row", "benchmarks/gather_probe.py:111"),
+    ("K7a.tile", "probe_gather_tile", "benchmarks/gather_probe.py:161"),
+    ("K7a.hot", "probe_gather_hot", "benchmarks/gather_probe.py:202"),
+    ("K7a.compacted", "probe_coldsw", "benchmarks/gather_probe.py:371"),
+    ("K7b", "probe_hotcount", "benchmarks/gather_probe.py:443"),
+    ("K7c", "probe_hotmx", "benchmarks/gather_probe.py:275"),
+)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6") + tuple(
+    key for key, _, _ in K7_INSTANCES)
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
+    from graphsage_tpu_torch.ops import gather_probe as pr
     from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
     from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
     from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
 
-    return {"K1": gm.launches, "K2": gm.dropout_launches,
-            "K3": gm.dedup_launches, "K4": gr.launches, "K5": gp.launches,
-            "K6": gp.train_launches}
+    counts = {"K1": gm.launches, "K2": gm.dropout_launches,
+              "K3": gm.dedup_launches, "K4": gr.launches, "K5": gp.launches,
+              "K6": gp.train_launches}
+    counts.update({f"K7a.{w}": n for w, n in pr.probe_gather.launches.items()})
+    counts.update({"K7a.hot": pr.probe_gather_hot.launches,
+                   "K7a.compacted": pr.probe_coldsw.launches,
+                   "K7b": pr.probe_hotcount.launches,
+                   "K7c": pr.probe_hotmx.launches})
+    return counts
 
 
 def reset_counts() -> None:
+    from graphsage_tpu_torch.ops import gather_probe as pr
     from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
     from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
     from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
@@ -143,6 +177,9 @@ def reset_counts() -> None:
     gm.launches = gm.dropout_launches = gm.dedup_launches = 0
     gr.launches = 0
     gp.launches = gp.train_launches = 0
+    pr.probe_gather.launches = dict.fromkeys(pr.probe_gather.launches, 0)
+    pr.probe_gather_hot.launches = pr.probe_coldsw.launches = 0
+    pr.probe_hotcount.launches = pr.probe_hotmx.launches = 0
 
 
 def check_counts(counts: dict, kernel: str, n: int, what: str) -> None:
@@ -933,6 +970,186 @@ def check_pool_train(dev, card_line: str) -> dict:
     }
 
 
+# ------------------------------------------------------------ K7, the probe
+
+# the probe's own entry point, as a user runs it: the fewest variants
+# that launch every K7 instance and K1 (check_probe times them), each
+# gather run INNER x (1 + 3 ITERS) times
+PROBE_VARIANTS = "k1,plain,bulkwait,tilewait,hot1024,hotmx1024,hc1024"
+PROBE_INNER, PROBE_ITERS = 2, 1
+
+
+def check_probe(dev, card_line: str) -> list:
+    """Every K7 instance against its plain version at the probe's shape
+    (N = 100k, F = 640, B = 1024, S = 25), zipf and uniform ids, K 1024
+    and 4096, f32 tables and bf16 for the wait kinds; then each one's
+    time beside K1, index_select + mean and embedding_bag on the zipf
+    ids. Returns the K7 entries of the kernels line (launches filled in
+    by the entry point's run)."""
+    import torch
+    import torch.nn.functional as fnn
+
+    from graphsage_tpu_torch.benchmarks import gather_probe as gp
+    from graphsage_tpu_torch.ops import gather_probe as ops
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_mean,
+        gather_mean_reference,
+    )
+
+    N, S = gp.N, gp.S
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(N + 1, gp.F, generator=gen, device=dev)
+    table[N] = 0
+    t16 = table.to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    ids = {d: torch.from_numpy(gp.make_ids(d, rng, 4)).to(dev)
+           for d in ("zipf", "uniform")}
+
+    err = {}
+
+    def hold(key, out, ref):
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"{key}: output not finite or of shape {tuple(out.shape)}")
+        err[key] = max(err.get(key, 0.0), float((out - ref).abs().max()))
+
+    for sets in ids.values():
+        for idx in sets[:2]:
+            for wait in ops.WAITS:
+                for tab in (table, t16):
+                    hold(f"K7a.{wait}", ops.probe_gather(tab, idx, wait),
+                         gather_mean_reference(tab, idx))
+            for K in (1024, 4096):
+                hold("K7a.hot", ops.probe_gather_hot(table, idx, K),
+                     gather_mean_reference(table, idx))
+                idx_dma, nb, _ = ops.cold_first_topk(idx, K, N)
+                cold = ops.probe_coldsw(table, idx_dma, nb, S)
+                cold_ref = ops.coldsw_reference(table, idx_dma, nb, S)
+                hold("K7a.compacted", cold, cold_ref)
+                hot = ops.probe_hotcount(idx, t16[:K])
+                hot_ref = ops.hotcount_reference(idx, t16[:K])
+                hold("K7b", hot, hot_ref)
+                hold("hc", cold + hot, cold_ref + hot_ref)
+                stable = ops.cold_first_stable(idx, K, N)
+                hold("K7c", ops.probe_hotmx(table, idx, *stable, K),
+                     ops.hotmx_reference(table, idx, *stable, K))
+    torch.cuda.synchronize()
+    log("K7 vs plain, max abs err over zipf and uniform ids, K 1024 and "
+        "4096 (f32 and bf16 tables for the waits): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f" (limit {PROBE_TOL})")
+    for key, e in err.items():
+        check(e <= PROBE_TOL, f"{key} error {e} > {PROBE_TOL}")
+
+    sets = list(ids["zipf"])
+
+    def timed(fn, args=sets):
+        return cuda_ms(cycling(fn, args))
+
+    library = timed(lambda idx: fnn.embedding_bag(idx, table, mode="mean"))
+    plain = timed(lambda idx: gather_mean_reference(table, idx))
+    log(f"probe at idx [{gp.B},{S}] into [{N + 1},{gp.F}] f32, zipf: K1 "
+        f"{timed(lambda idx: fused_gather_mean(table, idx)):.4f} ms, "
+        f"index_select + mean "
+        f"{timed(lambda idx: gp.xla_gather_mean(table, idx)):.4f} ms, "
+        f"embedding_bag {library:.4f} ms, plain {plain:.4f} ms; on "
+        f"{card_line}")
+
+    entries = {}
+
+    def record(key, ms, plain_ms, library_ms, kind, K, note=""):
+        bound, by = gp.bound_ms(kind, ids["zipf"], 4, K)
+        log(f"{key} ({kind}, K {K}): {ms:.4f} ms{note}, plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), share {bound / ms:.3f}")
+        if key not in entries:     # the line keeps K = 1024
+            name, replaces = next((n, r) for k, n, r in K7_INSTANCES
+                                  if k == key)
+            entries[key] = {
+                "name": name, "route": "cuda",
+                "source": "graphsage_tpu_torch/ops/csrc/gather_probe.cu",
+                "replaces": replaces, "launches": None,
+                "max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+    for wait in ops.WAITS:
+        ms = timed(lambda idx, w=wait: ops.probe_gather(table, idx, w))
+        bf16 = timed(lambda idx, w=wait: ops.probe_gather(t16, idx, w))
+        record(f"K7a.{wait}", ms, plain, library, "plain", 0,
+               f" (bf16 table {bf16:.4f} ms)")
+    uniform = list(ids["uniform"])
+    k1_ms = timed(lambda idx: fused_gather_mean(table, idx), uniform)
+    waits_ms = [timed(lambda idx, w=w: ops.probe_gather(table, idx, w),
+                      uniform) for w in ops.WAITS]
+    bound, _ = gp.bound_ms("plain", ids["uniform"], 4, 0)
+    log(f"uniform ids: bound {bound:.4f} ms (bytes), K1 {k1_ms:.4f} ms, "
+        "K7a per sample, row, tile "
+        + ", ".join(f"{ms:.4f}" for ms in waits_ms) + " ms")
+    for K in (1024, 4096):
+        record("K7a.hot", timed(
+            lambda idx, k=K: ops.probe_gather_hot(table, idx, k)), plain,
+            library, "hot", K)
+        # the compactions run in torch before the kernels, as the JAX
+        # probe runs them in XLA: timed on their own lines
+        log(f"id compactions, K {K}: top_k (coldsw, hc) "
+            f"{timed(lambda idx, k=K: ops.cold_first_topk(idx, k, N)):.4f}"
+            f" ms, stable (hotmx) "
+            f"{timed(lambda idx, k=K: ops.cold_first_stable(idx, k, N)):.4f}"
+            " ms a call, in no kernel's time below")
+        preps = [ops.cold_first_topk(idx, K, N) for idx in sets]
+        bags = [(p[0], p[2] / S) for p in preps]
+        record("K7a.compacted",
+               timed(lambda p: ops.probe_coldsw(table, p[0], p[1], S), preps),
+               timed(lambda p: ops.coldsw_reference(table, p[0], p[1], S),
+                     preps),
+               timed(lambda b: fnn.embedding_bag(
+                   b[0], table, per_sample_weights=b[1], mode="sum"), bags),
+               "coldsw", K)
+        hot = t16[:K]
+        hot_bags = [(torch.where(idx < K, idx, 0),
+                     (idx < K).to(torch.float32) / S) for idx in sets]
+        record("K7b", timed(lambda idx: ops.probe_hotcount(idx, hot)),
+               timed(lambda idx: ops.hotcount_reference(idx, hot)),
+               timed(lambda b, k=K: fnn.embedding_bag(
+                   b[0], table[:k], per_sample_weights=b[1], mode="sum"),
+                   hot_bags), "hotcount", K)
+        stables = [(idx, *ops.cold_first_stable(idx, K, N)) for idx in sets]
+        record("K7c", timed(lambda p, k=K: ops.probe_hotmx(table, *p, k),
+                            stables),
+               timed(lambda p, k=K: ops.hotmx_reference(table, *p, k),
+                     stables), library, "hotmx", K)
+    return [entries[key] for key, _, _ in K7_INSTANCES]
+
+
+def drive_probe(dev, card_line: str) -> dict:
+    """The probe's entry point as a user runs it
+    (``python -m graphsage_tpu_torch.benchmarks.gather_probe``) on zipf
+    ids, with short trials (its times are check_probe's to measure): it
+    must exit 0, check each variant against index_select + mean, and
+    launch every K7 instance (and K1, its yardstick) and nothing else."""
+    from graphsage_tpu_torch.benchmarks import gather_probe as gp
+
+    inner, iters = gp.INNER, gp.ITERS
+    gp.INNER, gp.ITERS = PROBE_INNER, PROBE_ITERS
+    reset_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = gp.main(["--dist", "zipf", "--variants", PROBE_VARIANTS])
+    finally:
+        gp.INNER, gp.ITERS = inner, iters
+    counts = launch_counts()
+    for line in out.getvalue().splitlines():
+        log(f"probe: {line}")
+    check(rc == 0, f"the probe's entry point exited {rc}")
+    log(f"probe entry point (zipf) launches: {counts}; on {card_line}")
+    for key in KERNELS:
+        if key.startswith("K7") or key == "K1":
+            check(counts[key] > 0, f"probe: {key} never launched")
+        else:
+            check(counts[key] == 0, f"probe: {key} launched {counts[key]}")
+    return counts
+
+
 def sass_ops(lib: str) -> dict:
     """{function name: {opcode: count}} of a built library's SASS, from
     cuobjdump where the toolkit has it (else empty)."""
@@ -963,7 +1180,9 @@ def sass_summary() -> None:
     load), the record behind K2_INT_OPS_PER_ELEM; and each K5/K6
     instance's tensor-core (HGMMA, HMMA) and f32 FMA instructions. The
     instances the hop runs (f32 table, mean: K5 without dropout, K6 with
-    dropout and the residual) must issue HGMMA."""
+    dropout and the residual) must issue HGMMA. Each K7 instance's bulk
+    copies (UBLKCP) and HMMA: K7a and K7c must issue bulk copies, K7b and
+    K7c HMMA."""
     for name, counts in sass_ops("libgather_mean.so").items():
         if "gather_mean_dropout_kernelIfLi2E" in name:
             top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
@@ -993,6 +1212,25 @@ def sass_summary() -> None:
             seen.add(tag)
     if seen:
         check(seen == set(hop.values()), f"hop instances missing: {seen}")
+    # K7: every instance's bulk copies (UBLKCP) and tensor-core (HMMA)
+    # instructions; K7a and K7c must issue bulk copies, K7b and K7c HMMA
+    for name, counts in sass_ops("libgather_probe.so").items():
+        kernel = next((k for k in ("probe_gather_kernel",
+                                   "probe_hotcount_kernel",
+                                   "probe_hotmx_kernel") if k in name), None)
+        if kernel is None:
+            continue
+        label = kernel + name.split(kernel, 1)[1].split("EEv")[0]
+        bulk = sum(n for op, n in counts.items() if op.startswith("UBLKCP"))
+        mma = {op: n for op, n in counts.items()
+               if op.split(".")[0] == "HMMA"}
+        log(f"SASS of {label}: {sum(counts.values())} instructions; bulk "
+            f"copies {bulk}; tensor-core {sum(mma.values())} "
+            f"({', '.join(f'{k} {v}' for k, v in sorted(mma.items()))})")
+        if kernel != "probe_hotcount_kernel":
+            check(bulk > 0, f"{label} issues no bulk copy (UBLKCP)")
+        if kernel != "probe_gather_kernel":
+            check(sum(mma.values()) > 0, f"{label} issues no HMMA")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1598,7 +1836,8 @@ def main() -> int:
 
         with concurrent.futures.ThreadPoolExecutor() as pool:
             results = list(pool.map(timed, ("gather_mean", "gather_rows",
-                                            "gather_mlp_pool")))
+                                            "gather_mlp_pool",
+                                            "gather_probe")))
         for name, seconds, nvcc_log in results:
             log(f"built {name}.cu in {seconds:.2f} s")
             for line in nvcc_log.splitlines():
@@ -1608,7 +1847,7 @@ def main() -> int:
         sass_summary()
 
     phase("build K1+K2+K3 (gather_mean.cu), K4 (gather_rows.cu), K5+K6 "
-          "(gather_mlp_pool.cu)", build_kernels)
+          "(gather_mlp_pool.cu), K7 (gather_probe.cu)", build_kernels)
     data = phase("bench data", bench_data, dev)
     k1 = phase("K1 vs plain", check_gather_mean, dev, card_line)
     k2 = phase("K2 vs plain", check_gather_mean_dropout, dev, card_line)
@@ -1616,6 +1855,7 @@ def main() -> int:
     k4 = phase("K4 vs plain", check_gather_rows, dev, card_line, data)
     k5 = phase("K5 vs plain", check_pool, dev, card_line)
     k6 = phase("K6 vs plain", check_pool_train, dev, card_line)
+    k7 = phase("K7 vs plain", check_probe, dev, card_line)
 
     k1["launches"], mean_preds = phase(
         "mean serving", serve_full_width, dev, data, "mean",
@@ -1657,9 +1897,13 @@ def main() -> int:
               kernel, p_limit)
     phase("CLI: predict (and --dedup_gather), supervised (mean, meanpool, "
           "seq --rows_gather) on the card against the CPU", cli_phases, dev)
+    probe_counts = phase("the probe's entry point (K7)", drive_probe, dev,
+                         card_line)
+    for (key, _, _), entry in zip(K7_INSTANCES, k7):
+        entry["launches"] = probe_counts[key]
     log(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
 
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, *k7]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

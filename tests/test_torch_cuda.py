@@ -9,6 +9,10 @@ with a card, from the root of the checkout:
 port nor these tests need.)
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,19 @@ from graphsage_tpu_torch.ops.gather import (
     gather_mean_dropout_reference,
     gather_mean_reference,
     gather_rows_reference,
+)
+from graphsage_tpu_torch.ops import gather_probe as probe_ops
+from graphsage_tpu_torch.ops.gather_probe import (
+    cold_first_stable,
+    cold_first_topk,
+    coldsw_reference,
+    hotcount_reference,
+    hotmx_reference,
+    probe_coldsw,
+    probe_gather,
+    probe_gather_hot,
+    probe_hotcount,
+    probe_hotmx,
 )
 from graphsage_tpu_torch.ops.philox import dropout_keep_mask
 from graphsage_tpu_torch.ops.pool import (
@@ -324,3 +341,185 @@ def test_pool_train_grads_match_autograd(cuda, reduce, rate):
     with torch.no_grad():
         gather_mlp_pool_train(table, idx, w1, b1, reduce, rate, **key)
     assert fused_gather_mlp_pool.launches == k5 + 1
+
+
+# ------------------------------------------------ K7: the probe kernels
+
+PROBE_TOL = dict(rtol=0, atol=1e-5)  # max abs error, K7 vs plain
+
+
+def _probe_operands(cuda, B, S, F, n, dtype=torch.float32, seed=0):
+    """A table of n rows and the zero dummy row n; ids over all n + 1
+    rows with row 0 all dummy, row 1 all below 4 and, where there are
+    rows enough, row 2 all at least n - 4."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    table = torch.randn(n + 1, F, generator=gen, device=cuda).to(dtype)
+    table[n] = 0
+    idx = torch.randint(0, n + 1, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = n
+    if B > 1:
+        idx[1] = torch.randint(0, 4, (S,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+    if B > 2:
+        idx[2] = torch.randint(n - 4, n, (S,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+    return table, idx
+
+
+PROBE_SHAPES = [  # B, S, F, tile_b, n_buf
+    (1, 1, 16, 8, 2), (13, 25, 640, 8, 2), (300, 5, 128, 8, 3),
+    (64, 1, 32, 4, 1), (17, 25, 64, 16, 2), (1024, 25, 640, 8, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wait", ["sample", "row", "tile"])
+@pytest.mark.parametrize("B,S,F,tile_b,n_buf", PROBE_SHAPES)
+def test_probe_gather_matches_plain(cuda, dtype, wait, B, S, F, tile_b,
+                                    n_buf):
+    """K7a's wait variants: B not a multiple of tile_b, S = 1, one ring
+    slot, the dummy row to zeros."""
+    table, idx = _probe_operands(cuda, B, S, F, 50, dtype, B + S + F)
+    before = probe_gather.launches[wait]
+    out = probe_gather(table, idx, wait, tile_b, n_buf)
+    torch.cuda.synchronize()
+    assert probe_gather.launches[wait] == before + 1
+    assert out.shape == (B, F) and (out[0] == 0).all()
+    torch.testing.assert_close(out, gather_mean_reference(table, idx),
+                               **PROBE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [0, 3, 20, 51])
+@pytest.mark.parametrize("B,S,F,tile_b,n_buf", PROBE_SHAPES[:4])
+def test_probe_gather_hot_matches_plain(cuda, dtype, K, B, S, F, tile_b,
+                                        n_buf):
+    """K7a hot: K = 0 (every sample cold), K = N + 1 (every sample hot),
+    rows all hot and all cold."""
+    table, idx = _probe_operands(cuda, B, S, F, 50, dtype, K + B)
+    before = probe_gather_hot.launches
+    out = probe_gather_hot(table, idx, K, tile_b, n_buf)
+    torch.cuda.synchronize()
+    assert probe_gather_hot.launches == before + 1
+    assert (out[0] == 0).all()
+    torch.testing.assert_close(out, gather_mean_reference(table, idx),
+                               **PROBE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [0, 3, 20, 51])
+@pytest.mark.parametrize("B,S,F,tile_b,n_buf", PROBE_SHAPES[:4])
+def test_probe_coldsw_matches_plain(cuda, dtype, K, B, S, F, tile_b, n_buf):
+    """K7a compacted on the top_k compaction: live slots only, no cold
+    sample at K = N + 1, every sample at K = 0."""
+    table, idx = _probe_operands(cuda, B, S, F, 50, dtype, K + S)
+    idx_dma, nb, _ = cold_first_topk(idx, K, 50)
+    before = probe_coldsw.launches
+    out = probe_coldsw(table, idx_dma, nb, S, tile_b, n_buf)
+    torch.cuda.synchronize()
+    assert probe_coldsw.launches == before + 1
+    torch.testing.assert_close(out, coldsw_reference(table, idx_dma, nb, S),
+                               **PROBE_TOL)
+
+
+@pytest.mark.parametrize("K", [0, 16, 100, 301])
+@pytest.mark.parametrize("B,S,F", [(128, 1, 8), (256, 25, 640),
+                                   (128, 5, 100)])
+def test_probe_hotcount_matches_plain(cuda, K, B, S, F):
+    """K7b against the plain counts @ the same bf16 block, F not a
+    multiple of the column tile, K past the ids."""
+    table, idx = _probe_operands(cuda, B, S, F, 300, seed=K + S)
+    hot = table[:K].to(torch.bfloat16)
+    before = probe_hotcount.launches
+    out = probe_hotcount(idx, hot)
+    torch.cuda.synchronize()
+    assert probe_hotcount.launches == before + 1
+    torch.testing.assert_close(out, hotcount_reference(idx, hot),
+                               **PROBE_TOL)
+
+
+@pytest.mark.parametrize("K", [0, 16, 100, 301])
+@pytest.mark.parametrize("B,S,F,tile_b", [(1, 1, 16, 16), (13, 5, 128, 16),
+                                          (40, 25, 640, 32),
+                                          (1024, 25, 640, 16)])
+def test_probe_hotmx_matches_plain(cuda, K, B, S, F, tile_b):
+    """K7c: 2xTF32 counts @ hot rows + the compacted cold rows, at K = 0
+    (all cold) and K = N + 1 (all hot), B not a multiple of tile_b."""
+    table, idx = _probe_operands(cuda, B, S, F, 300, seed=K + B)
+    idx_dma, nb = cold_first_stable(idx, K, 300)
+    before = probe_hotmx.launches
+    out = probe_hotmx(table, idx, idx_dma, nb, K, tile_b)
+    torch.cuda.synchronize()
+    assert probe_hotmx.launches == before + 1
+    assert (out[0] == 0).all()
+    torch.testing.assert_close(
+        out, hotmx_reference(table, idx, idx_dma, nb, K), **PROBE_TOL)
+
+
+@pytest.mark.parametrize("kind", ["sample", "row", "tile", "hot", "coldsw",
+                                  "hotcount", "hotmx"])
+def test_probe_kernels_repeat_bit_for_bit(cuda, kind):
+    table, idx = _probe_operands(cuda, 256, 25, 640, 3000, seed=7)
+    idx_dma, nb, _ = cold_first_topk(idx, 512, 3000)
+    stable = cold_first_stable(idx, 512, 3000)
+    hot = table[:512].to(torch.bfloat16)
+    run = {
+        "hot": lambda: probe_gather_hot(table, idx, 512),
+        "coldsw": lambda: probe_coldsw(table, idx_dma, nb, 25),
+        "hotcount": lambda: probe_hotcount(idx, hot),
+        "hotmx": lambda: probe_hotmx(table, idx, *stable, 512),
+    }.get(kind, lambda: probe_gather(table, idx, kind))
+    assert torch.equal(run(), run())
+
+
+TRAP = """
+import torch
+from graphsage_tpu_torch.ops import gather_probe as gp
+dev = torch.device("cuda")
+table = torch.zeros(11, 16, device=dev)
+idx = torch.full((128, 3), 2, dtype=torch.int32, device=dev)
+idx[5, 1] = 11            # one past the table
+kind = {kind!r}
+if kind == "hotmx":
+    gp.probe_hotmx(table, idx, *gp.cold_first_stable(idx, 4, 10), 4)
+elif kind == "coldsw":
+    gp.probe_coldsw(table, torch.full((128, 4), 11, dtype=torch.int32,
+                                      device=dev),
+                    torch.ones(128, dtype=torch.int32, device=dev), 3)
+elif kind == "hot":
+    gp.probe_gather_hot(table, idx, 4)
+else:
+    gp.probe_gather(table, idx, kind)
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.parametrize("kind", ["sample", "row", "tile", "hot", "coldsw",
+                                  "hotmx"])
+def test_probe_out_of_range_id_traps(cuda, kind):
+    """An id past the table stops the kernel (in a process of its own:
+    a trap ends the CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", TRAP.format(kind=kind)],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode != 0 and "NO TRAP" not in proc.stdout
+
+
+@pytest.mark.parametrize("kind", ["row", "hotmx"])
+def test_probe_launch_refuses_another_smem_size(cuda, monkeypatch, kind):
+    """The wrapper sizes shared memory and the kernel's source lays it
+    out: a size that is not the layout's is refused, not launched."""
+    table, idx = _probe_operands(cuda, 128, 5, 64, 50)
+    name = "hotmx_bytes" if kind == "hotmx" else "ring_bytes"
+    sized = getattr(probe_ops, name)
+    monkeypatch.setattr(probe_ops, name, lambda *a: sized(*a) + 16)
+    before = dict(probe_gather.launches), probe_hotmx.launches
+    with pytest.raises(RuntimeError, match="not the kernel's layout"):
+        if kind == "hotmx":
+            probe_hotmx(table, idx, *cold_first_stable(idx, 4, 50), 4)
+        else:
+            probe_gather(table, idx, "row")
+    assert (dict(probe_gather.launches), probe_hotmx.launches) == before

@@ -35,6 +35,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("infer", "ops.gather", "ops.philox", "ops.pool",
+                 "ops.gather_probe", "benchmarks.gather_probe",
                  "nn.lstm", "parallel.dp",
                  "train.supervised", "train.tblog", "data.minibatch"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
