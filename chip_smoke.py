@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (graphsage_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py           # from the root of a checkout
+    python3 chip_smoke.py --loads   # only K1/K3's load probe
+                                    # (probe_loads)
 
 Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
@@ -14,11 +16,13 @@ Phases; any failure exits non-zero without the final ok line:
   3. each kernel against its plain PyTorch version on the card, at the
      hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
      library-route times beside the kernel's bound. K1 is the
-     gather-mean, K2 the gather-mean with Philox dropout (identical
-     masks, equal means, the rate's zero fraction, the 1/keep scale), K3
-     the gather-mean that loads each distinct sample once (at the hop
-     through the sampler, and at S = 1, all samples equal, all
-     distinct, F = 17, B = 7 and S at its shared-memory limit), K4 the
+     gather-mean (at the hop through the sampler, as serving draws it,
+     and on i.i.d. zipf ids), K2 the gather-mean with Philox dropout
+     (identical masks, equal means, the rate's zero fraction, the
+     1/keep scale), K3 the gather-mean that loads each distinct sample
+     once (at the hop through the sampler, and at S = 1, 31, 32 and
+     33, all samples equal, all distinct, rows repeated down the idx,
+     F = 17, B = 7 and S at its shared-memory limit), K4 the
      row gather (bit-equal to index_select), K5 the gather -> MLP ->
      pool (mean and max, ties), K6 the same writing its dropped rows as
      the backward's residual (residual bit-equal to the plain dropped
@@ -109,7 +113,6 @@ F32_TOL = 1e-5                         # max abs error, kernel vs plain
 POOL_TOL = 5e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, test_pool.py:70
 POOL_HIDDEN = 512                      # nn/aggregators.py, "small"
-BF16_REL_TOL = 2e-2                    # max error / max |plain|
 # K7 vs plain, max abs error: both sum the same f32 (or bf16-exact)
 # values in f32, in other orders; K7c's hot rows in 2xTF32 (~2^-22
 # relative); K7b and its plain version multiply the same bf16 block
@@ -241,8 +244,31 @@ def card() -> str:
 
 # ------------------------------------------------------------ phase 3
 
-def check_gather_mean(dev, card_line: str) -> dict:
-    """K1 against its plain version; its times and bound at the hop."""
+def gather_bytes_ms(idx, F: int = FEAT_DIM, elem: int = 4) -> float:
+    """The bytes bound of a gather-mean over ``idx`` [B, S] into a table
+    of F columns of ``elem`` bytes (bench.py's f32 table by default):
+    each distinct row read once, the [B, F] f32 output written once, the
+    ids read once, at the card's memory rate."""
+    distinct = int(idx.unique().numel())
+    n_bytes = (distinct * F * elem + idx.shape[0] * F * 4
+               + idx.numel() * 4)
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def tile_distinct(idx, rows: int) -> float:
+    """Mean share of distinct ids among the samples of a tile of ``rows``
+    consecutive output rows of ``idx``."""
+    ids = idx.cpu().numpy()
+    shares = [len(np.unique(ids[r:r + rows])) / ids[r:r + rows].size
+              for r in range(0, ids.shape[0], rows)]
+    return float(np.mean(shares))
+
+
+def check_gather_mean(dev, card_line: str, data) -> dict:
+    """K1 against its plain version (f32 and bf16 tables) at the hop, its
+    idx from the sampler over bench.py's zipf adjacency as serving draws
+    it, on i.i.d. zipf ids and at ragged widths; its times and bound at
+    the hop (the kernels line), then on the i.i.d. ids (a second line)."""
     import torch
     import torch.nn.functional as fnn
 
@@ -251,91 +277,169 @@ def check_gather_mean(dev, card_line: str) -> dict:
         gather_mean_reference,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    table = torch.randn(NUM_NODES + 1, FEAT_DIM, generator=gen, device=dev)
-    table[NUM_NODES] = 0
-    rng = np.random.default_rng(1)
+    features = data[0]
+    table_bf16 = features.to(torch.bfloat16)
     # several idx sets, cycled, so that repeated timing launches do not
     # find one set's rows in L2 more often than a sweep would
-    idx_sets = [torch.from_numpy(zipf_ids(rng, (HOP_ROWS, FANOUTS[0])))
-                .to(dev) for _ in range(8)]
+    hop_sets = hop_idx_sets(dev, data, 8, seed=10)
+    rng = np.random.default_rng(1)
+    zipf_sets = [torch.from_numpy(zipf_ids(rng, (HOP_ROWS, FANOUTS[0])))
+                 .to(dev) for _ in range(8)]
 
-    f32_err = 0.0
-    bf16_err = 0.0
-    table_bf16 = table.to(torch.bfloat16)
-    for idx in idx_sets[:2]:
-        out = fused_gather_mean(table, idx)
-        ref = gather_mean_reference(table, idx)
-        f32_err = max(f32_err, float((out - ref).abs().max()))
-        out = fused_gather_mean(table_bf16, idx)
-        ref = gather_mean_reference(table_bf16, idx)
-        bf16_err = max(bf16_err, float((out - ref).abs().max()
-                                       / ref.abs().max()))
-    for F in (1, 3, 602, 640):
+    err = {"f32": 0.0, "bf16": 0.0}
+
+    def compare(tab, idx):
+        name = "f32" if tab.dtype == torch.float32 else "bf16"
+        out = fused_gather_mean(tab, idx)
+        ref = gather_mean_reference(tab, idx)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"gather_mean {name}: bad output")
+        err[name] = max(err[name], float((out - ref).abs().max()))
+        return out
+
+    for idx in hop_sets[:2] + zipf_sets[:2]:
+        compare(features, idx)
+        compare(table_bf16, idx)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for F in (1, 3, 17, 602, 640):
         small = torch.randn(65, F, generator=gen, device=dev)
         small[64] = 0
         cases = [torch.full((1, 1), 64, dtype=torch.int32, device=dev),
                  torch.randint(0, 65, (3, 5), generator=gen, device=dev,
                                dtype=torch.int32)]
         for idx in cases:
-            out = fused_gather_mean(small, idx)
-            ref = gather_mean_reference(small, idx)
-            f32_err = max(f32_err, float((out - ref).abs().max()))
-            out16 = fused_gather_mean(small.to(torch.bfloat16), idx)
-            ref16 = gather_mean_reference(small.to(torch.bfloat16), idx)
-            scale = max(float(ref16.abs().max()), 1e-30)
-            bf16_err = max(bf16_err,
-                           float((out16 - ref16).abs().max()) / scale)
+            compare(small, idx)
+            compare(small.to(torch.bfloat16), idx)
         check(bool((fused_gather_mean(small, cases[0]) == 0).all()),
               f"gather_mean: the dummy row did not give zeros at F={F}")
     torch.cuda.synchronize()
-    log(f"gather_mean vs plain: f32 max abs err {f32_err:.3e} "
-        f"(limit {F32_TOL}), bf16 max rel err {bf16_err:.3e} "
-        f"(limit {BF16_REL_TOL})")
-    check(f32_err <= F32_TOL, f"gather_mean f32 error {f32_err} > {F32_TOL}")
-    check(bf16_err <= BF16_REL_TOL,
-          f"gather_mean bf16 error {bf16_err} > {BF16_REL_TOL}")
+    log(f"gather_mean vs plain (the hop, i.i.d. zipf ids, F 1-640): max "
+        f"abs err f32 {err['f32']:.3e}, bf16 table {err['bf16']:.3e} "
+        f"(limit {F32_TOL})")
+    check(max(err.values()) <= F32_TOL,
+          f"gather_mean error {max(err.values())} > {F32_TOL}")
 
-    ms = cuda_ms(cycling(lambda idx: fused_gather_mean(table, idx),
-                         idx_sets))
-    plain_ms = cuda_ms(cycling(lambda idx: gather_mean_reference(table, idx),
-                               idx_sets))
-    library_ms = cuda_ms(cycling(
-        lambda idx: fnn.embedding_bag(idx, table, mode="mean"), idx_sets))
-    bf16_ms = cuda_ms(cycling(lambda idx: fused_gather_mean(table_bf16, idx),
-                              idx_sets))
-
-    bounds = []
-    for idx in idx_sets:
-        distinct = int(torch.unique(idx).numel())
-        n_bytes = (distinct * FEAT_DIM * 4 + HOP_ROWS * FEAT_DIM * 4
-                   + idx.numel() * 4)
+    def timed(idx_sets, what):
+        ms = cuda_ms(cycling(lambda idx: fused_gather_mean(features, idx),
+                             idx_sets))
+        plain_ms = cuda_ms(cycling(
+            lambda idx: gather_mean_reference(features, idx), idx_sets))
+        library_ms = cuda_ms(cycling(
+            lambda idx: fnn.embedding_bag(idx, features, mode="mean"),
+            idx_sets))
+        bf16_ms = cuda_ms(cycling(
+            lambda idx: fused_gather_mean(table_bf16, idx), idx_sets))
+        bytes_ms = float(np.mean([gather_bytes_ms(i) for i in idx_sets]))
         n_ops = HOP_ROWS * FANOUTS[0] * FEAT_DIM + HOP_ROWS * FEAT_DIM
-        bounds.append((n_bytes / HBM_BYTES_PER_S * 1e3,
-                       n_ops / F32_OPS_PER_S * 1e3, distinct))
-    bytes_ms = float(np.mean([b[0] for b in bounds]))
-    ops_ms = float(np.mean([b[1] for b in bounds]))
-    distinct = float(np.mean([b[2] for b in bounds]))
-    log(f"gather_mean at idx [{HOP_ROWS},{FANOUTS[0]}] into "
-        f"[{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, embedding_bag {library_ms:.4f} ms, bf16 table "
-        f"{bf16_ms:.4f} ms; {distinct:.0f} distinct rows per launch; bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, ops "
-        f"{ops_ms:.4f}); bound share {max(bytes_ms, ops_ms) / ms:.3f}; "
-        f"on {card_line}")
-    return {
-        "name": "gather_mean",
-        "route": "cuda",
-        "source": "graphsage_tpu_torch/ops/csrc/gather_mean.cu",
-        "replaces": "graphsage_tpu/ops/gather.py:160",
-        "launches": None,
-        "max_abs_err": f32_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        ops_ms = n_ops / F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        distinct = np.mean([int(i.unique().numel()) for i in idx_sets])
+        log(f"gather_mean at {what}, idx [{HOP_ROWS},{FANOUTS[0]}] into "
+            f"[{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, embedding_bag {library_ms:.4f} ms, bf16 "
+            f"table {bf16_ms:.4f} ms; {distinct:.0f} distinct rows per "
+            f"launch; bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, ops "
+            f"{ops_ms:.4f}); bound share {bound_ms / ms:.3f}; on "
+            f"{card_line}")
+        return {
+            "name": "gather_mean",
+            "route": "cuda",
+            "source": "graphsage_tpu_torch/ops/csrc/gather_mean.cu",
+            "replaces": "graphsage_tpu/ops/gather.py:160",
+            "launches": None,
+            "max_abs_err": max(err.values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        }
+
+    entry = timed(hop_sets, "the sampler's hop idx")
+    timed(zipf_sets, "i.i.d. zipf(1.05) ids")
+    return entry
+
+
+def probe_loads(dev, card_line: str, data) -> None:
+    """``--loads``: K1 and K3 at the hop (the sampler's idx) at each load
+    width the wrapper picks: 8 bytes on the f32 table, 4 on the same
+    table one element off a 16-byte boundary, 4 on its bf16 copy and 16
+    on a [N+1, 640] f32 table; each held to its plain version before it
+    is timed. Then K1 on ids that isolate the load path's parts: the
+    hop's rows left in L2, every load an L1 hit, L2-resident rows with
+    little reuse, rows from device memory. Writes every result to
+    chiprun_out/loads.json."""
+    import torch
+
+    from graphsage_tpu_torch.ops import gather as g
+
+    features = data[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shifted = torch.empty(features.numel() + 1, device=dev)[1:]
+    shifted.copy_(features.reshape(-1))
+    tables = {
+        "f32 602": features,
+        "f32 602, one element off": shifted.view(features.shape),
+        "bf16 602": features.to(torch.bfloat16),
+        "f32 640": torch.randn(NUM_NODES + 1, 640, generator=gen,
+                               device=dev),
     }
+    idx_sets = hop_idx_sets(dev, data, 8, seed=10)
+    results = []
+    log(f"K1/K3 load widths at idx [{HOP_ROWS},{FANOUTS[0]}] from the "
+        f"sampler; on {card_line}")
+    for name, table in tables.items():
+        F, elem = table.shape[1], table.element_size()
+        load_bytes = g._vector_width(F, elem, table.data_ptr(), 0) * elem
+        bytes_ms = float(np.mean([gather_bytes_ms(i, F, elem)
+                                  for i in idx_sets]))
+        for dedup in (False, True):
+            plain = (g.gather_mean_dedup_reference if dedup
+                     else g.gather_mean_reference)
+            out = g.fused_gather_mean(table, idx_sets[0], dedup=dedup)
+            err = float((out - plain(table, idx_sets[0])).abs().max())
+            kernel = f"K{3 if dedup else 1}"
+            check(err <= F32_TOL, f"{kernel} {name}: error {err}")
+            ms = cuda_ms(cycling(lambda idx: g.fused_gather_mean(
+                table, idx, dedup=dedup), idx_sets))
+            log(f"  {kernel} {name}: {load_bytes}-byte loads: {ms:.4f} ms, "
+                f"bound {bytes_ms:.4f} ms, share {bytes_ms / ms:.3f}, err "
+                f"{err:.2e}")
+            results.append({"kernel": kernel, "table": name,
+                            "load_bytes": load_bytes, "ms": ms,
+                            "bound_ms": bytes_ms, "max_abs_err": err})
+
+    # what sets K1's pace: K1 on ids that isolate the load path's parts,
+    # same shape, the f32 table
+    rng = np.random.default_rng(4)
+
+    def ids(make):
+        return [torch.from_numpy(np.ascontiguousarray(make(), dtype=np.int32))
+                .to(dev) for _ in range(8)]
+
+    shape = (HOP_ROWS, FANOUTS[0])
+    dists = {
+        "the hop, 8 idx sets (as timed above)": idx_sets,
+        "the hop, 1 idx set (its rows stay in L2)": idx_sets[:1],
+        "every sample row 0 (each load an L1 hit)":
+            ids(lambda: np.zeros(shape))[:1],
+        "uniform over 1k rows (L2-resident, little L1 reuse)":
+            ids(lambda: rng.integers(0, 1000, shape)),
+        "uniform over 100k rows (device memory)":
+            ids(lambda: rng.integers(0, NUM_NODES, shape)),
+    }
+    by_ids = {}
+    for name, sets in dists.items():
+        ms = cuda_ms(cycling(lambda idx: g.fused_gather_mean(features, idx),
+                             sets))
+        log(f"  K1 f32 602 on {name}: {ms:.4f} ms, "
+            f"{HOP_ROWS * FANOUTS[0] * FEAT_DIM * 4 / ms / 1e9:.2f} TB/s "
+            f"of gathered rows")
+        by_ids[name] = ms
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "loads.json"), "w") as f:
+        json.dump({"card": card_line, "results": results,
+                   "k1_ms_by_ids": by_ids}, f, indent=1)
 
 
 def check_gather_mean_dropout(dev, card_line: str) -> dict:
@@ -407,10 +511,7 @@ def check_gather_mean_dropout(dev, card_line: str) -> dict:
         idx_sets))
 
     elements = HOP_ROWS * FANOUTS[0] * FEAT_DIM
-    bytes_ms = float(np.mean([
-        (int(torch.unique(idx).numel()) * FEAT_DIM * 4
-         + HOP_ROWS * FEAT_DIM * 4 + idx.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        for idx in idx_sets]))
+    bytes_ms = float(np.mean([gather_bytes_ms(idx) for idx in idx_sets]))
     int_ms = elements * K2_INT_OPS_PER_ELEM / INT32_OPS_PER_S * 1e3
     f32_ms = elements * K2_F32_OPS_PER_ELEM / F32_OPS_PER_S * 1e3
     ops_ms = max(int_ms, f32_ms)
@@ -462,7 +563,7 @@ def check_gather_mean_dedup(dev, card_line: str, data) -> dict:
     """K3 against its plain version (f32 and bf16 tables) at the hop, its
     idx from the sampler over bench.py's zipf adjacency, and at ragged
     shapes; beside it K1 on the same idx; times, bound and the distinct
-    rows per output row."""
+    share of an output row and of a tile."""
     import torch
     import torch.nn.functional as fnn
 
@@ -508,6 +609,11 @@ def check_gather_mean_dedup(dev, card_line: str, data) -> dict:
             for _ in range(5)]).to(torch.int32), FEAT_DIM),
         "F=17": (randint(9, FANOUTS[0]), 17),
         "B=7": (randint(7, FANOUTS[0]), FEAT_DIM),
+        "S=31": (randint(40, 31), FEAT_DIM),
+        "S=32": (randint(40, 32), FEAT_DIM),
+        "S=33": (randint(40, 33), FEAT_DIM),
+        # 8 distinct rows, each repeated 9 times down the idx
+        "rows repeated": (randint(8, FANOUTS[0]).repeat(9, 1), FEAT_DIM),
         f"S={MAX_DEDUP_SAMPLES}": (randint(3, MAX_DEDUP_SAMPLES), 33),
     }
     for name, (idx, F) in ragged.items():
@@ -540,27 +646,26 @@ def check_gather_mean_dedup(dev, card_line: str, data) -> dict:
         idx_sets))
     per_row = [float(dedup_compact(idx)[1].float().mean())
                for idx in idx_sets]
-    bounds = []
-    for idx, n_u in zip(idx_sets, per_row):
-        distinct = int(torch.unique(idx).numel())
-        n_bytes = (distinct * FEAT_DIM * 4 + HOP_ROWS * FEAT_DIM * 4
-                   + idx.numel() * 4)
-        n_ops = 2 * n_u * HOP_ROWS * FEAT_DIM     # w * row, then the add
-        bounds.append((n_bytes / HBM_BYTES_PER_S * 1e3,
-                       n_ops / F32_OPS_PER_S * 1e3, distinct))
-    bytes_ms = float(np.mean([b[0] for b in bounds]))
-    ops_ms = float(np.mean([b[1] for b in bounds]))
-    distinct = float(np.mean([b[2] for b in bounds]))
+    # what rows shared across a tile of T would save (T = 1 ships)
+    per_tile = {T: float(np.mean([tile_distinct(idx, T)
+                                  for idx in idx_sets[:2]]))
+                for T in (2, 8, 32)}
+    bytes_ms = float(np.mean([gather_bytes_ms(idx) for idx in idx_sets]))
+    ops_ms = float(np.mean([2 * n_u * HOP_ROWS * FEAT_DIM  # w * row, add
+                            for n_u in per_row])) / F32_OPS_PER_S * 1e3
+    distinct = np.mean([int(idx.unique().numel()) for idx in idx_sets])
     log(f"K3 at idx [{HOP_ROWS},{FANOUTS[0]}] from the sampler into "
         f"[{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms (bf16 table "
         f"{bf16_ms:.4f}), plain {plain_ms:.4f} ms, embedding_bag "
         f"{library_ms:.4f} ms, K1 on the same idx {k1_ms:.4f} ms; distinct "
         f"rows per output row {np.mean(per_row):.3f} of {FANOUTS[0]} (min "
         f"{min(per_row):.3f}, max {max(per_row):.3f} over "
-        f"{len(idx_sets)} launches), {distinct:.0f} distinct rows per "
-        f"launch; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-        f"{bytes_ms:.4f}, ops {ops_ms:.4f}); bound share "
-        f"{max(bytes_ms, ops_ms) / ms:.3f}; on {card_line}")
+        f"{len(idx_sets)} launches), distinct share of a tile of 2, 8, 32 "
+        f"rows " + ", ".join(f"{v:.3f}" for v in per_tile.values())
+        + f"; {distinct:.0f} distinct rows per launch; "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, ops "
+        f"{ops_ms:.4f}); bound share {max(bytes_ms, ops_ms) / ms:.3f}, K1's "
+        f"{max(bytes_ms, ops_ms) / k1_ms:.3f}; on {card_line}")
     return {
         "name": "gather_mean_dedup",
         "route": "cuda",
@@ -1827,7 +1932,8 @@ def main() -> int:
         log(f"[phase {name}: {time.perf_counter() - t0:.2f} s]")
         return result
 
-    def build_kernels():
+    def build_kernels(names=("gather_mean", "gather_rows",
+                             "gather_mlp_pool", "gather_probe")):
         """One nvcc per source, all started together."""
         def timed(name):
             t0 = time.perf_counter()
@@ -1835,21 +1941,25 @@ def main() -> int:
             return name, time.perf_counter() - t0, nvcc_log
 
         with concurrent.futures.ThreadPoolExecutor() as pool:
-            results = list(pool.map(timed, ("gather_mean", "gather_rows",
-                                            "gather_mlp_pool",
-                                            "gather_probe")))
+            results = list(pool.map(timed, names))
         for name, seconds, nvcc_log in results:
             log(f"built {name}.cu in {seconds:.2f} s")
             for line in nvcc_log.splitlines():
                 if ("Compiling entry" in line or "registers" in line
                         or "spill" in line):
                     log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
-        sass_summary()
 
+    if sys.argv[1:] == ["--loads"]:
+        phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
+              ("gather_mean",))
+        data = phase("bench data", bench_data, dev)
+        phase("K1/K3 load probe", probe_loads, dev, card_line, data)
+        return 0
     phase("build K1+K2+K3 (gather_mean.cu), K4 (gather_rows.cu), K5+K6 "
           "(gather_mlp_pool.cu), K7 (gather_probe.cu)", build_kernels)
+    sass_summary()
     data = phase("bench data", bench_data, dev)
-    k1 = phase("K1 vs plain", check_gather_mean, dev, card_line)
+    k1 = phase("K1 vs plain", check_gather_mean, dev, card_line, data)
     k2 = phase("K2 vs plain", check_gather_mean_dropout, dev, card_line)
     k3 = phase("K3 vs plain", check_gather_mean_dedup, dev, card_line, data)
     k4 = phase("K4 vs plain", check_gather_rows, dev, card_line, data)

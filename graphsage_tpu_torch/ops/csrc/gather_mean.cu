@@ -13,27 +13,44 @@
 // (fused_gather_mean(dedup=True)). The [B*S, F] gather and the mask are
 // never written to device memory, only the [B, F] f32 mean.
 //
-// What bounds it on the H100: memory bytes. Counting each distinct
-// gathered row once (repeats of a zipf hub row come from L2), plus the
-// [B, F] f32 output and the idx, the serving hop (idx [5120, 25] into a
-// [100001, 602] f32 table) moves tens of MB for ~77M adds, far below
-// the card's operation rate.
+// What bounds K1 and K3 on the H100: memory bytes. Each distinct
+// gathered row once, the [B, F] f32 output and the idx: at the serving
+// hop (idx [5120, 25] from the sampler's shared_perm over the zipf
+// adjacency, into a [100001, 602] f32 table; ~13.4k distinct rows) that
+// is ~45 MB, 0.0134 ms at 3.35 TB/s, for ~77M adds, far below the
+// card's operation rate. What sets their pace is the SM's load path,
+// not device memory: every (row, sample) pulls its 2,408 bytes through
+// L1 in 8-byte loads (F = 602 f32 rows start 8 bytes off a 16-byte
+// boundary at odd ids), 308 MB a launch; the same launch on an
+// L2-resident idx takes as long, and a gather whose every load hits L1
+// still takes two thirds of it (chip_smoke.py --loads measures both).
 //
-// Design (a simple, correct first version):
-//   * one block per output row; the row's S indices are loaded once
-//     into shared memory as 64-bit element offsets (idx * F overflows
-//     int32 beyond ~3.5M rows at F = 602);
-//   * threads stride over the F columns in vectors of VEC elements,
-//     neighbouring threads on neighbouring addresses, and accumulate in
-//     f32 registers. VEC is the widest load (up to 16 bytes) that divides
-//     F and the table's alignment, so every row start stays aligned and
-//     there is no tail (F = 602 f32 rows, 2408 bytes, load as float2);
-//   * the table is f32 or bf16; the output is always f32;
-//   * an out-of-range index traps, as PyTorch's own index kernels do.
-// Left to a later PR: keeping zipf hub rows resident (L2 persistence or
-// a shared-memory cache), asynchronous copies (cp.async / TMA) to
-// overlap the S row loads, and several output rows per block for
-// narrow F.
+// Design: one block per output row, a thread per VEC columns (the
+// widest load, up to 16 bytes, that divides F and the table's
+// alignment), f32 accumulators in registers, at most 512 threads a
+// block striding over the row's vectors.
+//   * K1: the row's S samples, their 64-bit row offsets in shared
+//     memory (idx * F overflows int32 beyond ~3.5M rows at F = 602),
+//     summed in order through the read-only path, 5 loads in flight a
+//     thread, then scaled by 1/S;
+//   * K3: the row's distinct samples are ranked in shared memory (a flag
+//     at each first occurrence, then each one's ascending rank and its
+//     count, every thread reading the same sample at once, a broadcast),
+//     so the distinct rows and their weights count/S come out in
+//     ascending order, as dedup_compact orders them; each distinct row
+//     is loaded once and added with its weight, 4 loads in flight;
+//   * an id outside [0, N) traps, as PyTorch's own index kernels do;
+//     the table is f32 or bf16, the output f32; no float atomics, so
+//     two launches are bit-identical.
+// Rows shared across output rows are not loaded once a block: tiles of
+// 2-8 rows that load each distinct row of the tile once and add it into
+// every row that holds it, shared-memory stages of a tile's distinct
+// rows, and a warp-level rank (__match_any_sync) all measured slower on
+// this card (PERF.md, section 6): each row a tile adds costs a fused
+// multiply-add a load and lengthens each thread's chain of loads, and
+// finding the shared rows costs more than re-reading them through L1.
+// chip_smoke.py --loads times K1 and K3 at each load width and on ids
+// that isolate the load path's parts.
 //
 // K2's random bits: the TPU kernel reseeds its on-chip generator per
 // grid step, which relies on the grid running in order. Hopper's blocks
@@ -52,43 +69,26 @@
 // for every thread), about 10 integer instructions per element plus the
 // compare: at the serving hop shape (77M elements) that is of order
 // 0.05 ms at the H100's int32 rate, above the ~0.02 ms bytes bound.
-// Design (simple and correct first): K1's block-per-row layout; each
-// thread owns chunks of W = max(4, VEC) columns, i.e. whole Philox
-// groups, so each call's four words serve four elements; the chunk is
-// loaded VEC elements at a time (VEC divides F, so a vector is all in
-// or all out of the row; a row's last chunk may be partial). Left to a
-// later PR: fewer rounds or fewer bits per element, and overlapping the
-// generator with the row loads.
+// Design (simple and correct first): one block per output row, its S
+// row offsets in shared memory as 64-bit element offsets (idx * F
+// overflows int32 beyond ~3.5M rows at F = 602); each thread owns
+// chunks of W = max(4, VEC) columns, i.e. whole Philox groups, so each
+// call's four words serve four elements; the chunk is loaded VEC
+// elements at a time (VEC, the widest load up to 16 bytes that divides
+// F and the table's alignment, so a vector is all in or all out of the
+// row; a row's last chunk may be partial), accumulated in f32 registers.
+// Left to a later PR: fewer rounds or fewer bits per element, and
+// overlapping the generator with the row loads.
 //
-// What bounds K3: memory bytes, as K1. It reads each distinct row once
-// (K1's bound already counts only distinct rows), the [B, F] f32 output
-// and the idx: at the serving hop (idx [5120, 25] from the sampler, F
-// 602 f32, ~13.4k distinct rows, 21.7 of 25 distinct per output row)
-// 0.0135 ms at 3.35 TB/s. What it saves over K1 is the L2 and load
-// traffic of repeated samples within one output row.
-// Design (simple and correct first): K1's block-per-row layout; the
-// compaction that the TPU kernel takes from dedup_compact in XLA runs
-// inside the block, so the wrapper launches one kernel and nothing
-// else: the S samples go to shared memory; each thread counts one
-// sample's multiplicity and whether it is the value's first occurrence
-// (O(S^2) compares, 625 at S = 25); the first occurrences are ranked by
-// value, so the distinct samples and their weights count/S are
-// compacted in ascending order, as dedup_compact orders them, and every
-// run sums in the same order. Then the threads stride over the F
-// columns with K1's vector loads and accumulate w_u * row_u over the
-// n_u distinct rows in f32. No tail slot is ever loaded, so none needs
-// zeroing. Shared memory: four 4-byte words per sample, so S <= 3072
-// within the 48 KB a block gets without opting in (MAX_DEDUP_SAMPLES).
-// Left to a later PR: a sort in place of the O(S^2) ranking for large S,
-// and deduplication across rows (hub rows shared by many output rows).
-//
-// Plain C interface for ctypes; each entry point returns
-// cudaGetLastError() after its launch.
+// The table is f32 or bf16; the output is always f32. Plain C
+// interface for ctypes; each entry point returns cudaGetLastError()
+// after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -101,41 +101,6 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
-
-template <typename T, int VEC>
-__global__ void gather_mean_kernel(const T* __restrict__ feat,
-                                   const int32_t* __restrict__ idx,
-                                   float* __restrict__ out, int64_t n_rows,
-                                   int S, int F, float inv_s) {
-  extern __shared__ int64_t row_off[];
-  const int64_t b = blockIdx.x;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int64_t r = idx[b * S + s];
-    if (r < 0 || r >= n_rows) __trap();
-    row_off[s] = r * F;
-  }
-  __syncthreads();
-
-  const int n_vec = F / VEC;
-  float* out_row = out + b * F;
-  for (int c = threadIdx.x; c < n_vec; c += blockDim.x) {
-    const int64_t col = static_cast<int64_t>(c) * VEC;
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-#pragma unroll 5
-    for (int s = 0; s < S; ++s) {
-      const Vec<T, VEC> x =
-          *reinterpret_cast<const Vec<T, VEC>*>(feat + row_off[s] + col);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] += to_float(x.v[k]);
-    }
-    Vec<float, VEC> y;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) y.v[k] = acc[k] * inv_s;
-    *reinterpret_cast<Vec<float, VEC>*>(out_row + col) = y;
-  }
-}
 
 template <typename T, int VEC>
 __global__ void gather_mean_dropout_kernel(
@@ -200,87 +165,9 @@ __global__ void gather_mean_dropout_kernel(
   }
 }
 
-// K3. Dynamic shared memory: sample[S], mult[S] (the multiplicity at a
-// value's first occurrence, else 0), uniq[S] (the distinct samples,
-// ascending), w[S] (their multiplicity / S).
-template <typename T, int VEC>
-__global__ void gather_mean_dedup_kernel(const T* __restrict__ feat,
-                                         const int32_t* __restrict__ idx,
-                                         float* __restrict__ out,
-                                         int64_t n_rows, int S, int F) {
-  extern __shared__ int32_t dedup_smem[];
-  int32_t* sample = dedup_smem;
-  int32_t* mult = sample + S;
-  int32_t* uniq = mult + S;
-  float* w = reinterpret_cast<float*>(uniq + S);
-  const int64_t b = blockIdx.x;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int32_t r = idx[b * S + s];
-    if (r < 0 || r >= n_rows) __trap();
-    sample[s] = r;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int32_t v = sample[s];
-    int count = 0;
-    bool first = true;
-    for (int t = 0; t < S; ++t) {
-      if (sample[t] == v) {
-        ++count;
-        first = first && t >= s;
-      }
-    }
-    mult[s] = first ? count : 0;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    if (mult[s] == 0) continue;
-    const int32_t v = sample[s];
-    int rank = 0;
-    for (int t = 0; t < S; ++t) rank += (mult[t] != 0 && sample[t] < v);
-    uniq[rank] = v;
-    w[rank] = static_cast<float>(mult[s]) / static_cast<float>(S);
-  }
-  __syncthreads();
-  int n_u = 0;
-  for (int t = 0; t < S; ++t) n_u += mult[t] != 0;
-
-  const int n_vec = F / VEC;
-  float* out_row = out + b * F;
-  for (int c = threadIdx.x; c < n_vec; c += blockDim.x) {
-    const int64_t col = static_cast<int64_t>(c) * VEC;
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-    for (int u = 0; u < n_u; ++u) {
-      const float wu = w[u];
-      const Vec<T, VEC> x = *reinterpret_cast<const Vec<T, VEC>*>(
-          feat + static_cast<int64_t>(uniq[u]) * F + col);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] += wu * to_float(x.v[k]);
-    }
-    Vec<float, VEC> y;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) y.v[k] = acc[k];
-    *reinterpret_cast<Vec<float, VEC>*>(out_row + col) = y;
-  }
-}
-
 int block_threads(int work_items) {
   int threads = (work_items + 31) / 32 * 32;
   return threads > 1024 ? 1024 : threads;
-}
-
-template <typename T, int VEC>
-int launch(const void* feat, const void* idx, void* out, long long n_rows,
-           int B, int S, int F, void* stream) {
-  const size_t smem = static_cast<size_t>(S) * sizeof(int64_t);
-  gather_mean_kernel<T, VEC>
-      <<<B, block_threads(F / VEC), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
-          static_cast<float*>(out), n_rows, S, F, 1.0f / S);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
@@ -301,15 +188,137 @@ int launch_dropout(const void* feat, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- K1 and K3
+
+constexpr int kMaxThreads = 512;  // at most 128 registers a thread
+
+// VEC elements of the table at p, through the read-only data path.
 template <typename T, int VEC>
-int launch_dedup(const void* feat, const void* idx, void* out,
-                 long long n_rows, int B, int S, int F, void* stream) {
-  const size_t smem = static_cast<size_t>(S) * 4 * sizeof(int32_t);
-  gather_mean_dedup_kernel<T, VEC>
-      <<<B, block_threads(F / VEC), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
-          static_cast<float*>(out), n_rows, S, F);
+__device__ __forceinline__ Vec<T, VEC> ldg_vec(const T* p) {
+  constexpr int kBytes = sizeof(T) * VEC;
+  using Raw = std::conditional_t<
+      kBytes == 16, uint4,
+      std::conditional_t<kBytes == 8, uint2,
+                         std::conditional_t<kBytes == 4, unsigned int,
+                                            unsigned short>>>;
+  Vec<T, VEC> x;
+  *reinterpret_cast<Raw*>(&x) = __ldg(reinterpret_cast<const Raw*>(p));
+  return x;
+}
+
+// Shared memory bytes: K1 keeps the samples' row offsets; K3 the
+// distinct rows' offsets, and the samples, a flag at each first
+// occurrence, the distinct rows' weights and their count.
+template <bool DEDUP>
+size_t smem_bytes(int S) {
+  return static_cast<size_t>(S) * (DEDUP ? 20 : 8) + (DEDUP ? 4 : 0);
+}
+
+// K1 (DEDUP false) and K3 (DEDUP true): one block per output row.
+template <typename T, int VEC, bool DEDUP>
+__global__ void __launch_bounds__(kMaxThreads)
+    gather_mean_kernel(const T* __restrict__ feat,
+                       const int32_t* __restrict__ idx,
+                       float* __restrict__ out, int64_t n_rows, int S,
+                       int F) {
+  extern __shared__ int64_t row_off[];  // [S]: K1 each sample's, K3 ranked
+  int32_t* sample = reinterpret_cast<int32_t*>(row_off + S);  // K3: [S]
+  int32_t* first = sample + S;                                // K3: [S]
+  float* weight = reinterpret_cast<float*>(first + S);        // K3: [S]
+  int* n_distinct = reinterpret_cast<int*>(weight + S);       // K3
+  const int64_t b = blockIdx.x;
+
+  // 1. the row's samples (an id outside [0, N) traps)
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const int32_t r = idx[b * S + s];
+    if (r < 0 || r >= n_rows) __trap();
+    if (DEDUP) {
+      sample[s] = r;
+    } else {
+      row_off[s] = static_cast<int64_t>(r) * F;
+    }
+  }
+  if (DEDUP && threadIdx.x == 0) *n_distinct = 0;
+  __syncthreads();
+
+  int n = S;  // the rows summed
+  if constexpr (DEDUP) {
+    // 2. the distinct samples: first occurrences, then each one's
+    // ascending rank among them and its count
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const int32_t v = sample[s];
+      int dup = 0;
+      for (int j = 0; j < s; ++j) dup |= sample[j] == v;
+      first[s] = !dup;
+    }
+    __syncthreads();
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      if (!first[s]) continue;
+      const int32_t v = sample[s];
+      int rank = 0;
+      int count = 0;
+      for (int j = 0; j < S; ++j) {
+        rank += first[j] && sample[j] < v;
+        count += sample[j] == v;
+      }
+      row_off[rank] = static_cast<int64_t>(v) * F;
+      weight[rank] = static_cast<float>(count) / static_cast<float>(S);
+      atomicAdd(n_distinct, 1);
+    }
+    __syncthreads();
+    n = *n_distinct;
+  }
+
+  // 3. K1: every sample in order, then 1/S; K3: each distinct row once,
+  // in ascending order, with its weight
+  float* out_row = out + b * F;
+  for (int c = threadIdx.x; c < F / VEC; c += blockDim.x) {
+    const int col = c * VEC;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    if constexpr (DEDUP) {
+#pragma unroll 4
+      for (int u = 0; u < n; ++u) {
+        const Vec<T, VEC> x = ldg_vec<T, VEC>(feat + row_off[u] + col);
+        const float w = weight[u];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          acc[e] = fmaf(w, to_float(x.v[e]), acc[e]);
+        }
+      }
+    } else {
+#pragma unroll 5
+      for (int u = 0; u < n; ++u) {
+        const Vec<T, VEC> x = ldg_vec<T, VEC>(feat + row_off[u] + col);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += to_float(x.v[e]);
+      }
+    }
+    const float scale = DEDUP ? 1.f : 1.f / static_cast<float>(S);
+    Vec<float, VEC> y;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) y.v[e] = acc[e] * scale;
+    *reinterpret_cast<Vec<float, VEC>*>(out_row + col) = y;
+  }
+}
+
+template <typename T, int VEC, bool DEDUP>
+int launch(const void* feat, const void* idx, void* out, long long n_rows,
+           int B, int S, int F, void* stream) {
+  auto kernel = gather_mean_kernel<T, VEC, DEDUP>;
+  const size_t smem = smem_bytes<DEDUP>(S);
+  if (smem > 48 * 1024) {  // K3 beyond S = 2457 opts in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int threads = block_threads(F / VEC);
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
+      static_cast<float*>(out), n_rows, S, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,36 +326,58 @@ int launch_dedup(const void* feat, const void* idx, void* out,
 
 extern "C" {
 
-// vec: elements per load, 1, 2 or 4 (f32) and also 8 (bf16).
-int graphsage_gather_mean_f32(const void* feat, const void* idx, void* out,
-                              long long n_rows, int B, int S, int F, int vec,
-                              void* stream) {
+// K1 (graphsage_gather_mean_*) and K3 (graphsage_gather_mean_dedup_*).
+// vec: elements per load, 1, 2 or 4 (f32) and also 8 (bf16). K1 takes S
+// up to 6144, K3 up to 3072 (8 and 20 shared bytes a sample).
+#define GRAPHSAGE_MEAN_PARAMS                                             \
+  const void *feat, const void *idx, void *out, long long n_rows, int B,  \
+      int S, int F, int vec, void *stream
+#define GRAPHSAGE_MEAN_ARGS feat, idx, out, n_rows, B, S, F, stream
+
+int graphsage_gather_mean_f32(GRAPHSAGE_MEAN_PARAMS) {
   switch (vec) {
-    case 1: return launch<float, 1>(feat, idx, out, n_rows, B, S, F, stream);
-    case 2: return launch<float, 2>(feat, idx, out, n_rows, B, S, F, stream);
-    case 4: return launch<float, 4>(feat, idx, out, n_rows, B, S, F, stream);
+    case 1: return launch<float, 1, false>(GRAPHSAGE_MEAN_ARGS);
+    case 2: return launch<float, 2, false>(GRAPHSAGE_MEAN_ARGS);
+    case 4: return launch<float, 4, false>(GRAPHSAGE_MEAN_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int graphsage_gather_mean_bf16(const void* feat, const void* idx, void* out,
-                               long long n_rows, int B, int S, int F, int vec,
-                               void* stream) {
+int graphsage_gather_mean_bf16(GRAPHSAGE_MEAN_PARAMS) {
   switch (vec) {
-    case 1:
-      return launch<__nv_bfloat16, 1>(feat, idx, out, n_rows, B, S, F, stream);
-    case 2:
-      return launch<__nv_bfloat16, 2>(feat, idx, out, n_rows, B, S, F, stream);
-    case 4:
-      return launch<__nv_bfloat16, 4>(feat, idx, out, n_rows, B, S, F, stream);
-    case 8:
-      return launch<__nv_bfloat16, 8>(feat, idx, out, n_rows, B, S, F, stream);
+    case 1: return launch<__nv_bfloat16, 1, false>(GRAPHSAGE_MEAN_ARGS);
+    case 2: return launch<__nv_bfloat16, 2, false>(GRAPHSAGE_MEAN_ARGS);
+    case 4: return launch<__nv_bfloat16, 4, false>(GRAPHSAGE_MEAN_ARGS);
+    case 8: return launch<__nv_bfloat16, 8, false>(GRAPHSAGE_MEAN_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K2: as above, plus the generator's seed, the (step, tag) counter
-// words, the keep threshold and the 1/keep scale.
+int graphsage_gather_mean_dedup_f32(GRAPHSAGE_MEAN_PARAMS) {
+  switch (vec) {
+    case 1: return launch<float, 1, true>(GRAPHSAGE_MEAN_ARGS);
+    case 2: return launch<float, 2, true>(GRAPHSAGE_MEAN_ARGS);
+    case 4: return launch<float, 4, true>(GRAPHSAGE_MEAN_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int graphsage_gather_mean_dedup_bf16(GRAPHSAGE_MEAN_PARAMS) {
+  switch (vec) {
+    case 1: return launch<__nv_bfloat16, 1, true>(GRAPHSAGE_MEAN_ARGS);
+    case 2: return launch<__nv_bfloat16, 2, true>(GRAPHSAGE_MEAN_ARGS);
+    case 4: return launch<__nv_bfloat16, 4, true>(GRAPHSAGE_MEAN_ARGS);
+    case 8: return launch<__nv_bfloat16, 8, true>(GRAPHSAGE_MEAN_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef GRAPHSAGE_MEAN_ARGS
+#undef GRAPHSAGE_MEAN_PARAMS
+
+// K2: feat, idx, out, n_rows, B, S, F and vec as above, plus the
+// generator's seed, the (step, tag) counter words, the keep threshold
+// and the 1/keep scale.
 #define GRAPHSAGE_DROPOUT_ARGS                                              \
   feat, idx, out, n_rows, B, S, F, seed, step, tag, threshold, scale, stream
 
@@ -376,41 +407,6 @@ int graphsage_gather_mean_dropout_bf16(
 }
 
 #undef GRAPHSAGE_DROPOUT_ARGS
-
-// K3: K1's arguments; S at most 3072 (four shared 4-byte words a sample).
-int graphsage_gather_mean_dedup_f32(const void* feat, const void* idx,
-                                    void* out, long long n_rows, int B,
-                                    int S, int F, int vec, void* stream) {
-  switch (vec) {
-    case 1:
-      return launch_dedup<float, 1>(feat, idx, out, n_rows, B, S, F, stream);
-    case 2:
-      return launch_dedup<float, 2>(feat, idx, out, n_rows, B, S, F, stream);
-    case 4:
-      return launch_dedup<float, 4>(feat, idx, out, n_rows, B, S, F, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int graphsage_gather_mean_dedup_bf16(const void* feat, const void* idx,
-                                     void* out, long long n_rows, int B,
-                                     int S, int F, int vec, void* stream) {
-  switch (vec) {
-    case 1:
-      return launch_dedup<__nv_bfloat16, 1>(feat, idx, out, n_rows, B, S, F,
-                                            stream);
-    case 2:
-      return launch_dedup<__nv_bfloat16, 2>(feat, idx, out, n_rows, B, S, F,
-                                            stream);
-    case 4:
-      return launch_dedup<__nv_bfloat16, 4>(feat, idx, out, n_rows, B, S, F,
-                                            stream);
-    case 8:
-      return launch_dedup<__nv_bfloat16, 8>(feat, idx, out, n_rows, B, S, F,
-                                            stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 const char* graphsage_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

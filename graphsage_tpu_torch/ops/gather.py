@@ -48,8 +48,9 @@ _VARIANTS = {
 # K1/K2 keep one output row's S row offsets in shared memory (8 bytes
 # each) within the 48 KB a block gets without opting in
 MAX_SAMPLES = 6144
-# K3 keeps four 4-byte words per sample there (the samples, their
-# multiplicities, the distinct samples and their weights)
+# K3 keeps 20 bytes a sample there (the samples, first-occurrence flags,
+# the distinct rows' offsets and weights): 60 KB at this limit, which
+# the launch opts into
 MAX_DEDUP_SAMPLES = 3072
 
 

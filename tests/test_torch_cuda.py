@@ -19,6 +19,7 @@ import torch
 
 from graphsage_tpu_torch.ops.gather import (
     MAX_DEDUP_SAMPLES,
+    MAX_SAMPLES,
     fused_gather_mean,
     fused_gather_rows,
     gather_mean_dedup_reference,
@@ -53,7 +54,8 @@ pytestmark = pytest.mark.cuda
 
 TOLERANCES = {  # kernel vs plain version, both accumulating in f32
     torch.float32: dict(rtol=1e-5, atol=1e-6),
-    torch.bfloat16: dict(rtol=2e-2, atol=1e-6),
+    # the same bf16-exact values, summed in f32 in the same order
+    torch.bfloat16: dict(rtol=0, atol=1e-5),
 }
 
 
@@ -67,7 +69,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,F", [
     (1, 1, 1), (1, 1, 3), (4, 3, 602), (9, 25, 640), (33, 10, 17),
-    (2, 7, 1032), (300, 25, 602),
+    (2, 7, 1032), (300, 25, 602), (2, MAX_SAMPLES, 33),
 ])
 def test_kernel_matches_plain(cuda, dtype, B, S, F):
     gen = torch.Generator(device=cuda).manual_seed(B * 1000 + S * 10 + F)
@@ -203,6 +205,121 @@ def test_dedup_with_dropout_launches_k2(cuda):
     assert torch.equal(a, b)
     assert (fused_gather_mean.dropout_launches,
             fused_gather_mean.dedup_launches) == (k2 + 2, k3)
+
+
+# ------------------------------------------------- K1 and K3 at their edges
+
+def _hop_like_idx(rng, n, batch=64, fanouts=(10, 25), degree=32):
+    """[batch * 10, 25] ids as the sampler's shared_perm draws the
+    innermost hop over a zipf adjacency: hubs in most rows, and a hop
+    node drawn k times gives k identical rows, spread over the idx."""
+    p = np.arange(1, n + 1, dtype=np.float64) ** -1.05
+    adj = rng.choice(n, (n, degree), p=p / p.sum())
+    hop = adj[rng.choice(n, batch, replace=False)]
+    hop = hop[:, rng.permutation(degree)[:fanouts[0]]]
+    return adj[hop.reshape(-1)][:, rng.permutation(degree)[:fanouts[1]]]
+
+
+def _edge_idx(cuda, kind, B, S, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "hop":
+        ids = _hop_like_idx(rng, n)
+    elif kind == "equal":        # one distinct sample per row
+        ids = np.repeat(rng.integers(0, n, (B, 1)), S, axis=1)
+    elif kind == "distinct":     # no repeats within a row
+        ids = np.stack([rng.permutation(n)[:S] for _ in range(B)])
+    elif kind == "repeated":     # 7 rows, each repeated down the idx
+        ids = rng.integers(0, n, (7, S))[np.arange(B) % 7]
+    else:
+        ids = rng.integers(0, n, (B, S))
+    return torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int32)).to(
+        cuda)
+
+
+EDGE_CASES = [  # B, S, F, kind; B not a multiple of 32
+    (33, 1, 602, "random"), (47, 31, 602, "random"), (40, 32, 640, "random"),
+    (40, 33, 17, "random"), (65, 25, 1, "random"), (70, 25, 17, "repeated"),
+    (64, 25, 602, "equal"), (64, 25, 640, "distinct"), (640, 25, 602, "hop"),
+    (3, MAX_DEDUP_SAMPLES, 33, "random"),
+]
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,F,kind", EDGE_CASES)
+def test_k1_k3_match_plain_at_edges(cuda, dedup, dtype, B, S, F, kind):
+    """K1 and K3 at their edges against their plain versions: both sum
+    the same f32 (or bf16-exact) values in f32."""
+    n = 4000
+    gen = torch.Generator(device=cuda).manual_seed(F + S)
+    table = torch.randn(n, F, generator=gen, device=cuda).to(dtype)
+    idx = _edge_idx(cuda, kind, B, S, n, seed=B * S)
+    counter = "dedup_launches" if dedup else "launches"
+    before = getattr(fused_gather_mean, counter)
+    out = fused_gather_mean(table, idx, dedup=dedup)
+    torch.cuda.synchronize()
+    assert getattr(fused_gather_mean, counter) == before + 1
+    plain = gather_mean_dedup_reference if dedup else gather_mean_reference
+    torch.testing.assert_close(out, plain(table, idx), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k3_unaligned_table(cuda, dedup, dtype):
+    """A table one element off a whole load takes one-element loads and
+    gives its plain version's result, as the aligned table does."""
+    base = torch.randn(301 * 602 + 2, device=cuda).to(dtype)
+    idx = _edge_idx(cuda, "hop", 0, 0, 300, seed=5)
+    plain = gather_mean_dedup_reference if dedup else gather_mean_reference
+    for table in (base[1:-1].view(301, 602), base[:-2].view(301, 602)):
+        torch.testing.assert_close(fused_gather_mean(table, idx, dedup=dedup),
+                                   plain(table, idx), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k3_repeat_bit_for_bit(cuda, dedup, dtype):
+    """No float atomics: each output element is summed in one fixed
+    order."""
+    table = torch.randn(3000, 602, device=cuda).to(dtype)
+    idx = _edge_idx(cuda, "hop", 0, 0, 3000, seed=7)
+    first = fused_gather_mean(table, idx, dedup=dedup)
+    for _ in range(3):
+        assert torch.equal(first, fused_gather_mean(table, idx, dedup=dedup))
+
+
+def test_k3_matches_k1_on_hop_like_idx(cuda):
+    table = torch.randn(3000, 602, device=cuda)
+    idx = _edge_idx(cuda, "hop", 0, 0, 3000, seed=8)
+    torch.testing.assert_close(fused_gather_mean(table, idx, dedup=True),
+                               fused_gather_mean(table, idx), rtol=0,
+                               atol=1e-5)
+
+
+EDGE_TRAP = """
+import torch
+from graphsage_tpu_torch.ops.gather import fused_gather_mean
+dev = torch.device("cuda")
+table = torch.zeros(11, 602, device=dev)
+idx = torch.full((64, 25), 2, dtype=torch.int32, device=dev)
+idx[37, 3] = {bad}
+fused_gather_mean(table, idx, dedup={dedup})
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("bad", [11, -1])
+def test_k1_k3_out_of_range_id_traps(cuda, dedup, bad):
+    """An id outside [0, N) stops the kernel (in a process of its own:
+    a trap ends the CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", EDGE_TRAP.format(bad=bad, dedup=dedup)],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode != 0 and "NO TRAP" not in proc.stdout
 
 
 # ------------------------------------------------------------------ K4
