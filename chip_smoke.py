@@ -35,7 +35,10 @@ Phases; any failure exits non-zero without the final ok line:
      counts @ bf16 hot block, K7c's 2xTF32 counts @ hot rows with the
      cold ring), at the probe's shape (N 100k, F 640, B 1024, S 25),
      zipf and uniform ids, K 1024 and 4096, timed beside K1,
-     index_select + mean and embedding_bag
+     index_select + mean and embedding_bag. K1 and K3 also at the
+     unsupervised model's hop, idx [10440, 25] from the sampler over
+     the three towers' ids (2 x 512 pairs' ends and 20 negatives), K2
+     there too (rate 0.5, masks identical)
   4. serving at full width, bench.py's model: 100k nodes, 602 features,
      41 classes, fanouts 25/10, dims 128/128, batch 512, zipf(1.05)
      adjacency, seeded random weights. The eval sweep answers every node
@@ -55,16 +58,39 @@ Phases; any failure exits non-zero without the final ok line:
      synchronisations per step, and a profile of a few steps; and
      GraphSAGE-seq with rows_gather, dropout 0 (agg_sweep.py's "seq"),
      K4 once per step, in shorter chunks
+     Unsupervised GraphSAGE-mean at the same width
+     (benchmarks/agg_sweep.py's "unsup_mean": 20 negatives from a
+     uniform CDF over the N+1 ids, uniform pairs from numpy seed 5,
+     Adam at lr 1e-5, dropout 0): three timed chunks of 50 steps
+     (ms/step, edges/s over the three towers), K1 once per step, the
+     loss finite and the train MRR and its EMA in (0, 1] at every chunk
+     end, no host synchronisation in a chunk, a profile of 5 steps. The
+     embed sweep (bench.py's and benchmarks/serving_bench.py's
+     workload): every node's l2-normalised embedding, 196 batches of
+     512, K1 once per batch, within 1e-5 of the sweep without the
+     kernel, unit rows; requests one at a time, a profile of 20 batches.
+     The slice's other routes, 4 launches each: K2 (mean) and K6
+     (meanpool) in unsupervised training at dropout 0.5, after one step
+     through each is held to the plain path with the same drop key
+     (loss and gradients), K5 in the meanpool embed sweep (against the
+     sweep without it)
   6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
      the plain gather): equal gradients and params after a few steps
-     from the same state
+     from the same state; the same for unsupervised training (K1, K6)
+     with the same pairs and negatives, mean's params held per element
+     where Adam's sqrt(v) stays above 1e3 eps, the worst element's
+     gradient and sqrt(v) logged
   7. the CLI on the card against the CPU, the card-side processes
      started together: ``python -m graphsage_tpu_torch predict`` (and
      with ``--dedup_gather``) on a small synthetic dataset from a port
      checkpoint, and ``supervised`` (graphsage_mean, graphsage_meanpool,
      graphsage_seq with --rows_gather) with first_k sampling and dropout
      0: the predictions, every logged train loss and the final val loss
-     agree
+     agree. ``walks`` writes the walk pairs (on the host), then
+     ``unsupervised`` (graphsage_mean, graphsage_meanpool) trains on
+     them with first_k sampling and dropout 0: every logged loss, MRR
+     and EMA agrees with the CPU's, val.npy within 1e-4, and ``embed``
+     from the card run's checkpoint reproduces its val.npy bit for bit
   8. the probe's entry point (python -m
      graphsage_tpu_torch.benchmarks.gather_probe), zipf ids, short
      trials: it exits 0 and launches every K7 instance and K1 and
@@ -123,6 +149,13 @@ EDGES_PER_STEP = BATCH * (FANOUTS[1] + FANOUTS[1] * FANOUTS[0])  # 133120
 TRAIN_CHUNK = 50                       # steps per timed chunk
 SEQ_TRAIN_CHUNK = 10      # the seq cell's chunks: ~10x the device work
 CLI_TOL = 1e-4                         # card vs CPU training losses
+NEG_SAMPLES = 20                       # agg_sweep.py's "unsup_mean"
+UNSUP_LR = 1e-5
+ADAM_FLOOR = 1e3          # x eps: sqrt(v) above it, Adam keeps dg small
+UNSUP_HOP_ROWS = (2 * BATCH + NEG_SAMPLES) * FANOUTS[1]    # 10440
+# three towers' roots, each expanded S2 + S2*S1 (agg_sweep.py:263-265)
+UNSUP_EDGES_PER_STEP = (2 * BATCH + NEG_SAMPLES) * (
+    FANOUTS[1] + FANOUTS[1] * FANOUTS[0])                  # 271440
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -679,6 +712,93 @@ def check_gather_mean_dedup(dev, card_line: str, data) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
+
+
+def unsup_hop_idx_sets(dev, data, n_sets: int, seed: int) -> list:
+    """``n_sets`` innermost-hop idx [10440, 25] of the unsupervised
+    model: the three towers' ids (512 uniform pairs' two ends, then 20
+    uniform negatives) through the sampler (``shared_perm``) over the
+    zipf adjacency, as a training step draws them."""
+    import torch
+
+    from graphsage_tpu_torch.models.graphsage import sample_frontier
+
+    _, adj, _ = data
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_sets):
+        ids = torch.from_numpy(np.concatenate([
+            rng.integers(0, NUM_NODES, 2 * BATCH),
+            rng.integers(0, NUM_NODES + 1, NEG_SAMPLES)]).astype(np.int32)
+        ).to(dev)
+        samples = sample_frontier(gen, adj, ids, FANOUTS, mode="shared_perm")
+        out.append(samples[-1].reshape(UNSUP_HOP_ROWS, FANOUTS[0])
+                   .contiguous())
+    return out
+
+
+def check_unsup_hop(dev, card_line: str, data) -> dict:
+    """K1, K3 and K2 (rate 0.5: the masks identical too) at the
+    unsupervised model's hop against their plain versions (f32 table),
+    and K1's and K3's times beside the bound; returns K1's time and
+    bound there."""
+    import torch
+
+    from graphsage_tpu_torch.models.graphsage import KERNEL_DROP_TAG
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_mean,
+        gather_mean_dedup_reference,
+        gather_mean_dropout_reference,
+        gather_mean_reference,
+    )
+
+    features = data[0]
+    idx_sets = unsup_hop_idx_sets(dev, data, 8, seed=30)
+    err = {}
+    for dedup, ref in ((False, gather_mean_reference),
+                       (True, gather_mean_dedup_reference)):
+        for idx in idx_sets[:2]:
+            out = fused_gather_mean(features, idx, dedup=dedup)
+            check(bool(torch.isfinite(out).all()), "unsup hop: bad output")
+            err[dedup] = max(err.get(dedup, 0.0), float(
+                (out - ref(features, idx)).abs().max()))
+    key = dict(seed=0x0123456789ABCDEF, offset=(17, KERNEL_DROP_TAG))
+    idx = idx_sets[0]
+    err["K2"] = float((fused_gather_mean(features, idx, DROPOUT, **key)
+                       - gather_mean_dropout_reference(
+                           features, idx, DROPOUT, **key)).abs().max())
+    # the mask itself: one sample per row, the same elements
+    flat = idx.reshape(-1, 1)
+    n_diff = int(((fused_gather_mean(features, flat, DROPOUT, **key) == 0)
+                  != (gather_mean_dropout_reference(
+                      features, flat, DROPOUT, **key) == 0)).sum())
+    check(n_diff == 0, f"K2 at the unsupervised hop: {n_diff} mask "
+          f"elements differ")
+    torch.cuda.synchronize()
+    check(max(err.values()) <= F32_TOL,
+          f"K1/K3/K2 at the unsupervised hop: error {err} > {F32_TOL}")
+    ms = cuda_ms(cycling(lambda idx: fused_gather_mean(features, idx),
+                         idx_sets))
+    k3_ms = cuda_ms(cycling(
+        lambda idx: fused_gather_mean(features, idx, dedup=True), idx_sets))
+    plain_ms = cuda_ms(cycling(
+        lambda idx: gather_mean_reference(features, idx), idx_sets))
+    bytes_ms = float(np.mean([gather_bytes_ms(idx) for idx in idx_sets]))
+    ops_ms = (UNSUP_HOP_ROWS * (FANOUTS[0] + 1) * FEAT_DIM / F32_OPS_PER_S
+              * 1e3)
+    bound_ms = max(bytes_ms, ops_ms)
+    distinct = np.mean([int(idx.unique().numel()) for idx in idx_sets])
+    log(f"K1 at the unsupervised hop, idx [{UNSUP_HOP_ROWS},{FANOUTS[0]}] "
+        f"into [{NUM_NODES + 1},{FEAT_DIM}] f32: kernel {ms:.4f} ms, K3 "
+        f"{k3_ms:.4f} ms, plain {plain_ms:.4f} ms; {distinct:.0f} distinct "
+        f"rows per launch; bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, "
+        f"ops {ops_ms:.4f}); bound share K1 {bound_ms / ms:.3f}, K3 "
+        f"{bound_ms / k3_ms:.3f}; max abs err K1 {err[False]:.3e}, K3 "
+        f"{err[True]:.3e}, K2 at rate {DROPOUT} {err['K2']:.3e} (limit "
+        f"{F32_TOL}), K2's mask identical ({flat.numel() * FEAT_DIM} "
+        f"elements); on {card_line}")
+    return {"ms": ms, "bound_ms": bound_ms}
 
 
 def check_gather_rows(dev, card_line: str, data) -> dict:
@@ -1560,9 +1680,6 @@ def train_full_width(dev, data, label: str, config, kernel: str,
     runner: ``chunks`` timed chunks of ``chunk_steps`` steps; returns the
     launch count of ``kernel``, which must be one per step with no other
     kernel, over the timed chunks."""
-    import traceback
-    import warnings
-
     import torch
 
     from graphsage_tpu_torch.models.supervised import (
@@ -1623,8 +1740,20 @@ def train_full_width(dev, data, label: str, config, kernel: str,
             f"{lv:.5f}")
     log(f"{label} training: launches {counts} in {n_steps} steps; "
         f"{EDGES_PER_STEP} edges per step; losses {losses}")
+    count_syncs(label, lambda: chunk(n_sync), n_sync)
+    profile_window(lambda: chunk(n_profile),
+                   f"{label}, {n_profile} training steps")
+    return counts[kernel]
 
-    # host synchronisations inside a chunk, with the stack of each
+
+def count_syncs(label: str, run, n_steps: int) -> float:
+    """Host synchronisations in ``run()`` (``n_steps`` training steps),
+    logged with the stack of each; returns them per step."""
+    import traceback
+    import warnings
+
+    import torch
+
     stacks, notices = [], []
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -1645,21 +1774,323 @@ def train_full_width(dev, data, label: str, config, kernel: str,
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            chunk(n_sync)
+            run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     where = {}
     for st in stacks:
         where[st] = where.get(st, 0) + 1
-    log(f"{label} sync debug mode over {n_sync} steps: {len(stacks)} "
+    log(f"{label} sync debug mode over {n_steps} steps: {len(stacks)} "
         f"synchronising "
-        f"calls, {len(stacks) / n_sync:.2f} per step"
+        f"calls, {len(stacks) / n_steps:.2f} per step"
         + "".join(f"\n  {n}x {st}" for st, n in sorted(where.items()))
         + "".join(f"\n  not counted: {m}" for m in notices))
+    return len(stacks) / n_steps
 
+
+def unsup_config(fused: bool, aggregator: str = "mean"):
+    """agg_sweep.py's "unsup_mean" (or ``aggregator`` at its width):
+    bench.py's model without the head, 20 negatives, dropout 0."""
+    from graphsage_tpu_torch.models.unsupervised import UnsupervisedConfig
+
+    return UnsupervisedConfig(
+        sage=bench_config(fused, aggregator=aggregator).sage)
+
+
+def unsup_stream(dev, n_steps: int, seed: int):
+    """agg_sweep.py's unsupervised inputs for ``n_steps`` steps: uniform
+    pairs [n_steps*512, 2] over the N nodes from numpy ``seed``, and each
+    step's 20 negatives drawn from the same generator's uniforms against
+    the unigram^0.75 CDF of agg_sweep's degrees (all 128, over the N+1
+    ids: the dummy has a share), mapped on the card."""
+    import torch
+
+    from graphsage_tpu_torch.nn.negative import (
+        negatives_from_uniforms,
+        unigram_cdf,
+    )
+
+    rng = np.random.default_rng(seed)
+    pairs = rng.integers(0, NUM_NODES, (n_steps * BATCH, 2), dtype=np.int32)
+    u = rng.random((n_steps, NEG_SAMPLES), dtype=np.float32)
+    cdf = torch.from_numpy(unigram_cdf(np.full(NUM_NODES + 1, MAX_DEGREE)))
+    return (torch.from_numpy(pairs).to(dev),
+            negatives_from_uniforms(cdf.to(dev), torch.from_numpy(u).to(dev)))
+
+
+def train_unsupervised(dev, data, chunks: int = 3,
+                       chunk_steps: int = TRAIN_CHUNK, n_sync: int = 10,
+                       n_profile: int = 5) -> int:
+    """agg_sweep.py's "unsup_mean" through the unsupervised chunk runner:
+    ``chunks`` timed chunks of ``chunk_steps`` steps, each ended by
+    reading the loss, the train MRR and its EMA; returns K1's launches
+    over the timed chunks, which must be one per step with no other
+    kernel. No host synchronisation may fall inside a chunk."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.parallel.dp import (
+        make_unsupervised_chunk_runner,
+    )
+
+    features, adj, _ = data
+    config = unsup_config(True)
+    params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                      config, device=dev)
+    optimizer = make_optimizer(UNSUP_LR)
+    opt_state = optimizer.init(params)
+    run = make_unsupervised_chunk_runner(config, optimizer, BATCH)
+    pairs, negs = unsup_stream(
+        dev, 5 + chunks * chunk_steps + n_sync + n_profile, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shadow = torch.full((), -1.0, device=dev)
+    step = 0
+
+    def chunk(n):
+        nonlocal params, opt_state, shadow, step
+        params, opt_state, shadow, loss, mrr = run(
+            params, opt_state, shadow, gen, features, adj, pairs, negs,
+            step, n)
+        step += n
+        return loss, mrr
+
+    loss, _ = chunk(5)                       # warm-up
+    check(np.isfinite(float(loss)), "non-finite loss in warm-up")
+
+    reset_counts()
+    times, reads = [], []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mrr = chunk(chunk_steps)
+        reads.append(torch.stack([loss, mrr, shadow]).tolist())  # print
+        times.append(time.perf_counter() - t0)
+        lv, mv, sv = reads[-1]
+        check(np.isfinite(lv), f"unsupervised: non-finite loss {lv}")
+        check(0.0 < mv <= 1.0 and 0.0 < sv <= 1.0,
+              f"unsupervised: train MRR {mv} or its EMA {sv} not in (0, 1]")
+    counts = launch_counts()
+    n_steps = chunks * chunk_steps
+    check_counts(counts, "K1", n_steps, "unsupervised training")
+    for i, (dt, (lv, mv, sv)) in enumerate(zip(times, reads)):
+        log(f"unsupervised mean train chunk {i + 1}: {chunk_steps} steps in "
+            f"{dt * 1e3:.2f} ms, {dt / chunk_steps * 1e3:.4f} ms/step, "
+            f"{UNSUP_EDGES_PER_STEP * chunk_steps / dt:.1f} edges/s; loss "
+            f"{lv:.5f}, train MRR {mv:.5f}, EMA {sv:.5f}")
+    log(f"unsupervised mean training: launches {counts} in {n_steps} steps; "
+        f"{UNSUP_EDGES_PER_STEP} edges per step")
+    syncs = count_syncs("unsupervised mean", lambda: chunk(n_sync), n_sync)
+    check(syncs == 0, f"unsupervised training: {syncs} host "
+          f"synchronisations per step")
     profile_window(lambda: chunk(n_profile),
-                   f"{label}, {n_profile} training steps")
-    return counts[kernel]
+                   f"unsupervised mean, {n_profile} training steps")
+    return counts["K1"]
+
+
+def embed_full_width(dev, data, repeats: int = 2) -> int:
+    """The embed sweep over all 100k nodes (weights from seed 0), as the
+    trainer's export and ``embed`` run it; returns K1's launches in it,
+    which must be one per batch with no other kernel. The rows are
+    finite, of unit norm and within 1e-5 of the sweep without the
+    kernel (the same samples); then ``repeats`` more sweeps, every
+    request one at a time with its rows back on the host, and a profile
+    of 20 batches."""
+    import torch
+
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.train.unsupervised import (
+        embed_all_nodes,
+        make_embed_sweep,
+    )
+
+    features, adj, _ = data
+    config = unsup_config(True)
+    params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                      config, device=dev)
+    n_b = -(-NUM_NODES // BATCH)
+    ids_all = np.full((n_b * BATCH,), NUM_NODES, dtype=np.int32)
+    ids_all[:NUM_NODES] = np.arange(NUM_NODES)
+    ids_dev = torch.from_numpy(ids_all).to(dev)
+    sweep = make_embed_sweep(config, BATCH)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sweep(params, features, adj, ids_dev[:2 * BATCH], gen)      # warm-up
+
+    def export(cfg):
+        t0 = time.perf_counter()
+        rows = embed_all_nodes(cfg, BATCH, params, features, adj, seed=1)
+        return rows, time.perf_counter() - t0
+
+    reset_counts()
+    rows, dt = export(config)
+    counts = launch_counts()
+    log(f"embed sweep: {NUM_NODES} nodes in {n_b} batches of {BATCH}, rows "
+        f"on the host: {dt * 1e3:.2f} ms, {NUM_NODES / dt:.1f} nodes/s; "
+        f"kernel launches {counts}")
+    check_counts(counts, "K1", n_b, "embed sweep")
+    check(rows.shape == (NUM_NODES, config.sage.output_dim),
+          f"embed rows shape {rows.shape}")
+    check(bool(np.isfinite(rows).all()), "non-finite embeddings")
+    norm_err = float(np.abs(np.linalg.norm(rows, axis=1) - 1.0).max())
+    plain, plain_dt = export(unsup_config(False))
+    diff = float(np.abs(rows - plain).max())
+    log(f"embed sweep: rows' norm within {norm_err:.3e} of 1 (limit 1e-5); "
+        f"with vs without K1, all {NUM_NODES} nodes: max abs diff "
+        f"{diff:.3e} (limit 1e-5); the sweep without K1 {plain_dt * 1e3:.2f} "
+        f"ms")
+    check(norm_err <= 1e-5, f"embedding norms off 1 by {norm_err}")
+    check(diff <= 1e-5, f"embed sweep with and without K1 differ by {diff}")
+    for rep in range(repeats):
+        _, dt_rep = export(config)
+        log(f"embed sweep repeat {rep + 1}: {dt_rep * 1e3:.2f} ms, "
+            f"{NUM_NODES / dt_rep:.1f} nodes/s")
+    lat = []
+    for i in range(n_b):
+        t1 = time.perf_counter()
+        sweep(params, features, adj, ids_dev[i * BATCH:(i + 1) * BATCH],
+              gen).cpu()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    log(f"embed per request of {BATCH} nodes ({len(lat)} requests): p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} "
+        f"ms, max {max(lat):.3f} ms")
+    profile_window(lambda: sweep(params, features, adj, ids_dev[:20 * BATCH],
+                                 gen), "embed sweep of 20 batches")
+    return counts["K1"]
+
+
+@contextlib.contextmanager
+def plain_hop():
+    """The model's fused innermost hop through the kernels' plain
+    versions: the same Philox masks and the same generator draws, so a
+    training step through K2 or K6 can be held to it."""
+    from graphsage_tpu_torch.models import graphsage
+    from graphsage_tpu_torch.ops.gather import (
+        gather_mean_dropout_reference,
+        gather_mean_reference,
+    )
+    from graphsage_tpu_torch.ops.pool import gathered_rows_reference, pool_rows
+
+    def mean(features, idx, drop_rate=0.0, seed=None, offset=None,
+             dedup=False):
+        if drop_rate > 0.0:
+            return gather_mean_dropout_reference(features, idx, drop_rate,
+                                                 seed, offset)
+        return gather_mean_reference(features, idx)
+
+    def mlp_pool(features, idx, w, b, reduce="max", drop_rate=0.0,
+                 seed=None, offset=None):
+        return pool_rows(gathered_rows_reference(features, idx, drop_rate,
+                                                 seed, offset),
+                         w, b, reduce, idx.shape[1])
+
+    saved = graphsage.fused_gather_mean, graphsage.gather_mlp_pool_train
+    graphsage.fused_gather_mean, graphsage.gather_mlp_pool_train = (
+        mean, mlp_pool)
+    try:
+        yield
+    finally:
+        graphsage.fused_gather_mean, graphsage.gather_mlp_pool_train = saved
+
+
+def unsup_other_routes(dev, data, n: int = 4) -> dict:
+    """The slice's other kernel routes, ``n`` launches each, counted from
+    0: unsupervised training with dropout 0.5 at lr 1e-5 through K2
+    (mean) and K6 (meanpool), the loss finite, after one step through
+    each held to the plain path with the same drop key (``plain_hop``):
+    the loss within 1e-5, the gradients within GRAD_TOL; and ``n``
+    batches of the meanpool embed sweep through K5, within POOL_TOL of
+    the sweep without it (the same samples). Returns the launches by
+    kernel."""
+    import dataclasses
+
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.parallel.dp import (
+        make_unsupervised_chunk_runner,
+    )
+    from graphsage_tpu_torch.train.unsupervised import make_embed_sweep
+
+    features, adj, _ = data
+    pairs, negs = unsup_stream(dev, n, seed=7)
+    out = {}
+    for aggregator, kernel in (("mean", "K2"), ("meanpool", "K6")):
+        config = unsup_config(True, aggregator)
+        config = dataclasses.replace(config, sage=dataclasses.replace(
+            config.sage, dropout=DROPOUT))
+
+        def train(n_steps, hop):
+            """(last loss, its clipped gradients, launches) of
+            ``n_steps`` from seeded weights, with ``hop`` entered."""
+            params = init_unsupervised_params(
+                torch.Generator().manual_seed(0), config, device=dev)
+            optimizer = make_optimizer(UNSUP_LR)
+            run = make_unsupervised_chunk_runner(config, optimizer, BATCH)
+            reset_counts()
+            with hop:
+                _, _, _, loss, _ = run(
+                    params, optimizer.init(params),
+                    torch.full((), -1.0, device=dev),
+                    torch.Generator(device=dev).manual_seed(3), features,
+                    adj, pairs, negs, 0, n_steps, drop_seed=11)
+            return (float(loss), {k: p.grad.clone()
+                                  for k, p in params.items()},
+                    launch_counts())
+
+        what = f"unsupervised {aggregator} training, dropout {DROPOUT}"
+        loss_k, grads_k, counts_k = train(1, contextlib.nullcontext())
+        loss_p, grads_p, counts_p = train(1, plain_hop())
+        check_counts(counts_k, kernel, 1, f"{what}, one step")
+        check_counts(counts_p, kernel, 0, f"{what}, one plain step")
+        l_diff = abs(loss_k - loss_p)
+        g_diff = max(float((grads_k[k] - grads_p[k]).abs().max())
+                     for k in grads_k)
+        # the worst element's share of assert_close's allowance
+        share, name = max(
+            (float(((grads_k[k] - grads_p[k]).abs()
+                    / (GRAD_TOL["atol"]
+                       + GRAD_TOL["rtol"] * grads_p[k].abs())).max()), k)
+            for k in grads_k)
+        log(f"{what}, one step through {kernel} vs the plain path with the "
+            f"same drop key: loss {loss_k:.6f}, diff {l_diff:.3e} (limit "
+            f"1e-5); gradients max abs diff {g_diff:.3e}, worst share of "
+            f"the allowance atol + rtol |g| {share:.3f} (in {name}; rtol "
+            f"{GRAD_TOL['rtol']}, atol {GRAD_TOL['atol']})")
+        check(l_diff <= 1e-5, f"{what}: losses differ by {l_diff}")
+        for k in grads_k:
+            torch.testing.assert_close(grads_k[k], grads_p[k], **GRAD_TOL)
+        loss, _, counts = train(n, contextlib.nullcontext())
+        check(np.isfinite(loss), f"{aggregator} dropout: bad loss")
+        check_counts(counts, kernel, n, what)
+        out[kernel] = n
+    ids = torch.arange(n * BATCH, dtype=torch.int32, device=dev)
+    rows = {}
+    for fused in (True, False):
+        config = unsup_config(fused, "meanpool")
+        params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                          config, device=dev)
+        reset_counts()
+        rows[fused] = make_embed_sweep(config, BATCH)(
+            params, features, adj, ids,
+            torch.Generator(device=dev).manual_seed(1))
+        counts = launch_counts()
+        check_counts(counts, "K5", n if fused else 0,
+                     f"meanpool embed sweep, fused {fused}")
+    diff = float((rows[True] - rows[False]).abs().max())
+    log(f"unsupervised routes: K2 (mean, dropout {DROPOUT}) and K6 "
+        f"(meanpool, dropout {DROPOUT}) once per step over {n} steps; "
+        f"meanpool embed sweep, {n} batches: K5 once per batch, rows max abs "
+        f"diff {diff:.3e} against the sweep without it (limit {POOL_TOL})")
+    check(diff <= POOL_TOL, f"meanpool embed rows differ by {diff}")
+    out["K5"] = n
+    return out
 
 
 # ------------------------------------------------------------ phase 6
@@ -1719,7 +2150,14 @@ def fused_vs_unfused_training(dev, data, label: str, fused_config,
             if i == 0:   # the clipped gradients of the first step
                 grads = {k: p.grad.clone() for k, p in params.items()}
         out[fused] = (params, grads, losses, launch_counts())
+    hold_fused_to_plain(label, kernel, out, start, p_limit)
 
+
+def hold_fused_to_plain(label: str, kernel: str, out: dict, start: dict,
+                        p_limit: float | None) -> None:
+    """``out[fused]`` = (params, first-step grads, losses, launches) of 4
+    steps with (True) and without (False) ``kernel`` from the weights
+    ``start``: the checks of ``fused_vs_unfused_training``."""
     def max_diff(a, b):
         return max(float((a[k] - b[k]).detach().abs().max()) for k in a)
 
@@ -1733,9 +2171,9 @@ def fused_vs_unfused_training(dev, data, label: str, fused_config,
     log(f"{label} with vs without {kernel}, training, 4 steps at dropout 0: "
         f"first-step grads max abs diff {g_diff:.3e} (limit 1e-5), losses "
         f"{l_diff:.3e} (limit 1e-5), params after 4 Adam steps {p_diff:.3e} "
-        f"(limit {p_limit or 'none, see the docstring'}), update difference "
-        f"over update norm, worst tensor {rel:.3e} (limit 1e-2); launches "
-        f"{out[True][3]} vs {out[False][3]}")
+        f"(limit {p_limit or 'none overall, see the docstring'}), update "
+        f"difference over update norm, worst tensor {rel:.3e} (limit 1e-2); "
+        f"launches {out[True][3]} vs {out[False][3]}")
     check_counts(out[True][3], kernel, 4, f"{label} training with {kernel}")
     check_counts(out[False][3], kernel, 0, f"{label} plain training")
     check(g_diff <= 1e-5, f"fused and unfused gradients differ by {g_diff}")
@@ -1744,6 +2182,107 @@ def fused_vs_unfused_training(dev, data, label: str, fused_config,
           f"fused and unfused params differ by {p_diff}")
     check(rel <= 1e-2, f"fused and unfused updates differ by {rel} of "
           f"their norm")
+
+
+def hold_params_where_adam_resolves(label: str, out: dict, low: dict,
+                                    eps: float,
+                                    p_limit: float | None) -> None:
+    """Per element, the params of ``out`` (as ``hold_fused_to_plain``
+    takes it) after 4 Adam steps. Adam steps an element by lr m/(sqrt(v)
+    + eps), so a gradient difference dg moves its step by about lr dg /
+    sqrt(v): where ``low``, the smaller sqrt(v) (bias-corrected) of the
+    two runs at any step, stays at ADAM_FLOOR x eps (1e-5) or above, a
+    dg of 1.6e-8 (the first step's, measured) moves it by at most
+    1.6e-3 lr a step, 6.4e-5 in 4 steps at lr 1e-2, and its params are
+    held to ``p_limit``; below, a last-bit dg moves the step by a share
+    of lr, so those elements are held only by the update-norm rule. Logs the worst element's first-step gradients
+    and its sqrt(v) over eps, and how many elements fall below."""
+    fused_p, plain_p = out[True][0], out[False][0]
+    exempt = exempt_beyond = total = 0
+    worst, held_max = (-1.0, None, 0), 0.0
+    for k in plain_p:
+        diff = (fused_p[k] - plain_p[k]).detach().abs()
+        below = low[k] < ADAM_FLOOR * eps
+        total += diff.numel()
+        exempt += int(below.sum())
+        exempt_beyond += int((below & (diff > 1e-4)).sum())
+        held_max = max(held_max, float(diff.masked_fill(below, 0.0).max()))
+        d = float(diff.max())
+        if d > worst[0]:
+            worst = (d, k, int(diff.argmax()))
+    d, k, j = worst
+    g_f = float(out[True][1][k].flatten()[j])
+    g_p = float(out[False][1][k].flatten()[j])
+    log(f"{label}, params per element after 4 Adam steps: worst {k}[{j}] "
+        f"differs by {d:.3e}; its first-step gradients {g_f:.4e} / "
+        f"{g_p:.4e} ({abs(g_p) / eps:.2f} eps), its smallest sqrt(v) "
+        f"{float(low[k].flatten()[j]) / eps:.2f} eps; {exempt} of {total} "
+        f"elements have sqrt(v) below {ADAM_FLOOR:g} eps at some step "
+        f"({exempt_beyond} of them differ by more than 1e-4); the others "
+        f"differ by at most {held_max:.3e} (limit "
+        f"{p_limit or 'none: the update-norm rule'})")
+    check(p_limit is None or held_max <= p_limit,
+          f"{label}: params where Adam resolves the gradient differ by "
+          f"{held_max}")
+
+
+def fused_vs_unfused_unsup(dev, data, label: str, kernel: str,
+                           aggregator: str, p_limit: float | None) -> None:
+    """``fused_vs_unfused_training`` for unsupervised training at
+    ``aggregator``: 4 steps at dropout 0, Adam at lr 1e-2, with and
+    without ``kernel`` (K1 for mean, K6 for meanpool) from the same
+    weights, generator state, pairs and negatives (so the same
+    samples), held by ``hold_fused_to_plain`` to the losses, the first
+    step's gradients and 1% of the update's norm, and per element by
+    ``hold_params_where_adam_resolves`` to ``p_limit`` (mean 1e-4;
+    meanpool None, as in ``fused_vs_unfused_training``). The
+    unsupervised loss leaves gradient elements near Adam's eps, whose
+    steps last-bit gradient differences move by a share of lr (mean
+    before that rule: 1.1e-4 after 4 steps, first-step gradients within
+    1.6e-8)."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        ClippedAdam,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.parallel.dp import (
+        make_unsupervised_chunk_runner,
+    )
+
+    features, adj, _ = data
+    pairs, negs = unsup_stream(dev, 4, seed=6)
+    out = {}
+    low = {}     # the smallest bias-corrected sqrt(v) of either run
+    for fused in (True, False):
+        config = unsup_config(fused, aggregator)
+        params = init_unsupervised_params(torch.Generator().manual_seed(7),
+                                          config, device=dev)
+        start = {k: v.clone() for k, v in params.items()}
+        optimizer = make_optimizer(LEARNING_RATE)
+        opt_state = optimizer.init(params)
+        run = make_unsupervised_chunk_runner(config, optimizer, BATCH)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        shadow = torch.full((), -1.0, device=dev)
+        reset_counts()
+        losses = []
+        for i in range(4):
+            params, opt_state, shadow, loss, _ = run(
+                params, opt_state, shadow, gen, features, adj, pairs, negs,
+                i, 1)
+            losses.append(float(loss))
+            if i == 0:
+                grads = {k: p.grad.clone() for k, p in params.items()}
+            nu = ClippedAdam.state_dict(opt_state, params)["nu"]
+            for k, v in nu.items():
+                s = (v / (1 - optimizer.b2 ** (i + 1))).sqrt()
+                low[k] = s if k not in low else torch.minimum(low[k], s)
+        out[fused] = (params, grads, losses, launch_counts())
+    hold_fused_to_plain(label, kernel, out, start, None)
+    hold_params_where_adam_resolves(label, out, low, optimizer.eps, p_limit)
 
 
 # ------------------------------------------------------------ phase 7
@@ -1869,16 +2408,127 @@ def supervised_job(dev, tmp: str, model: str, extra: dict):
     return label, cmd, finish
 
 
+def walks_dataset(tmp: str) -> str:
+    """A small synthetic dataset and its walks file, written by
+    ``python -m graphsage_tpu_torch walks`` (on the host); returns the
+    dataset's prefix."""
+    from graphsage_tpu_torch.data.synthetic import (
+        make_synthetic_graph,
+        write_dataset,
+    )
+
+    prefix = os.path.join(tmp, "toy", "toy")
+    write_dataset(make_synthetic_graph(num_nodes=400, num_classes=5,
+                                       feat_dim=32, seed=3), prefix)
+    proc = subprocess.run(
+        [sys.executable, "-m", "graphsage_tpu_torch", "walks",
+         prefix + "-G.json", prefix + "-walks.txt", "--num_walks", "5",
+         "--seed", "4"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    log(f"walks CLI: {proc.stdout.strip()}")
+    check(proc.returncode == 0, f"walks CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return prefix
+
+
+def unsupervised_job(dev, tmp: str, prefix: str, model: str):
+    """(label, command, finish) of ``python -m graphsage_tpu_torch
+    unsupervised`` on the card, on the walk pairs of ``prefix``;
+    ``finish(rc, stdout, stderr)`` starts ``embed`` on the card from the
+    run's checkpoint, runs the same training on the CPU meanwhile
+    (first_k sampling, dropout 0, negatives drawn on the host: no random
+    draw differs), then holds every logged loss, MRR and EMA to the
+    CPU's within CLI_TOL, val.npy within 1e-4, and embed's val.npy to
+    the card run's bit for bit."""
+    from graphsage_tpu_torch.train.config import TrainFlags
+    from graphsage_tpu_torch.train.unsupervised import train
+
+    label = f"unsupervised CLI --model {model}"
+    model_args = dict(samples_1=5, samples_2=4, dim_1=16, dim_2=16,
+                      max_degree=12, batch_size=64, neg_sample_size=10,
+                      learning_rate=1e-3, sampler_mode="first_k", seed=9)
+    train_args = dict(max_total_steps=19, print_every=5, validate_iter=5,
+                      validate_batch_size=32, dropout=0.0)
+    args = {**model_args, **train_args}
+    card_ck = os.path.join(tmp, "ck")
+
+    def command(subcommand, flag_values, *extra):
+        cmd = [sys.executable, "-m", "graphsage_tpu_torch", subcommand,
+               "--train_prefix", prefix, "--device", str(dev), "--model",
+               model, "--checkpoint_dir", card_ck, *extra]
+        for k, v in flag_values.items():
+            cmd += [f"--{k}", str(v)]
+        return cmd
+
+    cmd = command("unsupervised", args, "--base_log_dir",
+                  os.path.join(tmp, "card"))
+    embed_out = os.path.join(tmp, "embed")
+    embed_cmd = command("embed", model_args, "--out_dir", embed_out)
+
+    def logged(base):
+        log_dir = os.path.join(base, "unsup-toy", f"{model}_small_0.001000")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as fp:
+            recs = [json.loads(line) for line in fp]
+        keys = ("train_loss", "train_mrr", "train_mrr_ema", "val_loss",
+                "val_mrr", "val_mrr_ema")
+        return ([[r[k] for k in keys] for r in recs],
+                np.load(os.path.join(log_dir, "val.npy")))
+
+    def finish(rc: int, stdout: str, stderr: str) -> None:
+        log("\n".join(stdout.strip().splitlines()[-3:]))
+        check(rc == 0, f"{label} exited {rc}: {stderr[-2000:]}")
+        embed = subprocess.Popen(embed_cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            flags = TrainFlags(train_prefix=prefix, model=model,
+                               base_log_dir=os.path.join(tmp, "cpu"),
+                               **args)
+            with contextlib.redirect_stdout(io.StringIO()):
+                train(flags, device="cpu")
+            e_out, e_err = embed.communicate(timeout=600)
+        finally:
+            if embed.poll() is None:
+                embed.kill()
+                embed.communicate()
+        card_recs, card_rows = logged(os.path.join(tmp, "card"))
+        cpu_recs, cpu_rows = logged(os.path.join(tmp, "cpu"))
+        check(len(card_recs) == len(cpu_recs) > 0,
+              f"{len(card_recs)} vs {len(cpu_recs)} logged records")
+        diff = float(np.abs(np.array(card_recs) - np.array(cpu_recs)).max())
+        rows_diff = float(np.abs(card_rows - cpu_rows).max())
+        log(f"{label} on {dev} vs CPU: {len(card_recs)} records of train "
+            f"loss, MRR and EMA and val loss, MRR and EMA, max abs diff "
+            f"{diff:.3e} (limit {CLI_TOL}); val.npy {card_rows.shape} max "
+            f"abs diff {rows_diff:.3e} (limit 1e-4); first/last train loss "
+            f"{card_recs[0][0]:.5f}/{card_recs[-1][0]:.5f}, last val MRR "
+            f"{card_recs[-1][4]:.5f}")
+        check(diff <= CLI_TOL, f"card and CPU training differ by {diff}")
+        check(rows_diff <= 1e-4, f"card and CPU val.npy differ by "
+              f"{rows_diff}")
+        log(e_out.strip())
+        check(embed.returncode == 0, f"embed CLI exited {embed.returncode}: "
+              f"{e_err[-2000:]}")
+        same = np.array_equal(np.load(os.path.join(embed_out, "val.npy")),
+                              card_rows)
+        log(f"embed CLI --model {model} on {dev} from the card run's "
+            f"checkpoint reproduces its val.npy bit for bit: {same}")
+        check(same, "embed did not reproduce the trainer's val.npy")
+
+    return label, cmd, finish
+
+
 def cli_phases(dev) -> None:
-    """Every CLI check: ``predict`` (plain and ``--dedup_gather``) and
+    """Every CLI check: ``predict`` (plain and ``--dedup_gather``),
     ``supervised`` (graphsage_mean, graphsage_meanpool, graphsage_seq
-    with ``--rows_gather``). The card-side processes start together,
-    since each takes seconds to reach the card; the CPU references run
-    here meanwhile, one after another. Every process is ended before
-    this returns."""
+    with ``--rows_gather``), and ``walks``, then ``unsupervised`` and
+    ``embed`` (graphsage_mean, graphsage_meanpool). The card-side
+    processes start together, since each takes seconds to reach the
+    card; the CPU references run here meanwhile, one after another.
+    Every process is ended before this returns."""
     scratch = os.path.join(ROOT, "build")   # listed in .gitignore
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        prefix = walks_dataset(os.path.join(tmp, "walks"))
         jobs = [
             predict_job(dev, os.path.join(tmp, "p0"), {}),
             predict_job(dev, os.path.join(tmp, "p1"), {"dedup_gather": True}),
@@ -1888,6 +2538,10 @@ def cli_phases(dev) -> None:
                            "graphsage_meanpool", {}),
             supervised_job(dev, os.path.join(tmp, "s2"), "graphsage_seq",
                            {"rows_gather": True}),
+            unsupervised_job(dev, os.path.join(tmp, "u0"), prefix,
+                             "graphsage_mean"),
+            unsupervised_job(dev, os.path.join(tmp, "u1"), prefix,
+                             "graphsage_meanpool"),
         ]
         t0 = time.perf_counter()
         procs = []
@@ -1962,6 +2616,8 @@ def main() -> int:
     k1 = phase("K1 vs plain", check_gather_mean, dev, card_line, data)
     k2 = phase("K2 vs plain", check_gather_mean_dropout, dev, card_line)
     k3 = phase("K3 vs plain", check_gather_mean_dedup, dev, card_line, data)
+    unsup_hop = phase("K1 and K3 at the unsupervised hop", check_unsup_hop,
+                      dev, card_line, data)
     k4 = phase("K4 vs plain", check_gather_rows, dev, card_line, data)
     k5 = phase("K5 vs plain", check_pool, dev, card_line)
     k6 = phase("K6 vs plain", check_pool_train, dev, card_line)
@@ -1994,6 +2650,18 @@ def main() -> int:
     phase("seq training, rows_gather", train_full_width, dev, data,
           "seq rows_gather", bench_config(True, 0.0, "seq", rows=True), "K4",
           2, SEQ_TRAIN_CHUNK, 4, 3)
+    k1["launches_unsup_train"] = phase(
+        "unsupervised mean training (unsup_mean)", train_unsupervised, dev,
+        data)
+    k1["launches_embed_sweep"] = phase("embed sweep", embed_full_width, dev,
+                                       data)
+    routes = phase("unsupervised routes through K2, K6 and K5",
+                   unsup_other_routes, dev, data)
+    k2["launches_unsup_train"] = routes["K2"]
+    k6["launches_unsup_train"] = routes["K6"]
+    k5["launches_embed_sweep"] = routes["K5"]
+    k1["ms_unsup_hop"] = unsup_hop["ms"]
+    k1["bound_ms_unsup_hop"] = unsup_hop["bound_ms"]
     for label, fused, plain, kernel, p_limit in (
             ("mean", bench_config(True), bench_config(False), "K1", 1e-4),
             ("meanpool", bench_config(True, aggregator="meanpool"),
@@ -2005,8 +2673,14 @@ def main() -> int:
         phase(f"{label} training with vs without {kernel}",
               fused_vs_unfused_training, dev, data, label, fused, plain,
               kernel, p_limit)
+    for aggregator, kernel, p_limit in (("mean", "K1", 1e-4),
+                                        ("meanpool", "K6", None)):
+        phase(f"unsupervised {aggregator} training with vs without {kernel}",
+              fused_vs_unfused_unsup, dev, data,
+              f"unsupervised {aggregator}", kernel, aggregator, p_limit)
     phase("CLI: predict (and --dedup_gather), supervised (mean, meanpool, "
-          "seq --rows_gather) on the card against the CPU", cli_phases, dev)
+          "seq --rows_gather), walks, unsupervised and embed (mean, "
+          "meanpool) on the card against the CPU", cli_phases, dev)
     probe_counts = phase("the probe's entry point (K7)", drive_probe, dev,
                          card_line)
     for (key, _, _), entry in zip(K7_INSTANCES, k7):

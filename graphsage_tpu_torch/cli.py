@@ -1,8 +1,9 @@
-"""Command-line interface: ``python -m graphsage_tpu_torch supervised|predict
-...``.
+"""Command-line interface: ``python -m graphsage_tpu_torch
+supervised|predict|unsupervised|embed|walks ...``.
 
-Both subcommands take the JAX package's flag names and defaults for the
-fields the port reads, plus ``--device`` (default ``cuda``).
+The subcommands take the JAX package's flag names and defaults for the
+fields the port reads (``unsupervised`` and ``embed``: lr 1e-5, 1 epoch,
+max_degree 100, print_every 50), plus ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -11,14 +12,23 @@ import argparse
 import dataclasses
 import sys
 
-from graphsage_tpu_torch.train.config import SUPERVISED_MODELS, TrainFlags
+from graphsage_tpu_torch.train.config import (
+    SUPERVISED_MODELS,
+    UNSUPERVISED_MODELS,
+    TrainFlags,
+)
+
+UNSUP_DEFAULTS = TrainFlags(learning_rate=0.00001, epochs=1, max_degree=100,
+                            print_every=50)
 
 
-def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
-    """The flags that fix the dataset, the model and its log dir."""
+def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
+                     models=SUPERVISED_MODELS, head: bool = True) -> None:
+    """The flags that fix the dataset, the model and its log dir;
+    ``head``: the supervised head's flags too."""
     p.add_argument("--train_prefix", required=True,
                    help="prefix of the dataset files")
-    p.add_argument("--model", choices=SUPERVISED_MODELS, default=d.model)
+    p.add_argument("--model", choices=models, default=d.model)
     p.add_argument("--model_size", choices=("small", "big"),
                    default=d.model_size)
     p.add_argument("--learning_rate", type=float, default=d.learning_rate)
@@ -26,13 +36,14 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
     p.add_argument("--max_degree", type=int, default=d.max_degree)
     p.add_argument("--samples_1", type=int, default=d.samples_1)
     p.add_argument("--samples_2", type=int, default=d.samples_2)
-    p.add_argument("--samples_3", type=int, default=d.samples_3)
     p.add_argument("--dim_1", type=int, default=d.dim_1)
     p.add_argument("--dim_2", type=int, default=d.dim_2)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--identity_dim", type=int, default=d.identity_dim)
-    p.add_argument("--sigmoid", action="store_true",
-                   help="sigmoid (multilabel) head")
+    if head:
+        p.add_argument("--samples_3", type=int, default=d.samples_3)
+        p.add_argument("--sigmoid", action="store_true",
+                       help="sigmoid (multilabel) head")
     p.add_argument("--base_log_dir", default=d.base_log_dir)
     p.add_argument("--sampler_mode",
                    choices=("shared_perm", "independent", "first_k"),
@@ -52,19 +63,20 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
                    "(maxpool, twomaxpool, seq)")
     p.add_argument("--feature_dtype", choices=("float32", "bfloat16"),
                    default=d.feature_dtype)
+    p.add_argument("--graph_shards", type=int, default=d.graph_shards,
+                   help="accepted for the JAX package's command lines; "
+                   "above 1 it is refused (one device)")
+    p.add_argument("--data_shards", type=int, default=d.data_shards,
+                   help="accepted for the JAX package's command lines; "
+                   "above 1 it is refused (one device)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--checkpoint_dir", default=d.checkpoint_dir)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:<i> or cpu")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="python -m graphsage_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
-    d = TrainFlags()
-
-    p = sub.add_parser("supervised", help="supervised node classification")
-    _add_model_flags(p, d)
+def _add_train_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
+    """The training loop's flags."""
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--dropout", type=float, default=d.dropout)
     p.add_argument("--validate_iter", type=int, default=d.validate_iter)
@@ -76,6 +88,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.checkpoint_every)
     p.add_argument("--resume", action="store_true")
 
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="python -m graphsage_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    d = TrainFlags()
+    du = UNSUP_DEFAULTS
+
+    p = sub.add_parser("supervised", help="supervised node classification")
+    _add_model_flags(p, d)
+    _add_train_flags(p, d)
+
     p = sub.add_parser(
         "predict", help="checkpoint -> class predictions for any dataset")
     _add_model_flags(p, d)
@@ -84,14 +107,73 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_classes", type=int, default=0,
                    help="required when the dataset has no class_map")
     p.add_argument("--out_dir", default=None)
+
+    p = sub.add_parser("unsupervised",
+                       help="unsupervised embedding training")
+    _add_model_flags(p, du, UNSUPERVISED_MODELS, head=False)
+    _add_train_flags(p, du)
+    p.add_argument("--neg_sample_size", type=int, default=du.neg_sample_size)
+    p.add_argument("--random_context", action=argparse.BooleanOptionalAction,
+                   default=du.random_context,
+                   help="train on the walk pairs of <prefix>-walks.txt "
+                   "(else on the graph's edges)")
+    p.add_argument("--save_embeddings",
+                   action=argparse.BooleanOptionalAction,
+                   default=du.save_embeddings,
+                   help="write every node's embedding to val.npy/val.txt "
+                   "in the log dir at the end")
+
+    p = sub.add_parser(
+        "embed", help="checkpoint -> every node's embedding for any dataset")
+    _add_model_flags(p, du, SUPERVISED_MODELS, head=False)
+    p.add_argument("--neg_sample_size", type=int, default=du.neg_sample_size,
+                   help="accepted for the unsupervised command lines; "
+                   "embedding draws no negatives")
+    p.add_argument("--out_dir", default=None,
+                   help="output dir (default: the unsupervised log dir)")
+
+    p = sub.add_parser("walks", help="random-walk pairs of the train-node "
+                       "subgraph, as a walks file")
+    p.add_argument("graph_file", help="<prefix>-G.json path")
+    p.add_argument("out_file")
+    p.add_argument("--num_walks", type=int, default=50)
+    p.add_argument("--walk_len", type=int, default=5)
+    p.add_argument("--seed", type=int, default=123)
+    p.add_argument("--device", default="cuda",
+                   help="accepted as by every subcommand; the walker runs "
+                   "on the host")
     return parser
+
+
+def _walks(args) -> None:
+    import numpy as np
+
+    from graphsage_tpu_torch.data.io import load_data
+    from graphsage_tpu_torch.data.walks import run_random_walks, write_walks
+
+    graph = load_data(args.graph_file[: -len("-G.json")], normalize=False)
+    # the reference walks the train-node subgraph
+    is_train = graph.is_train
+    sub_neighbors = [nbrs[is_train[nbrs]] if is_train[i] else nbrs[:0]
+                     for i, nbrs in enumerate(graph.neighbors)]
+    pairs = run_random_walks(sub_neighbors, np.flatnonzero(is_train),
+                             num_walks=args.num_walks,
+                             walk_len=args.walk_len,
+                             rng=np.random.default_rng(args.seed))
+    write_walks(args.out_file, pairs, graph.node_ids)
+    print(f"Wrote {len(pairs)} walk pairs to {args.out_file}")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "walks":
+        _walks(args)
+        return 0
+    defaults = (UNSUP_DEFAULTS if args.command in ("unsupervised", "embed")
+                else TrainFlags())
     fields = {f.name for f in dataclasses.fields(TrainFlags)}
-    flags = TrainFlags(**{k: v for k, v in vars(args).items()
-                          if k in fields})
+    flags = dataclasses.replace(
+        defaults, **{k: v for k, v in vars(args).items() if k in fields})
     if args.command == "supervised":
         from graphsage_tpu_torch.train.supervised import train
 
@@ -101,6 +183,14 @@ def main(argv=None) -> int:
 
         predict(flags, out_dir=args.out_dir, nodes=args.nodes,
                 num_classes=args.num_classes, device=args.device)
+    elif args.command == "unsupervised":
+        from graphsage_tpu_torch.train.unsupervised import train
+
+        train(flags, device=args.device)
+    elif args.command == "embed":
+        from graphsage_tpu_torch.infer import export_embeddings
+
+        export_embeddings(flags, out_dir=args.out_dir, device=args.device)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Host-side data layer: dataset contract, padded adjacency, fixtures.
+"""Host-side data layer: dataset contract, padded adjacency, batchers,
+random walks, fixtures.
 
 NumPy only; the arrays it builds are moved to the device once.
 """

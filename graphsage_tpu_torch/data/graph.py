@@ -27,6 +27,7 @@ class GraphData:
     edges: np.ndarray       # [E, 2] int32 undirected edge list (each once)
     train_removed: np.ndarray     # [E] bool — touches a val/test endpoint
     neighbors: list         # list of [deg_i] int32 arrays, full adjacency
+    walks: np.ndarray | None = None   # [W, 2] int32 co-occurrence pairs
 
     @property
     def num_nodes(self) -> int:

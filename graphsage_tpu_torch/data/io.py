@@ -1,8 +1,9 @@
 """Dataset loader for the public GraphSAGE on-disk contract.
 
 Reads ``<prefix>-G.json`` (networkx node-link format),
-``<prefix>-id_map.json``, ``<prefix>-class_map.json`` and an optional
-``<prefix>-feats.npy`` without a networkx dependency. Semantics:
+``<prefix>-id_map.json``, ``<prefix>-class_map.json``, an optional
+``<prefix>-feats.npy`` and, on request, ``<prefix>-walks.txt`` without
+a networkx dependency. Semantics:
 
   * nodes missing ``val``/``test`` annotations are dropped
   * every edge touching a val/test endpoint is flagged ``train_removed``
@@ -21,6 +22,7 @@ from graphsage_tpu_torch.data.graph import (
     dense_labels,
     infer_num_classes,
 )
+from graphsage_tpu_torch.data.walks import read_walks
 
 
 def _node_key_conversion(sample_key):
@@ -76,8 +78,10 @@ def _looks_positional(srcs, tgts, n) -> bool:
     return lo >= 0 and hi < n
 
 
-def load_data(prefix: str, normalize: bool = True) -> GraphData:
-    """Load a dataset into a :class:`GraphData` (see module docstring)."""
+def load_data(prefix: str, normalize: bool = True,
+              load_walks: bool = False) -> GraphData:
+    """Load a dataset into a :class:`GraphData` (see module docstring);
+    ``load_walks`` also reads the walk pairs."""
     with open(prefix + "-G.json") as fp:
         g_data = json.load(fp)
     node_ids, is_val, is_test, has_flags, edges = parse_node_link_graph(g_data)
@@ -150,9 +154,10 @@ def load_data(prefix: str, normalize: bool = True) -> GraphData:
         num_classes = infer_num_classes(class_map)
         labels = dense_labels(class_map, ordered_ids, num_classes)
 
+    id2idx = {nid: i for i, nid in enumerate(ordered_ids)}
     return GraphData(
         node_ids=ordered_ids,
-        id2idx={nid: i for i, nid in enumerate(ordered_ids)},
+        id2idx=id2idx,
         features=feats,
         class_map=class_map,
         labels=labels,
@@ -162,6 +167,8 @@ def load_data(prefix: str, normalize: bool = True) -> GraphData:
         edges=edge_arr,
         train_removed=train_removed,
         neighbors=_build_neighbor_lists(n, edge_arr),
+        walks=(read_walks(prefix + "-walks.txt", id2idx) if load_walks
+               else None),
     )
 
 

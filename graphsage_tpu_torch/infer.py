@@ -1,4 +1,5 @@
-"""Serving: a checkpoint -> class predictions for a node set.
+"""Serving: a checkpoint -> class predictions for a node set
+(``predict``), or -> every node's embedding (``export_embeddings``).
 
 ``predict`` loads a dataset in the reference file contract, builds the
 full ("test") adjacency, restores a port checkpoint and sweeps the node
@@ -9,6 +10,11 @@ results land in preallocated device tensors, copied to the host once at
 the end. It writes ``preds.npy`` ([n, C] sigmoid probabilities or softmax
 distributions) and ``nodes.txt`` (original node ids), and reports loss
 and micro/macro F1 when the dataset carries labels.
+
+``export_embeddings`` restores an unsupervised checkpoint and writes
+``val.npy``/``val.txt`` through the trainer's own embed sweep and
+sampler seed (``train/unsupervised.py``), so on the same device it
+reproduces the trainer's export bit for bit.
 """
 
 from __future__ import annotations
@@ -22,12 +28,10 @@ import torch
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
 from graphsage_tpu_torch.data.io import load_data
 from graphsage_tpu_torch.device import resolve_device
-from graphsage_tpu_torch.models.supervised import (
-    SupervisedConfig,
-    init_supervised_params,
-)
+from graphsage_tpu_torch.models.supervised import init_supervised_params
+from graphsage_tpu_torch.models.unsupervised import init_unsupervised_params
 from graphsage_tpu_torch.train import checkpoint as ckpt
-from graphsage_tpu_torch.train.config import TrainFlags
+from graphsage_tpu_torch.train.config import TrainFlags, require_ported
 from graphsage_tpu_torch.train.metrics import calc_f1
 from graphsage_tpu_torch.train.supervised import (
     _run_eval_sweep,
@@ -52,9 +56,9 @@ def _prepare(flags: TrainFlags, graph, device):
     return graph, features, torch.from_numpy(full_adj_np).to(device)
 
 
-def _restore_params(flags: TrainFlags, config: SupervisedConfig, device):
+def _restore_params(flags: TrainFlags, like: dict, device):
     """Restore trained params from flags.checkpoint_dir -> (params, step),
-    checked key by key against the model's shapes."""
+    checked key by key against the shapes of ``like``."""
     if not flags.checkpoint_dir:
         raise ValueError("inference requires --checkpoint_dir")
     restored = ckpt.restore(flags.checkpoint_dir, device=device)
@@ -63,8 +67,7 @@ def _restore_params(flags: TrainFlags, config: SupervisedConfig, device):
             f"no checkpoint found under {flags.checkpoint_dir!r}"
         )
     params, step = restored
-    ckpt.check_matches(params,
-                       init_supervised_params(torch.Generator(), config))
+    ckpt.check_matches(params, like)
     if flags.identity_dim > 0:
         print(
             "WARNING: identity_dim > 0 is transductive: the identity table "
@@ -92,6 +95,7 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
     An unlabeled dataset (no class_map) needs ``num_classes`` from the
     training run.
     """
+    require_ported(flags)
     device = resolve_device(device)
     if nodes not in NODE_SETS:
         raise ValueError(f"nodes must be one of {NODE_SETS}")
@@ -114,7 +118,8 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
         labels_np = np.zeros(
             (graph.num_nodes, graph.num_classes), dtype=np.float32
         )
-    params, step = _restore_params(flags, config, device)
+    params, step = _restore_params(
+        flags, init_supervised_params(torch.Generator(), config), device)
     sweep = make_eval_sweep(config, flags.batch_size, graph.num_nodes)
     generator = torch.Generator(device=device).manual_seed(flags.seed + 1)
     loss, preds, labels, dt = _run_eval_sweep(
@@ -140,3 +145,30 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
                 f"f1_macro={f1_mac:.5f}")
     print(msg)
     return result
+
+
+def export_embeddings(flags: TrainFlags, out_dir: str | None = None,
+                      graph=None, device="cuda") -> str:
+    """Checkpoint -> the l2-normalised embedding of every node, written
+    as val.npy + val.txt (the trainer's export) under ``out_dir``; runs
+    on ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    from graphsage_tpu_torch.train.unsupervised import (
+        build_unsupervised_config,
+        embed_all_nodes,
+        write_embeddings,
+    )
+
+    require_ported(flags)
+    device = resolve_device(device)
+    graph, features, full_adj = _prepare(flags, graph, device)
+    config = build_unsupervised_config(flags, graph)
+    params, step = _restore_params(
+        flags, init_unsupervised_params(torch.Generator(), config), device)
+    # the trainer's sampler seed for its export
+    rows = embed_all_nodes(config, flags.batch_size, params, features,
+                           full_adj, flags.seed + 1)
+    out_dir = out_dir or flags.log_dir("unsupervised")
+    write_embeddings(out_dir, rows, graph.node_ids)
+    print(f"Wrote {rows.shape[0]} x {rows.shape[1]} embeddings "
+          f"(checkpoint step {step}) on {device} to {out_dir}")
+    return out_dir

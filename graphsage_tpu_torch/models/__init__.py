@@ -1,2 +1,2 @@
-"""Sample-and-aggregate orchestration: the GraphSAGE pyramid and the
-supervised head."""
+"""Sample-and-aggregate orchestration: the GraphSAGE pyramid, the
+supervised head and the unsupervised towers."""

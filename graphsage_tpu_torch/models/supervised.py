@@ -20,6 +20,7 @@ from graphsage_tpu_torch.models.graphsage import (
     sage_embed,
 )
 from graphsage_tpu_torch.nn.dense import apply_dense, init_dense
+from graphsage_tpu_torch.nn.prediction import sigmoid_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +61,6 @@ def _softmax_xent(logits, labels):
     return -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
 
 
-def _sigmoid_xent(logits, labels):
-    return (torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-logits.abs()))).sum(dim=-1)
-
-
 def supervised_loss(params, features, adj, ids, labels, mask,
                     config: SupervisedConfig, generator=None,
                     deterministic: bool = False, drop_key=None):
@@ -76,7 +72,8 @@ def supervised_loss(params, features, adj, ids, labels, mask,
                                deterministic=deterministic,
                                drop_key=drop_key)
     if config.sigmoid_loss:
-        per_node = _sigmoid_xent(logits, labels) / config.num_classes
+        per_node = (sigmoid_xent(labels, logits).sum(dim=-1)
+                    / config.num_classes)
     else:
         per_node = _softmax_xent(logits, labels)
     loss = (per_node * mask).sum() / torch.clamp(mask.sum(), min=1.0)

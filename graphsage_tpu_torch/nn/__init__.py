@@ -1,2 +1,3 @@
 """Layers as plain functions on tensors: initializers, dense, the mean,
-gcn and pooling aggregators and the on-device neighbor sampler."""
+gcn, pooling and seq aggregators, the on-device neighbor sampler, the
+edge-prediction losses and unigram negative sampling."""

@@ -1,4 +1,4 @@
-"""The supervised training step and the chunk runner, on one device.
+"""The training steps and chunk runners, on one device.
 
 The JAX package jits one function per step (forward, backward, the
 clipped Adam update) and runs a chunk of steps in one ``fori_loop``
@@ -8,14 +8,20 @@ eagerly and a Python loop over the chunk's steps takes the place of the
 device, each step slices its ids and takes its labels there, and
 nothing is copied to the host inside a chunk. The host synchronises
 only where the caller reads a result (the print and validate
-boundaries of ``train/supervised.py``).
+boundaries of ``train/supervised.py`` and ``train/unsupervised.py``).
 """
 
 from __future__ import annotations
 
+import torch
+
 from graphsage_tpu_torch.models.supervised import (
     SupervisedConfig,
     supervised_loss,
+)
+from graphsage_tpu_torch.models.unsupervised import (
+    UnsupervisedConfig,
+    unsupervised_loss,
 )
 
 
@@ -87,5 +93,70 @@ def make_supervised_chunk_runner(config: SupervisedConfig, optimizer,
                 mask, drop_key=(drop_seed, i),
             )
         return params, opt_state, loss, logits, ids
+
+    return runner
+
+
+def make_unsupervised_train_step(config: UnsupervisedConfig, optimizer):
+    """step(params, opt_state, generator, features, adj, b1, b2, mask,
+    neg_ids, drop_key=None) -> (params, opt_state, loss, aux).
+
+    As ``make_supervised_train_step``; ``neg_ids`` are the step's
+    negatives, drawn by the caller."""
+
+    def step(params, opt_state, generator, features, adj, b1, b2, mask,
+             neg_ids, drop_key=None):
+        opt_state.zero_grad(set_to_none=True)
+        loss, aux = unsupervised_loss(
+            params, features, adj, b1, b2, mask, neg_ids, config,
+            generator=generator, deterministic=False, drop_key=drop_key,
+        )
+        loss.backward()
+        optimizer.update(opt_state, params)
+        return params, opt_state, loss.detach(), aux
+
+    return step
+
+
+def mrr_ema(shadow, mrr, decay: float = 0.99):
+    """The train-MRR EMA on the device: a negative ``shadow`` is the
+    unset sentinel and takes ``mrr`` as it is."""
+    return torch.where(shadow < 0, mrr, shadow - (1 - decay) * (shadow - mrr))
+
+
+def make_unsupervised_chunk_runner(config: UnsupervisedConfig, optimizer,
+                                   batch_size: int):
+    """runner(params, opt_state, shadow_mrr, generator, features, adj,
+    pairs_perm, neg_ids, start_step, n_steps, drop_seed=0) -> (params,
+    opt_state, shadow_mrr, last_loss, last_mrr).
+
+    Runs steps ``start_step .. start_step + n_steps - 1`` of an epoch
+    whose shuffled, dummy-padded pair stream ``pairs_perm`` [P, 2] and
+    negatives ``neg_ids`` [steps, n_neg] live on the device: step i
+    takes pairs ``pairs_perm[i*B:(i+1)*B]``, masks them with
+    ``b1 != N``, takes negatives ``neg_ids[i]`` and keys its in-kernel
+    dropout with (``drop_seed``, i). The train-MRR EMA ``shadow_mrr``
+    (a device scalar, < 0 until set) is carried through the steps.
+    Results stay on the device.
+    """
+    num_nodes = config.sage.num_nodes
+    _require_num_nodes(num_nodes, "pair stream")
+    step_fn = make_unsupervised_train_step(config, optimizer)
+
+    def runner(params, opt_state, shadow_mrr, generator, features, adj,
+               pairs_perm, neg_ids, start_step: int, n_steps: int,
+               drop_seed: int = 0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        for i in range(start_step, start_step + n_steps):
+            pair = pairs_perm[i * batch_size:(i + 1) * batch_size]
+            b1, b2 = pair[:, 0], pair[:, 1]
+            mask = (b1 != num_nodes).float()
+            params, opt_state, loss, aux = step_fn(
+                params, opt_state, generator, features, adj, b1, b2, mask,
+                neg_ids[i], drop_key=(drop_seed, i),
+            )
+            shadow_mrr = mrr_ema(shadow_mrr, aux["mrr"])
+        return params, opt_state, shadow_mrr, loss, aux["mrr"]
 
     return runner

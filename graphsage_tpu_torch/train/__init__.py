@@ -1,2 +1,2 @@
-"""Flags, F1 metrics and torch checkpoints (the trainers come with the
-training slice)."""
+"""Flags, F1 metrics, torch checkpoints and the supervised and
+unsupervised trainers."""

@@ -1,7 +1,9 @@
 """Typed configuration mirroring the reference flag surface.
 
-The fields are those the port's serving and supervised training paths
-read; the unsupervised and multi-device fields come with their slices.
+The fields are those the port's serving, supervised and unsupervised
+paths read, with the JAX package's defaults. ``graph_shards`` and
+``data_shards`` exist only to refuse a multi-device run clearly
+(``require_ported``): the parallel stack comes with its own slice.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ SUPERVISED_MODELS = (
     "graphsage_mean", "gcn", "graphsage_seq", "graphsage_maxpool",
     "graphsage_meanpool",
 )
+
+UNSUPERVISED_MODELS = SUPERVISED_MODELS + ("n2v",)
 
 # model name -> (aggregator, concat)
 MODEL_AGGREGATORS = {
@@ -40,9 +44,12 @@ class TrainFlags:
     samples_3: int = 0          # 3rd layer, graphsage_mean only (supervised)
     dim_1: int = 128
     dim_2: int = 128
+    random_context: bool = True  # unsupervised: walk pairs, else edges
+    neg_sample_size: int = 20    # unsupervised only
     batch_size: int = 512
     sigmoid: bool = False
     identity_dim: int = 0
+    save_embeddings: bool = True  # unsupervised only
     base_log_dir: str = "."
     validate_iter: int = 5000
     validate_batch_size: int = 256   # -1: the full val set
@@ -52,6 +59,8 @@ class TrainFlags:
     fused_gather: bool = True   # CUDA kernel for the innermost hop
     dedup_gather: bool = False  # K3: the fused mean loads distinct rows once
     rows_gather: bool = False   # K4 gathers the pooled/seq hop's rows
+    graph_shards: int = 1       # > 1 is refused: one device only
+    data_shards: int = 1        # > 1 is refused: one device only
     feature_dtype: str = "float32"  # or "bfloat16"
     seed: int = 123
     checkpoint_dir: str = ""    # torch checkpoint root ("" = disabled)
@@ -76,6 +85,19 @@ class TrainFlags:
         )
         os.makedirs(d, exist_ok=True)
         return d
+
+
+def require_ported(flags: TrainFlags) -> None:
+    """Refuse what the port does not run yet, naming the ROADMAP.md item
+    that brings it."""
+    if flags.model == "n2v":
+        raise NotImplementedError(
+            "--model n2v is not ported yet: node2vec is ROADMAP.md A.7")
+    if flags.graph_shards > 1 or flags.data_shards > 1:
+        raise NotImplementedError(
+            f"--graph_shards {flags.graph_shards} --data_shards "
+            f"{flags.data_shards}: the port runs on one device; the "
+            "parallel stack is ROADMAP.md A.9")
 
 
 def build_layer_infos(flags: TrainFlags, supervised: bool):

@@ -34,7 +34,11 @@ from graphsage_tpu_torch.models.supervised import (
 )
 from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
 from graphsage_tpu_torch.train import checkpoint as ckpt
-from graphsage_tpu_torch.train.config import TrainFlags, build_layer_infos
+from graphsage_tpu_torch.train.config import (
+    TrainFlags,
+    build_layer_infos,
+    require_ported,
+)
 from graphsage_tpu_torch.train.metrics import calc_f1
 from graphsage_tpu_torch.train.tblog import ScalarLogger
 
@@ -169,6 +173,7 @@ def _write_stats(path: str, loss, f1_mic, f1_mac, duration=None) -> None:
 def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     """Train on ``device`` (``cuda`` unless the caller asks for ``cpu``);
     returns the params and the final val/test metrics."""
+    require_ported(flags)
     device = resolve_device(device)
     if graph is None:
         print("Loading training data..")

@@ -640,3 +640,118 @@ def test_probe_launch_refuses_another_smem_size(cuda, monkeypatch, kind):
         else:
             probe_gather(table, idx, "row")
     assert (dict(probe_gather.launches), probe_hotmx.launches) == before
+
+
+# ------------------------------------------- the unsupervised slice
+
+UNSUP_HOP = (2 * 512 + 20) * 10     # (2B + n_neg) * S2 = 10,440 rows
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k3_at_the_unsupervised_hop(cuda, dedup, dtype):
+    """K1 and K3 at the three towers' innermost hop, idx [10440, 25] as
+    the sampler draws it over a zipf adjacency of 100k nodes, against
+    their plain versions."""
+    n = 100_000
+    idx = torch.from_numpy(np.ascontiguousarray(
+        _hop_like_idx(np.random.default_rng(12), n, batch=UNSUP_HOP // 10),
+        dtype=np.int32)).to(cuda)
+    assert idx.shape == (UNSUP_HOP, 25)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    table = torch.randn(n + 1, 602, generator=gen, device=cuda).to(dtype)
+    table[n] = 0
+    ref = (gather_mean_dedup_reference if dedup
+           else gather_mean_reference)(table.cpu(), idx.cpu())
+    torch.testing.assert_close(fused_gather_mean(table, idx,
+                                                 dedup=dedup).cpu(),
+                               ref, **TOLERANCES[dtype])
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "meanpool"])
+def test_unsupervised_step_on_card_matches_cpu(cuda, aggregator):
+    """One step of the unsupervised chunk runner on the card (K1 for
+    mean, K6 for meanpool) and on the CPU (their plain versions), from
+    the same weights with the same pairs and negatives, first_k
+    sampling and dropout 0: the loss and MRR within 1e-5, the params
+    after Adam's step within 1e-4."""
+    from graphsage_tpu_torch.data.adjacency import build_both_adjs
+    from graphsage_tpu_torch.data.synthetic import make_synthetic_graph
+    from graphsage_tpu_torch.models.graphsage import LayerInfo, SAGEConfig
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.models.unsupervised import (
+        UnsupervisedConfig,
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
+    from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
+    from graphsage_tpu_torch.parallel.dp import (
+        make_unsupervised_chunk_runner,
+    )
+
+    g = make_synthetic_graph(num_nodes=300, num_classes=3, feat_dim=32,
+                             seed=4)
+    adj, _, _ = build_both_adjs(g, 12, seed=1)
+    config = UnsupervisedConfig(
+        sage=SAGEConfig(layers=(LayerInfo(5, 16), LayerInfo(4, 16)),
+                        feature_dim=32, aggregator=aggregator,
+                        num_nodes=g.num_nodes, sampler_mode="first_k",
+                        fused_gather=True))
+    rng = np.random.default_rng(5)
+    pairs = g.edges[rng.permutation(len(g.edges))[:32]].astype(np.int32)
+    # no negative is a positive: such a tie ranks by rounding
+    negs = rng.choice(np.setdiff1d(np.arange(g.num_nodes), pairs[:, 1]),
+                      (1, 6)).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                          config, dev)
+        optimizer = make_optimizer(0.01)
+        opt_state = optimizer.init(params)
+        run = make_unsupervised_chunk_runner(config, optimizer, 32)
+        before = (gm.launches, gp.train_launches)
+        params, _, shadow, loss, mrr = run(
+            params, opt_state, torch.tensor(-1.0, device=dev), None,
+            torch.from_numpy(g.padded_features()).to(dev),
+            torch.from_numpy(adj).to(dev), torch.from_numpy(pairs).to(dev),
+            torch.from_numpy(negs).to(dev), 0, 1)
+        after = (gm.launches, gp.train_launches)
+        out[dev.type] = (params, float(loss), float(mrr), float(shadow),
+                         after[0] - before[0], after[1] - before[1])
+    card, cpu = out["cuda"], out["cpu"]
+    assert card[4:] == ((1, 0) if aggregator == "mean" else (0, 1))
+    assert cpu[4:] == (0, 0)
+    assert abs(card[1] - cpu[1]) <= 1e-5 and abs(card[2] - cpu[2]) <= 1e-5
+    assert card[3] == card[2]       # the EMA's sentinel takes the first MRR
+    for k in cpu[0]:
+        torch.testing.assert_close(card[0][k].detach().cpu(),
+                                   cpu[0][k].detach(), rtol=0, atol=1e-4)
+
+
+def test_positive_equal_to_negatives_ranks_last(cuda):
+    """Every negative is row 0's positive node: the one product that
+    scores both ties them exactly on the card, so row 0 ranks last."""
+    from graphsage_tpu_torch.data.adjacency import build_both_adjs
+    from graphsage_tpu_torch.data.synthetic import make_synthetic_graph
+    from graphsage_tpu_torch.models.graphsage import LayerInfo, SAGEConfig
+    from graphsage_tpu_torch.models.unsupervised import (
+        UnsupervisedConfig,
+        init_unsupervised_params,
+        unsupervised_loss,
+    )
+
+    g = make_synthetic_graph(num_nodes=300, num_classes=3, feat_dim=32,
+                             seed=4)
+    adj, _, _ = build_both_adjs(g, 12, seed=1)
+    config = UnsupervisedConfig(
+        sage=SAGEConfig(layers=(LayerInfo(5, 16), LayerInfo(4, 16)),
+                        feature_dim=32, num_nodes=g.num_nodes,
+                        sampler_mode="first_k", fused_gather=True))
+    pairs = torch.from_numpy(g.edges[:64].astype(np.int32)).to(cuda)
+    params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                      config, cuda)
+    _, aux = unsupervised_loss(
+        params, torch.from_numpy(g.padded_features()).to(cuda),
+        torch.from_numpy(adj).to(cuda), pairs[:, 0], pairs[:, 1],
+        torch.ones(64, device=cuda), pairs[0, 1].repeat(8), config)
+    assert int(aux["ranks"][0]) == 9

@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
     for name in ("infer", "ops.gather", "ops.philox", "ops.pool",
                  "ops.gather_probe", "benchmarks.gather_probe",
                  "nn.lstm", "parallel.dp",
-                 "train.supervised", "train.tblog", "data.minibatch"):
+                 "train.supervised", "train.tblog", "data.minibatch",
+                 "nn.prediction", "nn.negative", "data.walks",
+                 "models.unsupervised", "train.unsupervised"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
