@@ -74,6 +74,22 @@ Phases; any failure exits non-zero without the final ok line:
      through each is held to the plain path with the same drop key
      (loss and gradients), K5 in the meanpool embed sweep (against the
      sweep without it)
+     The C++ host builder (graph_builder.cpp, g++) on bench.py's graph
+     (its zipf adjacency made undirected, 70% train nodes): both padded
+     adjacencies and 10 walks of length 5 from every train node, timed,
+     pairs/s beside the Python walker's on 2,000 nodes; fails if a NumPy
+     path ran. node2vec at full width on those pairs (dim 256, batch
+     512, 20 unique negatives from host Gumbel noise, SGD at lr 2.0):
+     three timed chunks of 50 steps (ms/step, pairs/s), no kernel of
+     K1-K7 and no host synchronisation in a chunk, a profile of 5 steps,
+     two retrain chunks with every frozen context row bit-identical, one
+     step against the CPU (loss and gradients within 1e-5), the first
+     chunk's negatives equal on the card and the CPU. ``eval``'s
+     classifier at Reddit's scale on its target rows (~70k train rows of
+     256, 41 planted classes, 2 fixed epochs; ``run_regression``) on the
+     card and the CPU: us per sample update, F1s within 1e-3 (rounding
+     alone moves them: the CPU against itself with X moved by 1e-15 is
+     logged beside), a profile
   6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
      the plain gather): equal gradients and params after a few steps
      from the same state; the same for unsupervised training (K1, K6)
@@ -90,7 +106,14 @@ Phases; any failure exits non-zero without the final ok line:
      ``unsupervised`` (graphsage_mean, graphsage_meanpool) trains on
      them with first_k sampling and dropout 0: every logged loss, MRR
      and EMA agrees with the CPU's, val.npy within 1e-4, and ``embed``
-     from the card run's checkpoint reproduces its val.npy bit for bit
+     from the card run's checkpoint reproduces its val.npy bit for bit.
+     ``unsupervised --model n2v --save_embeddings``: every logged loss,
+     MRR and EMA within 1e-4 of the CPU's, val.npy and val-test.npy
+     within 1e-5; then ``eval`` of the card run's embeddings on the card
+     and on the CPU prints the same F1s. ``supervised --degree_relabel
+     --defer_features --log_histograms --profile_dir``: the losses agree
+     with the CPU's, both write their histograms, and the card's trace
+     names the gather-mean kernel
   8. the probe's entry point (python -m
      graphsage_tpu_torch.benchmarks.gather_probe), zipf ids, short
      trials: it exits 0 and launches every K7 instance and K1 and
@@ -153,6 +176,16 @@ NEG_SAMPLES = 20                       # agg_sweep.py's "unsup_mean"
 UNSUP_LR = 1e-5
 ADAM_FLOOR = 1e3          # x eps: sqrt(v) above it, Adam keeps dg small
 UNSUP_HOP_ROWS = (2 * BATCH + NEG_SAMPLES) * FANOUTS[1]    # 10440
+N2V_DIM = 2 * DIMS[0]     # the trainer's 2 x dim_1
+N2V_LR = 2.0              # benchmarks/accuracy_acceptance.py:275
+N2V_TOL = 1e-5            # node2vec loss and gradients, card vs CPU
+EVAL_EPOCHS = 2           # eval at full width: fixed SGD epochs
+# eval at full width, card vs CPU: F1 differences of at most 1e-3 (0.1%
+# of the rows predicted otherwise). SGD's first steps, at eta ~10, grow a
+# last-bit difference until a few rows turn, so no two float64 fits that
+# sum in other orders predict every row alike; the phase logs the CPU
+# against itself with X moved by 1e-15 beside it
+EVAL_F1_TOL = 1e-3
 # three towers' roots, each expanded S2 + S2*S1 (agg_sweep.py:263-265)
 UNSUP_EDGES_PER_STEP = (2 * BATCH + NEG_SAMPLES) * (
     FANOUTS[1] + FANOUTS[1] * FANOUTS[0])                  # 271440
@@ -1962,6 +1995,321 @@ def embed_full_width(dev, data, repeats: int = 2) -> int:
     return counts["K1"]
 
 
+# ------------------------------------------------- phase 5, node2vec
+
+def bench_graph(data):
+    """bench.py's zipf adjacency as an undirected graph: each node linked
+    both ways to the 128 ids it drew, duplicates and self loops dropped;
+    70% of the nodes train, the others are the eval (val and test) nodes,
+    from numpy seed 11. Returns (neighbor lists, train-subgraph neighbor
+    lists, is_train). The edge keys are deduplicated and sorted on the
+    adjacency's device (25.6M of them)."""
+    import torch
+
+    dst = data[1][:NUM_NODES].reshape(-1).long()
+    src = torch.arange(NUM_NODES, device=dst.device).repeat_interleave(
+        MAX_DEGREE)
+    keep = src != dst
+    key = torch.unique(torch.cat([src[keep] * NUM_NODES + dst[keep],
+                                  dst[keep] * NUM_NODES + src[keep]]))
+    a = (key // NUM_NODES).cpu().numpy()
+    b = (key % NUM_NODES).int().cpu().numpy()
+    is_train = np.random.default_rng(11).random(NUM_NODES) < 0.7
+
+    def lists(sel):
+        return np.split(b[sel], np.searchsorted(a[sel],
+                                                np.arange(1, NUM_NODES)))
+
+    return lists(slice(None)), lists(is_train[a] & is_train[b]), is_train
+
+
+def native_walks(data) -> dict:
+    """The C++ host builder on bench.py's graph: build it, pad the train
+    and the full adjacency to 128 and time each, then 10 walks of length
+    5 from every train node (timed, pairs/s), and the Python walker on
+    2,000 of them beside it. Fails if a NumPy path ran. Returns the graph,
+    the train degrees and the walk pairs for node2vec."""
+    from graphsage_tpu_torch.data import native
+    from graphsage_tpu_torch.data.adjacency import pad_neighbor_lists
+    from graphsage_tpu_torch.data.walks import (
+        python_random_walks,
+        run_random_walks,
+    )
+
+    t0 = time.perf_counter()
+    check(native.available(), "the C++ host builder did not build or load")
+    log(f"native: graph_builder.cpp built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    full, train, is_train = bench_graph(data)
+    n_edges = sum(map(len, full)) // 2
+    log(f"native: bench.py's graph, {NUM_NODES} nodes, {n_edges} undirected "
+        f"edges ({sum(map(len, train)) // 2} among {int(is_train.sum())} "
+        f"train nodes), made in {time.perf_counter() - t0:.2f} s")
+    calls = (native.native_pad_adjacency.calls,
+             native.native_random_walks.calls)
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    train_adj, deg = pad_neighbor_lists(train, NUM_NODES, MAX_DEGREE, rng)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full_adj, _ = pad_neighbor_lists(full, NUM_NODES, MAX_DEGREE, rng)
+    t_full = time.perf_counter() - t0
+    check(train_adj.shape == full_adj.shape == (NUM_NODES + 1, MAX_DEGREE)
+          and (full_adj[NUM_NODES] == NUM_NODES).all()
+          and (train_adj[:NUM_NODES][~is_train] == NUM_NODES).all(),
+          "padded adjacency: bad shape or dummy rows")
+    for i in (0, 1, 77, NUM_NODES - 1):
+        check(np.isin(full_adj[i], full[i]).all(),
+              f"padded row {i} holds ids that are not its neighbors")
+    log(f"native: padded adjacency [{NUM_NODES + 1}, {MAX_DEGREE}]: train "
+        f"{t_train:.3f} s, full {t_full:.3f} s")
+    nodes = np.flatnonzero(is_train)
+    walks, walk_len = 10, 5
+    t0 = time.perf_counter()
+    pairs = run_random_walks(train, nodes, walks, walk_len, rng)
+    t_walk = time.perf_counter() - t0
+    check((native.native_pad_adjacency.calls,
+           native.native_random_walks.calls) == (calls[0] + 2, calls[1] + 1),
+          "the padding or the walks took the NumPy path")
+    sub = nodes[:2000]
+    t0 = time.perf_counter()
+    py_pairs = python_random_walks(train, sub, walks, walk_len,
+                                   np.random.default_rng(4))
+    t_py = time.perf_counter() - t0
+    check(len(pairs) > 0 and (pairs[:, 0] != pairs[:, 1]).all()
+          and is_train[pairs].all(), "bad walk pairs")
+    log(f"native: walks, {walks} of length {walk_len} from each of "
+        f"{len(nodes)} train nodes: {len(pairs)} pairs in {t_walk:.3f} s, "
+        f"{len(pairs) / t_walk:.1f} pairs/s, "
+        f"{len(nodes) * walks * walk_len / t_walk:.1f} walk steps/s; the "
+        f"Python walker on {len(sub)} of them: {len(py_pairs)} pairs in "
+        f"{t_py:.3f} s, {len(py_pairs) / t_py:.1f} pairs/s, "
+        f"{len(sub) * walks * walk_len / t_py:.1f} walk steps/s")
+    return {"full": full, "is_train": is_train, "deg": deg, "pairs": pairs,
+            "rng": rng}
+
+
+def train_node2vec(dev, graph: dict, chunks: int = 3,
+                   chunk_steps: int = TRAIN_CHUNK, n_sync: int = 10,
+                   n_profile: int = 5) -> None:
+    """node2vec at the trainer's default width (dim 2 x 128 = 256) over
+    bench.py's 100k nodes, batch 512, 20 unique negatives, SGD at lr 2.0,
+    on the native walker's pairs, through the chunk runner: ``chunks``
+    timed chunks of ``chunk_steps`` steps (each with its negatives drawn
+    from host noise, ended by reading loss, train MRR and its EMA), no
+    host synchronisation in a chunk, no kernel of K1-K7, a profile; then
+    the retrain, two chunks over walks from the eval nodes with every
+    other context row frozen (bit-identical after); one step on the card
+    against the CPU with the same pairs and negatives; the first chunk's
+    negatives on the card equal to the CPU's for one seed. Returns the
+    target table's node rows on the host."""
+    import torch
+
+    from graphsage_tpu_torch.data.walks import run_random_walks
+    from graphsage_tpu_torch.models import node2vec as n2v
+    from graphsage_tpu_torch.nn.negative import (
+        NOISE_BLOCK_ELEMS,
+        sample_negatives_unique,
+        unigram_logits,
+    )
+    from graphsage_tpu_torch.parallel.dp import make_node2vec_chunk_runner
+    from graphsage_tpu_torch.train.unsupervised import pad_pairs
+
+    config = n2v.Node2VecConfig(NUM_NODES + 1, N2V_DIM, NEG_SAMPLES, N2V_LR)
+    params = n2v.init_node2vec_params(torch.Generator().manual_seed(0),
+                                      config, dev)
+    optimizer = n2v.make_optimizer(N2V_LR)
+    opt_state = optimizer.init(params)
+    logits_cpu = unigram_logits(
+        np.concatenate([graph["deg"], [0]]).astype(np.float32))
+    logits = logits_cpu.to(dev)
+    host_rng = np.random.default_rng(12)
+
+    def stream(pairs):
+        padded = pad_pairs(pairs, BATCH, NUM_NODES)
+        return torch.from_numpy(
+            padded[host_rng.permutation(len(padded))]).to(dev)
+
+    pairs_dev = stream(graph["pairs"])
+    run = make_node2vec_chunk_runner(config, optimizer, BATCH, NUM_NODES)
+    state = {"shadow": torch.full((), -1.0, device=dev), "step": 0}
+
+    def chunk(n, negs=None, runner=run, pairs=pairs_dev, *mask):
+        if negs is None:
+            negs = sample_negatives_unique(host_rng, logits, NEG_SAMPLES, n)
+        _, _, state["shadow"], loss, mrr = runner(
+            params, opt_state, state["shadow"], pairs, negs, state["step"], n,
+            *mask)
+        state["step"] += n
+        return loss, mrr
+
+    loss, _ = chunk(5)                                   # warm-up
+    check(np.isfinite(float(loss)), "node2vec: non-finite loss in warm-up")
+    reset_counts()
+    times, reads = [], []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mrr = chunk(chunk_steps)
+        reads.append(torch.stack([loss, mrr, state["shadow"]]).tolist())
+        times.append(time.perf_counter() - t0)
+        lv, mv, sv = reads[-1]
+        check(np.isfinite(lv), f"node2vec: non-finite loss {lv}")
+        check(0.0 < mv <= 1.0 and 0.0 < sv <= 1.0,
+              f"node2vec: train MRR {mv} or its EMA {sv} not in (0, 1]")
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"node2vec launched kernels of K1-K7: {counts}")
+    for i, (dt, (lv, mv, sv)) in enumerate(zip(times, reads)):
+        log(f"node2vec train chunk {i + 1}: {chunk_steps} steps in "
+            f"{dt * 1e3:.2f} ms, {dt / chunk_steps * 1e3:.4f} ms/step, "
+            f"{BATCH * chunk_steps / dt:.1f} pairs/s (negatives' host "
+            f"noise included); loss {lv:.5f}, train MRR {mv:.5f}, EMA "
+            f"{sv:.5f}")
+    negs = sample_negatives_unique(host_rng, logits, NEG_SAMPLES,
+                                   max(n_sync, n_profile))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_noise = sample_negatives_unique(host_rng, logits, NEG_SAMPLES,
+                                         chunk_steps)
+    torch.cuda.synchronize()
+    log(f"node2vec: a chunk's negatives ([{chunk_steps}, {NUM_NODES + 1}] "
+        f"float32 host noise, {chunk_steps * (NUM_NODES + 1) * 4 / 1e6:.1f} "
+        f"MB copied in blocks of at most {NOISE_BLOCK_ELEMS * 4 / 2**20:g} "
+        f"MiB, top {NEG_SAMPLES} on the card) in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    del host_noise
+    syncs = count_syncs("node2vec", lambda: chunk(n_sync, negs[:n_sync]),
+                        n_sync)
+    check(syncs == 0, f"node2vec: {syncs} host synchronisations per step")
+    profile_window(lambda: chunk(n_profile, negs[:n_profile]),
+                   f"node2vec, {n_profile} training steps")
+
+    # the retrain: walks from the eval nodes over the whole graph, their
+    # contexts train nodes (fixed_n2v); only eval nodes' context rows train
+    is_train = graph["is_train"]
+    walks = run_random_walks(graph["full"], np.flatnonzero(~is_train), 10, 5,
+                             graph["rng"])
+    retrain_pairs = stream(walks[is_train[walks[:, 1]]])
+    update_mask = torch.from_numpy(
+        np.append(~is_train, False).astype(np.float32)).to(dev)
+    frozen = update_mask == 0
+    before = {k: params[k].detach().clone() for k in ("context", "target")}
+    retrain = make_node2vec_chunk_runner(config, optimizer, BATCH, NUM_NODES,
+                                         with_update_mask=True)
+    state.update(shadow=torch.full((), -1.0, device=dev), step=0)
+    for _ in range(2):
+        loss, _ = chunk(chunk_steps, None, retrain, retrain_pairs,
+                        update_mask)
+    same = bool(torch.equal(params["context"].detach()[frozen],
+                            before["context"][frozen]))
+    evalnodes = torch.from_numpy(np.append(~is_train, False)).to(dev)
+    moved = (params["target"].detach()[evalnodes]
+             != before["target"][evalnodes]).any(dim=1).float().mean().item()
+    log(f"node2vec retrain: {2 * chunk_steps} steps, loss {float(loss):.5f}; "
+        f"{int(frozen.sum())} frozen context rows bit-identical: {same}; "
+        f"eval nodes' target rows moved: {moved:.4f} of them")
+    check(same, "node2vec retrain moved a frozen context row")
+    check(moved > 0, "node2vec retrain moved no eval node's target row")
+
+    # one step on the card against the plain CPU step
+    pair = pairs_dev[:BATCH]
+    b1, b2 = pair[:, 0], pair[:, 1]
+    mask = (b1 != NUM_NODES).float()
+    step_negs = negs[0]
+    grads, losses = {}, {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = {k: v.detach().to(where).clone().requires_grad_(True)
+             for k, v in params.items()}
+        loss, _ = n2v.node2vec_loss(p, b1.to(where), b2.to(where),
+                                    mask.to(where), step_negs.to(where),
+                                    config)
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = {k: v.grad.cpu() for k, v in p.items()}
+        del p
+    loss_diff = abs(losses["card"] - losses["cpu"])
+    worst = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max())
+             for k in grads["cpu"]}
+    log(f"node2vec one step, card vs CPU: loss {losses['card']:.6f} vs "
+        f"{losses['cpu']:.6f} (diff {loss_diff:.3e}, limit {N2V_TOL}); "
+        f"gradients max abs diff {worst} (limit {N2V_TOL})")
+    check(loss_diff <= N2V_TOL and max(worst.values()) <= N2V_TOL,
+          f"node2vec card vs CPU: loss {loss_diff}, gradients {worst}")
+
+    # the trainer's first chunk of negatives: host noise after the
+    # epoch's permutation, from one seed, on both devices
+    ids = {}
+    for name, lg in (("card", logits), ("cpu", logits_cpu)):
+        rng = np.random.default_rng(123)
+        rng.permutation(len(pairs_dev))
+        ids[name] = sample_negatives_unique(rng, lg, NEG_SAMPLES,
+                                            TRAIN_CHUNK).cpu()
+    same = bool(torch.equal(ids["card"], ids["cpu"]))
+    log(f"node2vec: the first chunk's negatives [{TRAIN_CHUNK}, "
+        f"{NEG_SAMPLES}] from seed 123, card equal to CPU: {same}")
+    check(same, "node2vec negatives differ between the card and the CPU")
+    return params["target"].detach()[:NUM_NODES].cpu().numpy()
+
+
+def eval_full_width(dev, target: np.ndarray, is_train: np.ndarray,
+                    n_profile: int = 200) -> None:
+    """``eval``'s classifier at Reddit's scale (``run_regression``, the
+    entry point ``evaluate_embeddings`` calls): the node2vec phase's
+    256-d target rows of bench.py's ~70k train nodes, 41 classes
+    planted from numpy seed 13 (each row's argmax under a random linear
+    map, so the fit has a signal to find), scored on the ~30k other
+    nodes; EVAL_EPOCHS fixed epochs (``--sgd_max_iter``) on the card and
+    on the CPU, then on the CPU with the train rows moved by 1e-15 of
+    themselves (a control: how far rounding alone moves the F1s). Logs
+    us per sample update and the fit's seconds on each; fails unless the
+    card's F1s are within EVAL_F1_TOL of the CPU's, the dummy's equal,
+    and the test F1 beats the dummy's. A profile of ``n_profile`` sample
+    updates on the card."""
+    import torch
+
+    from graphsage_tpu_torch.evaluation import fit_sgd_logistic, run_regression
+
+    rng = np.random.default_rng(13)
+    labels = np.argmax(target @ rng.standard_normal(
+        (target.shape[1], NUM_CLASSES)), axis=1)
+    x_train = target[is_train].astype(np.float64)
+    moved = x_train * (1 + 1e-15 * rng.standard_normal(x_train.shape))
+    out = {}
+    for name, where, x in (("card", dev, x_train),
+                           ("CPU", torch.device("cpu"), x_train),
+                           ("CPU, X moved by 1e-15", torch.device("cpu"),
+                            moved)):
+        r = run_regression(x, labels[is_train], target[~is_train],
+                           labels[~is_train], seed=1,
+                           sgd_max_iter=EVAL_EPOCHS, device=where)
+        out[name] = {k: r[k] for k in ("test_f1", "train_f1", "dummy_f1")}
+        log(f"eval at full width on the {name}: {len(x)} train rows x "
+            f"{target.shape[1]}, {NUM_CLASSES} classes, {EVAL_EPOCHS} "
+            f"epochs: {r['fit_updates']} sample updates in "
+            f"{r['fit_seconds']:.3f} s, "
+            f"{r['fit_seconds'] / r['fit_updates'] * 1e6:.2f} us each; "
+            f"F1 test {r['test_f1']!r}, train {r['train_f1']!r}, dummy "
+            f"{r['dummy_f1']!r}")
+    diff = {k: abs(out["card"][k] - out["CPU"][k]) for k in out["CPU"]}
+    control = {k: abs(out["CPU, X moved by 1e-15"][k] - out["CPU"][k])
+               for k in out["CPU"]}
+    log(f"eval at full width, F1s card vs CPU: {diff} (limit "
+        f"{EVAL_F1_TOL}; the dummy's 0); CPU vs CPU with X moved by "
+        f"1e-15: {control}")
+    check(max(diff["test_f1"], diff["train_f1"]) <= EVAL_F1_TOL
+          and diff["dummy_f1"] == 0,
+          f"eval F1s differ: card {out['card']}, CPU {out['CPU']}")
+    check(out["card"]["test_f1"] > out["card"]["dummy_f1"],
+          f"eval found no signal: {out['card']}")
+    x = torch.from_numpy(x_train[:n_profile]).to(dev)
+    y = torch.from_numpy((labels[is_train][:n_profile, None] == np.arange(
+        NUM_CLASSES)).astype(np.float64)).to(dev)
+    profile_window(lambda: fit_sgd_logistic(x, y, max_iter=1, tol=None),
+                   f"eval, {n_profile} sample updates")
+
+
 @contextlib.contextmanager
 def plain_hop():
     """The model's fused innermost hop through the kernels' plain
@@ -2345,12 +2693,15 @@ def predict_job(dev, tmp: str, extra: dict):
     return label, cmd, finish
 
 
-def supervised_job(dev, tmp: str, model: str, extra: dict):
+def supervised_job(dev, tmp: str, model: str, extra: dict,
+                   profile: bool = False):
     """(label, command, finish) of ``python -m graphsage_tpu_torch
     supervised`` on the card; ``finish(rc, stdout, stderr)`` runs the
     same training on the CPU: first_k sampling and dropout 0 leave no
     random draw on the device, so the logged losses agree. ``extra``:
-    boolean flags set on both, e.g. {"rows_gather": True}."""
+    boolean flags set on both, e.g. {"rows_gather": True}. ``profile``:
+    the card run takes ``--profile_dir``, whose Chrome trace must name
+    the gather-mean kernel (K1 or K2)."""
     from graphsage_tpu_torch.data.synthetic import (
         make_synthetic_graph,
         write_dataset,
@@ -2374,6 +2725,10 @@ def supervised_job(dev, tmp: str, model: str, extra: dict):
     for k, v in args.items():
         cmd += [f"--{k}", str(v)]
     cmd += [f"--{k}" for k in extra]
+    profile_dir = os.path.join(tmp, "profile")
+    if profile:
+        label += " --profile_dir"
+        cmd += ["--profile_dir", profile_dir]
 
     def logged(base):
         log_dir = os.path.join(base, "sup-toy", f"{model}_small_0.0100")
@@ -2404,6 +2759,26 @@ def supervised_job(dev, tmp: str, model: str, extra: dict):
             f"{CLI_TOL}); first/last train loss {card_losses[0]:.5f}/"
             f"{card_losses[-1]:.5f}, val {card_val:.5f}")
         check(diff <= CLI_TOL, f"card and CPU training differ by {diff}")
+        if extra.get("log_histograms"):
+            for base in ("card", "cpu"):
+                path = os.path.join(tmp, base, "sup-toy",
+                                    f"{model}_small_0.0100",
+                                    "histograms.jsonl")
+                with open(path) as fp:
+                    names = {json.loads(line)["name"] for line in fp}
+                log(f"{label}: {base} histograms of {len(names)} tensors")
+                check({"params/head.w", "acts/layer_0/hop_0"} <= names,
+                      f"{path} lacks a histogram")
+        if profile:
+            (trace,) = os.listdir(profile_dir)
+            with open(os.path.join(profile_dir, trace)) as fp:
+                events = json.load(fp)["traceEvents"]
+            gathers = sorted({e["name"] for e in events
+                              if "gather_mean" in e.get("name", "")
+                              and e.get("cat") == "kernel"})
+            log(f"{label}: trace {trace}, {len(events)} events; its "
+                f"gather-mean kernels: {gathers}")
+            check(gathers, "the profile trace names no gather-mean kernel")
 
     return label, cmd, finish
 
@@ -2517,11 +2892,105 @@ def unsupervised_job(dev, tmp: str, prefix: str, model: str):
     return label, cmd, finish
 
 
+def f1s(stdout: str) -> dict:
+    """The F1 lines the eval subcommand prints."""
+    out = {}
+    for line in stdout.splitlines():
+        if "F1" in line and ":" in line:
+            key, value = line.rsplit(":", 1)
+            out[key.strip()] = float(value.split()[0])
+    return out
+
+
+def n2v_job(dev, tmp: str, prefix: str):
+    """(label, command, finish) of ``python -m graphsage_tpu_torch
+    unsupervised --model n2v --save_embeddings`` on the card, on the walk
+    pairs of ``prefix``; ``finish(rc, stdout, stderr)`` runs the same
+    training on the CPU (negatives from the same host noise: no random
+    draw differs), holds every logged loss, MRR and EMA to the CPU's
+    within CLI_TOL and val.npy and val-test.npy within 1e-5, then scores
+    the card run's embeddings with ``eval`` on the card and on the CPU:
+    the same F1s."""
+    from graphsage_tpu_torch.evaluation import evaluate_embeddings
+    from graphsage_tpu_torch.train.config import TrainFlags
+    from graphsage_tpu_torch.train.unsupervised import train
+
+    label = "unsupervised CLI --model n2v --save_embeddings"
+    args = dict(dim_1=16, batch_size=64, neg_sample_size=10,
+                learning_rate=N2V_LR, epochs=2, print_every=5,
+                n2v_test_epochs=2, seed=9)
+    cmd = [sys.executable, "-m", "graphsage_tpu_torch", "unsupervised",
+           "--train_prefix", prefix, "--model", "n2v", "--save_embeddings",
+           "--base_log_dir", os.path.join(tmp, "card"), "--device",
+           str(dev)]
+    for k, v in args.items():
+        cmd += [f"--{k}", str(v)]
+
+    def logged(base):
+        log_dir = os.path.join(base, "unsup-toy", "n2v_small_2.000000")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as fp:
+            recs = [[r[k] for k in ("train_loss", "train_mrr",
+                                    "train_mrr_ema")]
+                    for r in map(json.loads, fp)]
+        return log_dir, recs, [np.load(os.path.join(log_dir, name))
+                               for name in ("val.npy", "val-test.npy")]
+
+    def finish(rc: int, stdout: str, stderr: str) -> None:
+        log("\n".join(stdout.strip().splitlines()[-2:]))
+        check(rc == 0, f"{label} exited {rc}: {stderr[-2000:]}")
+        card_dir, card_recs, card_rows = logged(os.path.join(tmp, "card"))
+        evals = subprocess.Popen(
+            [sys.executable, "-m", "graphsage_tpu_torch", "eval", prefix,
+             card_dir, "test", "--device", str(dev)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            flags = TrainFlags(train_prefix=prefix, model="n2v",
+                               base_log_dir=os.path.join(tmp, "cpu"),
+                               **args)
+            with contextlib.redirect_stdout(io.StringIO()):
+                train(flags, device="cpu")
+            cpu_out = io.StringIO()
+            with contextlib.redirect_stdout(cpu_out):
+                evaluate_embeddings(prefix, card_dir, "test", device="cpu")
+            e_out, e_err = evals.communicate(timeout=600)
+        finally:
+            if evals.poll() is None:
+                evals.kill()
+                evals.communicate()
+        _, cpu_recs, cpu_rows = logged(os.path.join(tmp, "cpu"))
+        check(len(card_recs) == len(cpu_recs) > 0,
+              f"{len(card_recs)} vs {len(cpu_recs)} logged records")
+        diff = float(np.abs(np.array(card_recs) - np.array(cpu_recs)).max())
+        rows_diff = [float(np.abs(a - b).max())
+                     for a, b in zip(card_rows, cpu_rows)]
+        log(f"{label} on {dev} vs CPU: {len(card_recs)} records of train "
+            f"loss, MRR and EMA, max abs diff {diff:.3e} (limit {CLI_TOL}); "
+            f"val.npy {card_rows[0].shape} and val-test.npy max abs diff "
+            f"{rows_diff[0]:.3e} and {rows_diff[1]:.3e} (limit 1e-5); "
+            f"first/last train loss {card_recs[0][0]:.5f}/"
+            f"{card_recs[-1][0]:.5f}")
+        check(diff <= CLI_TOL, f"card and CPU node2vec differ by {diff}")
+        check(max(rows_diff) <= 1e-5, f"card and CPU embeddings differ by "
+              f"{rows_diff}")
+        check(evals.returncode == 0, f"eval CLI exited {evals.returncode}: "
+              f"{e_err[-2000:]}")
+        card_f1, cpu_f1 = f1s(e_out), f1s(cpu_out.getvalue())
+        log(f"eval CLI on {dev}: {e_out.strip()}")
+        log(f"eval on the CPU: {cpu_out.getvalue().strip()}")
+        check(card_f1 == cpu_f1 and len(card_f1) == 3,
+              f"eval F1s differ: card {card_f1}, CPU {cpu_f1}")
+
+    return label, cmd, finish
+
+
 def cli_phases(dev) -> None:
     """Every CLI check: ``predict`` (plain and ``--dedup_gather``),
     ``supervised`` (graphsage_mean, graphsage_meanpool, graphsage_seq
-    with ``--rows_gather``), and ``walks``, then ``unsupervised`` and
-    ``embed`` (graphsage_mean, graphsage_meanpool). The card-side
+    with ``--rows_gather``, and graphsage_mean with ``--degree_relabel
+    --defer_features --log_histograms --profile_dir``), and ``walks``,
+    then ``unsupervised`` and ``embed`` (graphsage_mean,
+    graphsage_meanpool) and ``unsupervised --model n2v`` followed by
+    ``eval``. The card-side
     processes start together, since each takes seconds to reach the
     card; the CPU references run here meanwhile, one after another.
     Every process is ended before this returns."""
@@ -2542,6 +3011,10 @@ def cli_phases(dev) -> None:
                              "graphsage_mean"),
             unsupervised_job(dev, os.path.join(tmp, "u1"), prefix,
                              "graphsage_meanpool"),
+            n2v_job(dev, os.path.join(tmp, "n2v"), prefix),
+            supervised_job(dev, os.path.join(tmp, "s3"), "graphsage_mean",
+                           {"degree_relabel": True, "defer_features": True,
+                            "log_histograms": True}, profile=True),
         ]
         t0 = time.perf_counter()
         procs = []
@@ -2660,6 +3133,12 @@ def main() -> int:
     k2["launches_unsup_train"] = routes["K2"]
     k6["launches_unsup_train"] = routes["K6"]
     k5["launches_embed_sweep"] = routes["K5"]
+    graph = phase("native host builder on bench.py's graph", native_walks,
+                  data)
+    target = phase("node2vec at full width", train_node2vec, dev, graph)
+    phase("eval at full width", eval_full_width, dev, target,
+          graph["is_train"])
+    del graph, target
     k1["ms_unsup_hop"] = unsup_hop["ms"]
     k1["bound_ms_unsup_hop"] = unsup_hop["bound_ms"]
     for label, fused, plain, kernel, p_limit in (
@@ -2679,8 +3158,9 @@ def main() -> int:
               fused_vs_unfused_unsup, dev, data,
               f"unsupervised {aggregator}", kernel, aggregator, p_limit)
     phase("CLI: predict (and --dedup_gather), supervised (mean, meanpool, "
-          "seq --rows_gather), walks, unsupervised and embed (mean, "
-          "meanpool) on the card against the CPU", cli_phases, dev)
+          "seq --rows_gather, mean with the data and logging options), "
+          "walks, unsupervised and embed (mean, meanpool), node2vec and "
+          "eval on the card against the CPU", cli_phases, dev)
     probe_counts = phase("the probe's entry point (K7)", drive_probe, dev,
                          card_line)
     for (key, _, _), entry in zip(K7_INSTANCES, k7):

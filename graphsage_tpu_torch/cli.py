@@ -1,9 +1,13 @@
 """Command-line interface: ``python -m graphsage_tpu_torch
-supervised|predict|unsupervised|embed|walks ...``.
+supervised|predict|unsupervised|embed|eval|walks ...``.
 
 The subcommands take the JAX package's flag names and defaults for the
 fields the port reads (``unsupervised`` and ``embed``: lr 1e-5, 1 epoch,
 max_degree 100, print_every 50), plus ``--device`` (default ``cuda``).
+The multi-device flags (``--graph_shards``, ``--data_shards``,
+``--n_model_shards`` above 1, and the multi-host
+``--coordinator_address``/``--num_processes``/``--process_id``) are
+accepted and refused.
 """
 
 from __future__ import annotations
@@ -69,6 +73,22 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
     p.add_argument("--data_shards", type=int, default=d.data_shards,
                    help="accepted for the JAX package's command lines; "
                    "above 1 it is refused (one device)")
+    p.add_argument("--n_model_shards", type=int, default=d.n_model_shards,
+                   help="accepted for the JAX package's command lines; "
+                   "above 1 it is refused (one device)")
+    for flag in ("--coordinator_address", "--num_processes",
+                 "--process_id"):
+        p.add_argument(flag, default=None,
+                       help="multi-host: accepted for the JAX package's "
+                       "command lines and refused (one device)")
+    p.add_argument("--defer_features", action=argparse.BooleanOptionalAction,
+                   default=d.defer_features,
+                   help="leave the feature table on disk at load time "
+                   "(node2vec never reads it)")
+    p.add_argument("--degree_relabel", action=argparse.BooleanOptionalAction,
+                   default=d.degree_relabel,
+                   help="renumber the nodes by descending degree (original "
+                   "ids round-trip in every output)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--checkpoint_dir", default=d.checkpoint_dir)
     p.add_argument("--device", default="cuda",
@@ -87,6 +107,13 @@ def _add_train_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
     p.add_argument("--checkpoint_every", type=int,
                    default=d.checkpoint_every)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile_dir", default=d.profile_dir,
+                   help="torch.profiler's Chrome trace of the training "
+                   "loop, written into this directory")
+    p.add_argument("--log_histograms", action="store_true",
+                   help="histograms of the params and a probe batch's "
+                   "activations at print steps (histograms.jsonl, and "
+                   "TensorBoard where it imports)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,6 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(p, du, UNSUPERVISED_MODELS, head=False)
     _add_train_flags(p, du)
     p.add_argument("--neg_sample_size", type=int, default=du.neg_sample_size)
+    p.add_argument("--n2v_test_epochs", type=int, default=du.n2v_test_epochs,
+                   help="epochs of node2vec's retrain on the val and test "
+                   "nodes (with --save_embeddings)")
     p.add_argument("--random_context", action=argparse.BooleanOptionalAction,
                    default=du.random_context,
                    help="train on the walk pairs of <prefix>-walks.txt "
@@ -131,6 +161,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "embedding draws no negatives")
     p.add_argument("--out_dir", default=None,
                    help="output dir (default: the unsupervised log dir)")
+
+    p = sub.add_parser("eval", help="logistic-regression eval of saved "
+                       "embeddings (the reference's eval scripts)")
+    p.add_argument("train_prefix", help="dataset prefix")
+    p.add_argument("embed_dir",
+                   help="directory with val.npy/val.txt, or 'feat'")
+    p.add_argument("setting", choices=("val", "test"))
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--sgd_max_iter", type=int, default=None,
+                   help="fix the SGD epochs, with no tolerance stop (else "
+                   "up to 1000, stopping at tol 1e-3)")
+    p.add_argument("--label_tsvs", default=None,
+                   help="comma-separated per-class TSV label files (the "
+                   "reference's citation eval)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:<i> or cpu; "
+                   "the fit steps once per sample, six kernel launches "
+                   "a step on the card, so cpu fits faster")
 
     p = sub.add_parser("walks", help="random-walk pairs of the train-node "
                        "subgraph, as a walks file")
@@ -169,6 +217,22 @@ def main(argv=None) -> int:
     if args.command == "walks":
         _walks(args)
         return 0
+    if args.command == "eval":
+        from graphsage_tpu_torch.evaluation import evaluate_embeddings
+
+        evaluate_embeddings(
+            args.train_prefix, args.embed_dir, args.setting, seed=args.seed,
+            sgd_max_iter=args.sgd_max_iter,
+            label_tsvs=(args.label_tsvs.split(",") if args.label_tsvs
+                        else None),
+            device=args.device)
+        return 0
+    if (args.coordinator_address is not None
+            or int(args.num_processes or 0) > 1):
+        raise NotImplementedError(
+            "multi-host training (--coordinator_address, --num_processes): "
+            "the port runs on one device; the parallel stack is "
+            "ROADMAP.md A.9")
     defaults = (UNSUP_DEFAULTS if args.command in ("unsupervised", "embed")
                 else TrainFlags())
     fields = {f.name for f in dataclasses.fields(TrainFlags)}

@@ -28,6 +28,13 @@ class GraphData:
     train_removed: np.ndarray     # [E] bool — touches a val/test endpoint
     neighbors: list         # list of [deg_i] int32 arrays, full adjacency
     walks: np.ndarray | None = None   # [W, 2] int32 co-occurrence pairs
+    # A deferred feature table (load_data(load_features=False)): the
+    # feats file's row of each node index, and (path, file rows, width)
+    # of the table on disk while ``features`` is None.
+    feat_rows: np.ndarray | None = None
+    feature_meta: tuple | None = None
+    # the normalize intent of load_data, which deferred loads keep
+    feature_normalize: bool = True
 
     @property
     def num_nodes(self) -> int:
@@ -35,7 +42,12 @@ class GraphData:
 
     @property
     def feature_dim(self) -> int:
-        return 0 if self.features is None else self.features.shape[1]
+        """Feature width, whether the table is in memory or deferred."""
+        if self.features is not None:
+            return self.features.shape[1]
+        if self.feature_meta is not None:
+            return self.feature_meta[2]
+        return 0
 
     @property
     def is_train(self) -> np.ndarray:

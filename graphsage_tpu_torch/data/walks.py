@@ -2,14 +2,18 @@
 
 The reference's walk generator: ``num_walks`` walks of length
 ``walk_len`` from each start node, emitting (start, visited) pairs and
-skipping the start itself. A pure-Python walker: for the same NumPy
-``Generator`` it draws the same pairs as the JAX package's Python
-walker.
+skipping the start itself. ``run_random_walks`` takes the C++ builder
+(``data/native.py``) first, as the JAX package does, seeded by one draw
+of the caller's generator; ``python_random_walks``, where the library is
+unavailable, draws the same pairs as the JAX package's Python walker for
+the same NumPy ``Generator``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from graphsage_tpu_torch.data import native
 
 WALK_LEN = 5
 N_WALKS = 50
@@ -30,6 +34,19 @@ def run_random_walks(
     """
     if rng is None:
         rng = np.random.default_rng(0)
+    pairs = native.native_random_walks(
+        neighbors, np.asarray(nodes, dtype=np.int32), num_walks, walk_len,
+        int(rng.integers(0, 2**31 - 1)))
+    if pairs is None:
+        pairs = python_random_walks(neighbors, nodes, num_walks, walk_len,
+                                    rng)
+    return pairs
+
+
+def python_random_walks(neighbors: list, nodes: np.ndarray, num_walks: int,
+                        walk_len: int, rng: np.random.Generator
+                        ) -> np.ndarray:
+    """The Python walker: [W, 2] int32 pairs drawn from ``rng``."""
     pairs = []
     for node in nodes:
         if len(neighbors[node]) == 0:

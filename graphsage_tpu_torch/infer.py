@@ -31,12 +31,15 @@ from graphsage_tpu_torch.device import resolve_device
 from graphsage_tpu_torch.models.supervised import init_supervised_params
 from graphsage_tpu_torch.models.unsupervised import init_unsupervised_params
 from graphsage_tpu_torch.train import checkpoint as ckpt
-from graphsage_tpu_torch.train.config import TrainFlags, require_ported
+from graphsage_tpu_torch.train.config import (
+    TrainFlags,
+    feature_table,
+    require_ported,
+)
 from graphsage_tpu_torch.train.metrics import calc_f1
 from graphsage_tpu_torch.train.supervised import (
     _run_eval_sweep,
     build_supervised_config,
-    feature_table,
     make_eval_sweep,
 )
 
@@ -46,7 +49,8 @@ NODE_SETS = ("test", "val", "train", "all")
 def _prepare(flags: TrainFlags, graph, device):
     """Load the dataset and place the feature table and full adjacency."""
     if graph is None:
-        graph = load_data(flags.train_prefix)
+        graph = load_data(flags.train_prefix,
+                          degree_relabel=flags.degree_relabel)
     # inference always sees the full graph (the reference's "test"
     # adjacency, swapped in for every eval)
     _, _, full_adj_np = build_both_adjs(

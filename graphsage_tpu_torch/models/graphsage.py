@@ -148,8 +148,13 @@ def gather_features(params, features, idx, config: SAGEConfig):
 def aggregate_pyramid(params, hidden: list, batch_size: int,
                       config: SAGEConfig, generator=None,
                       deterministic: bool = True,
-                      last_hop_neigh_mean=None):
+                      last_hop_neigh_mean=None,
+                      capture: dict | None = None):
     """Fold the hop pyramid; ``hidden[h]`` holds frontier h's rows.
+
+    ``capture``: a dict that receives the batch's input rows
+    (``acts/input``) and each aggregator call's output
+    (``acts/layer_<L>/hop_<H>``), for ``--log_histograms``.
 
     ``last_hop_neigh_mean``: optional pre-reduced input for the
     innermost hop (layer 0's last aggregator call): the [B*support, F]
@@ -165,6 +170,8 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
     for k in range(n_layers):
         support.append(support[-1] * fanouts[n_layers - k - 1])
 
+    if capture is not None and hidden[0] is not None:
+        capture["acts/input"] = hidden[0]
     for layer in range(n_layers):
         layer_params = agg_params(params, layer)
         is_last = layer == n_layers - 1
@@ -186,12 +193,15 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
                     fanouts[n_layers - hop - 1],
                     dim_mult * dims[layer],
                 )
-            next_hidden.append(apply_aggregator(
+            h = apply_aggregator(
                 config.aggregator, layer_params, hidden[hop], neigh,
                 act=act, concat=config.concat,
                 dropout_rate=config.dropout, generator=generator,
                 deterministic=deterministic, **extra,
-            ))
+            )
+            if capture is not None:
+                capture[f"acts/layer_{layer}/hop_{hop}"] = h
+            next_hidden.append(h)
         hidden = next_hidden
     return hidden[0]
 
@@ -199,10 +209,12 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
 def sage_embed(params, features, adj, ids, config: SAGEConfig,
                generator: torch.Generator | None = None,
                deterministic: bool = True,
-               drop_key: tuple[int, int] | None = None):
+               drop_key: tuple[int, int] | None = None,
+               capture: dict | None = None):
     """Sample -> gather -> aggregate: [B] ids -> [B, out] raw
     (un-normalized) embeddings. ``generator`` (on ``adj``'s device)
-    drives the sampler and, when not ``deterministic``, dropout.
+    drives the sampler and, when not ``deterministic``, dropout;
+    ``capture`` receives the activations (``aggregate_pyramid``).
 
     The innermost hop's routes, as in the JAX package:
     - ``fused_gather`` with mean or gcn: ``fused_gather_mean`` reduces
@@ -280,6 +292,7 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
         params, hidden, ids.shape[0], config,
         generator=None if deterministic else generator,
         deterministic=deterministic, last_hop_neigh_mean=last_mean,
+        capture=capture,
     )
 
 

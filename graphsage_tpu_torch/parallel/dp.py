@@ -15,6 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from graphsage_tpu_torch.models.node2vec import (
+    Node2VecConfig,
+    mask_context_gradients,
+    node2vec_loss,
+)
 from graphsage_tpu_torch.models.supervised import (
     SupervisedConfig,
     supervised_loss,
@@ -156,6 +161,77 @@ def make_unsupervised_chunk_runner(config: UnsupervisedConfig, optimizer,
                 params, opt_state, generator, features, adj, b1, b2, mask,
                 neg_ids[i], drop_key=(drop_seed, i),
             )
+            shadow_mrr = mrr_ema(shadow_mrr, aux["mrr"])
+        return params, opt_state, shadow_mrr, loss, aux["mrr"]
+
+    return runner
+
+
+def _check_update_mask(with_update_mask: bool, update_mask) -> None:
+    """The factory's flag and the runtime mask must agree: a flag
+    without a mask has nothing to freeze with, and a mask without the
+    flag would train with the freeze silently dropped."""
+    if with_update_mask and update_mask is None:
+        raise ValueError(
+            "with_update_mask=True but no update_mask argument was "
+            "passed: the context-table freeze has no mask")
+    if not with_update_mask and update_mask is not None:
+        raise ValueError(
+            "update_mask passed but the factory was built with "
+            "with_update_mask=False: the freeze would be silently ignored")
+
+
+def make_node2vec_train_step(config: Node2VecConfig, optimizer,
+                             with_update_mask: bool = False):
+    """step(params, opt_state, b1, b2, mask, neg_ids[, update_mask]) ->
+    (params, opt_state, loss, aux): one SGD step over the whole tables.
+    ``update_mask`` [num_nodes] (1 = a trainable context row) is a
+    runtime argument, multiplied into the context table's gradient."""
+
+    def step(params, opt_state, b1, b2, mask, neg_ids, update_mask=None):
+        _check_update_mask(with_update_mask, update_mask)
+        opt_state.zero_grad(set_to_none=True)
+        loss, aux = node2vec_loss(params, b1, b2, mask, neg_ids, config)
+        loss.backward()
+        if with_update_mask:
+            mask_context_gradients(params, update_mask)
+        optimizer.update(opt_state, params)
+        return params, opt_state, loss.detach(), aux
+
+    return step
+
+
+def make_node2vec_chunk_runner(config: Node2VecConfig, optimizer,
+                               batch_size: int, num_nodes: int,
+                               with_update_mask: bool = False):
+    """runner(params, opt_state, shadow_mrr, pairs_perm, neg_ids,
+    start_step, n_steps[, update_mask]) -> (params, opt_state,
+    shadow_mrr, last_loss, last_mrr).
+
+    Runs steps ``start_step .. start_step + n_steps - 1`` of an epoch
+    whose shuffled pair stream ``pairs_perm`` [P, 2], padded with the
+    dummy id ``num_nodes``, lives on the device: step ``start_step + j``
+    takes pairs ``pairs_perm[i*B:(i+1)*B]`` (i its index in the epoch),
+    masks them with ``b1 != num_nodes`` and takes the negatives
+    ``neg_ids[j]`` ([n_steps, n_neg] on the device). The tables have
+    num_nodes + 1 rows, so the dummy's rows exist and are masked out of
+    the loss. The train-MRR EMA ``shadow_mrr`` (a device scalar, < 0
+    until set) is carried through the steps; nothing is read back.
+    """
+    step_fn = make_node2vec_train_step(config, optimizer, with_update_mask)
+
+    def runner(params, opt_state, shadow_mrr, pairs_perm, neg_ids,
+               start_step: int, n_steps: int, update_mask=None):
+        _check_update_mask(with_update_mask, update_mask)
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        for j in range(n_steps):
+            i = start_step + j
+            pair = pairs_perm[i * batch_size:(i + 1) * batch_size]
+            b1, b2 = pair[:, 0], pair[:, 1]
+            mask = (b1 != num_nodes).float()
+            params, opt_state, loss, aux = step_fn(
+                params, opt_state, b1, b2, mask, neg_ids[j], update_mask)
             shadow_mrr = mrr_ema(shadow_mrr, aux["mrr"])
         return params, opt_state, shadow_mrr, loss, aux["mrr"]
 

@@ -4,7 +4,8 @@ port's flat dict of tensors.
 A JAX pytree such as ``{"aggs": [{"neigh_w": ..., "self_w": ...}, ...],
 "head": {"w": ..., "b": ...}, "embeds": ...}`` maps to keys
 ``aggs.0.neigh_w``, ``head.w``, ``embeds``: list positions become path
-components. The bridge sees NumPy arrays only (the caller hands over
+components. node2vec's ``{"target", "context", "bias"}`` keeps its three
+keys. The bridge sees NumPy arrays only (the caller hands over
 ``jax.device_get(params)``), so the port never touches a JAX array.
 
 The optimizer state crosses the same way. The JAX package's optimizer,

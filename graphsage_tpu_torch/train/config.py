@@ -1,15 +1,19 @@
 """Typed configuration mirroring the reference flag surface.
 
 The fields are those the port's serving, supervised and unsupervised
-paths read, with the JAX package's defaults. ``graph_shards`` and
-``data_shards`` exist only to refuse a multi-device run clearly
-(``require_ported``): the parallel stack comes with its own slice.
+paths read, with the JAX package's defaults. ``graph_shards``,
+``data_shards`` and ``n_model_shards`` exist only to refuse a
+multi-device run clearly (``require_ported``): the parallel stack comes
+with its own slice. ``feature_table`` places the feature table the flags
+select, for both trainers and serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+import torch
 
 # model names accepted by the reference dispatchers
 SUPERVISED_MODELS = (
@@ -61,11 +65,19 @@ class TrainFlags:
     rows_gather: bool = False   # K4 gathers the pooled/seq hop's rows
     graph_shards: int = 1       # > 1 is refused: one device only
     data_shards: int = 1        # > 1 is refused: one device only
+    n_model_shards: int = 1     # > 1 is refused: one device only
+    defer_features: bool = False  # read the feature table at training
+                                  # time (node2vec never reads it)
+    degree_relabel: bool = False  # internal ids by descending degree;
+                                  # original ids round-trip everywhere
     feature_dtype: str = "float32"  # or "bfloat16"
     seed: int = 123
     checkpoint_dir: str = ""    # torch checkpoint root ("" = disabled)
     checkpoint_every: int = 0   # steps; 0 = only at the end
     resume: bool = False
+    n2v_test_epochs: int = 1    # node2vec's retrain on the eval nodes
+    profile_dir: str = ""       # torch.profiler Chrome trace output
+    log_histograms: bool = False  # param and activation histograms
 
     def log_dir(self, task: str) -> str:
         """Reference layout: <base>/<sup|unsup>-<data>/<model>_<size>_<lr>/
@@ -90,14 +102,13 @@ class TrainFlags:
 def require_ported(flags: TrainFlags) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP.md item
     that brings it."""
-    if flags.model == "n2v":
-        raise NotImplementedError(
-            "--model n2v is not ported yet: node2vec is ROADMAP.md A.7")
-    if flags.graph_shards > 1 or flags.data_shards > 1:
+    if (flags.graph_shards > 1 or flags.data_shards > 1
+            or flags.n_model_shards > 1):
         raise NotImplementedError(
             f"--graph_shards {flags.graph_shards} --data_shards "
-            f"{flags.data_shards}: the port runs on one device; the "
-            "parallel stack is ROADMAP.md A.9")
+            f"{flags.data_shards} --n_model_shards {flags.n_model_shards}: "
+            "the port runs on one device; the parallel stack is "
+            "ROADMAP.md A.9")
 
 
 def build_layer_infos(flags: TrainFlags, supervised: bool):
@@ -121,3 +132,21 @@ def build_layer_infos(flags: TrainFlags, supervised: bool):
     if variable_depth and flags.samples_3 > 0:
         layers.append(LayerInfo(flags.samples_3, mult * flags.dim_2))
     return agg, concat, tuple(layers)
+
+
+FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def feature_table(graph, flags: TrainFlags, device):
+    """The dummy-padded feature table on ``device`` in --feature_dtype,
+    or None in featureless mode."""
+    if flags.feature_dtype not in FEATURE_DTYPES:
+        raise ValueError(
+            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}"
+        )
+    feats_np = graph.padded_features()
+    if feats_np is None:
+        return None
+    return torch.from_numpy(feats_np).to(
+        device=device, dtype=FEATURE_DTYPES[flags.feature_dtype]
+    )

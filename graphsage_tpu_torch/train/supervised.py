@@ -11,6 +11,13 @@ steps between host synchronisations. Validation crosses
 val set with ``validate_batch_size == -1``), training runs on the train
 adjacency, and the print line and ``val_stats.txt``/``test_stats.txt``
 have the JAX package's format.
+
+Options shared with ``train/unsupervised.py``: ``--profile_dir`` traces
+the training loop with ``torch.profiler`` into a Chrome trace there
+(``train/tblog.py::TrainingProfile``); ``--log_histograms`` logs every
+parameter's and a probe batch's per-layer activations' histograms at
+each print step (``tblog.histogram_probe``,
+``ScalarLogger.log_histograms``).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
-from graphsage_tpu_torch.data.io import load_data
+from graphsage_tpu_torch.data.io import load_data, materialize_features
 from graphsage_tpu_torch.data.minibatch import NodeBatcher
 from graphsage_tpu_torch.device import resolve_device
 from graphsage_tpu_torch.models.graphsage import SAGEConfig
@@ -37,12 +44,16 @@ from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
     TrainFlags,
     build_layer_infos,
+    feature_table,
     require_ported,
 )
 from graphsage_tpu_torch.train.metrics import calc_f1
-from graphsage_tpu_torch.train.tblog import ScalarLogger
+from graphsage_tpu_torch.train.tblog import (
+    ScalarLogger,
+    TrainingProfile,
+    histogram_probe,
+)
 
-FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
@@ -71,21 +82,6 @@ def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
         num_classes=graph.num_classes,
         sigmoid_loss=flags.sigmoid,
         weight_decay=flags.weight_decay,
-    )
-
-
-def feature_table(graph, flags: TrainFlags, device):
-    """The dummy-padded feature table on ``device`` in --feature_dtype,
-    or None in featureless mode."""
-    if flags.feature_dtype not in FEATURE_DTYPES:
-        raise ValueError(
-            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}"
-        )
-    feats_np = graph.padded_features()
-    if feats_np is None:
-        return None
-    return torch.from_numpy(feats_np).to(
-        device=device, dtype=FEATURE_DTYPES[flags.feature_dtype]
     )
 
 
@@ -177,8 +173,12 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     device = resolve_device(device)
     if graph is None:
         print("Loading training data..")
-        graph = load_data(flags.train_prefix)
+        graph = load_data(flags.train_prefix,
+                          load_features=not flags.defer_features,
+                          degree_relabel=flags.degree_relabel)
         print("Done loading training data..")
+    # one device: a deferred table is read whole now
+    graph = materialize_features(graph)
     config = build_supervised_config(flags, graph)
     sigmoid = flags.sigmoid
 
@@ -235,12 +235,16 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
 
     log_dir = flags.log_dir("supervised")
     logger = ScalarLogger(log_dir)
+    probe = (histogram_probe(config.sage, graph, B, flags.seed + 1, device)
+             if flags.log_histograms else None)
     sampler_generator = torch.Generator(device=device).manual_seed(flags.seed)
     host_rng = np.random.default_rng(flags.seed)
     avg_time = 0.0
     timed_steps = 0   # steps timed in this process (not resumed ones)
     val_cost = val_f1_mic = val_f1_mac = 0.0
     stop = False
+    profiler = (TrainingProfile(flags.profile_dir, device)
+                if flags.profile_dir else None)
 
     chunk = max(1, min(flags.print_every, flags.validate_iter))
     for epoch in range(flags.epochs):
@@ -310,6 +314,11 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                     val_loss=val_cost, val_f1_mic=val_f1_mic,
                     val_f1_mac=val_f1_mac, step_time=avg_time,
                 )
+                if probe is not None:
+                    logger.log_histograms(total_steps - 1, params)
+                    logger.log_histograms(
+                        total_steps - 1,
+                        probe(params, features, train_adj), prefix="")
 
             if (flags.checkpoint_dir and flags.checkpoint_every
                     and total_steps % flags.checkpoint_every < n):
@@ -320,6 +329,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                 break
         if stop:
             break
+    if profiler is not None:
+        profiler.stop()
 
     print("Optimization Finished!")
     val_cost, vp, vl, duration = full_eval(batcher.val_nodes)

@@ -15,6 +15,15 @@ from ``seed + 1``; its EMA decays 0.99 per step toward the latest val
 MRR. At the end every node's l2-normalised embedding goes to
 ``val.npy`` and its original id to ``val.txt``, in one sweep and one
 copy to the host.
+
+``--model n2v`` trains the node2vec tables instead (``_train_n2v``):
+SGD over the pair stream, each chunk's unique negatives drawn as
+Gumbel top-k from host noise (``sample_negatives_unique``: [steps, N+1]
+float32 noise, drawn and copied in blocks of at most 16 MiB), so the
+card and the CPU draw the same ids; with ``--save_embeddings`` it writes the
+target table to ``val.npy``, retrains on fresh walks from the val and
+test nodes with every other context row frozen, and writes the retrained
+table to ``val-test.npy``.
 """
 
 from __future__ import annotations
@@ -26,9 +35,11 @@ import numpy as np
 import torch
 
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
-from graphsage_tpu_torch.data.io import load_data
+from graphsage_tpu_torch.data.io import load_data, materialize_features
 from graphsage_tpu_torch.data.minibatch import EdgeBatcher
+from graphsage_tpu_torch.data.walks import run_random_walks
 from graphsage_tpu_torch.device import resolve_device
+from graphsage_tpu_torch.models import node2vec as n2v
 from graphsage_tpu_torch.models.graphsage import (
     SAGEConfig,
     l2_normalize,
@@ -42,17 +53,26 @@ from graphsage_tpu_torch.models.unsupervised import (
 )
 from graphsage_tpu_torch.nn.negative import (
     negatives_from_uniforms,
+    sample_negatives_unique,
     unigram_cdf,
+    unigram_logits,
 )
-from graphsage_tpu_torch.parallel.dp import make_unsupervised_chunk_runner
+from graphsage_tpu_torch.parallel.dp import (
+    make_node2vec_chunk_runner,
+    make_unsupervised_chunk_runner,
+)
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
     TrainFlags,
     build_layer_infos,
+    feature_table,
     require_ported,
 )
-from graphsage_tpu_torch.train.supervised import feature_table
-from graphsage_tpu_torch.train.tblog import ScalarLogger
+from graphsage_tpu_torch.train.tblog import (
+    ScalarLogger,
+    TrainingProfile,
+    histogram_probe,
+)
 
 
 def build_unsupervised_config(flags: TrainFlags,
@@ -172,11 +192,13 @@ def embed_all_nodes(config: UnsupervisedConfig, batch_size: int, params,
     return rows[:n].cpu().numpy()
 
 
-def write_embeddings(out_dir: str, rows: np.ndarray, node_ids: list) -> None:
-    """val.npy (one row per node) and val.txt (the original ids)."""
+def write_embeddings(out_dir: str, rows: np.ndarray, node_ids: list,
+                     mod: str = "") -> None:
+    """val<mod>.npy (one row per node) and val<mod>.txt (the original
+    ids)."""
     os.makedirs(out_dir, exist_ok=True)
-    np.save(os.path.join(out_dir, "val.npy"), rows)
-    with open(os.path.join(out_dir, "val.txt"), "w") as fp:
+    np.save(os.path.join(out_dir, f"val{mod}.npy"), rows)
+    with open(os.path.join(out_dir, f"val{mod}.txt"), "w") as fp:
         fp.write("\n".join(map(str, node_ids)))
 
 
@@ -188,12 +210,13 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     if graph is None:
         print("Loading training data..")
         graph = load_data(flags.train_prefix,
-                          load_walks=flags.random_context)
+                          load_walks=flags.random_context,
+                          load_features=not flags.defer_features,
+                          degree_relabel=flags.degree_relabel)
         print("Done loading training data..")
     if flags.random_context and graph.walks is None:
         raise ValueError("--random_context needs the walk pairs "
                          "(<prefix>-walks.txt, or graph.walks)")
-    config = build_unsupervised_config(flags, graph)
 
     train_adj_np, deg, full_adj_np = build_both_adjs(
         graph, flags.max_degree, seed=flags.seed
@@ -204,6 +227,12 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
         seed=flags.seed,
     )
     log_dir = flags.log_dir("unsupervised")
+    if flags.model == "n2v":
+        # node2vec reads no features: a deferred table stays on disk
+        return _train_n2v(flags, graph, deg, batcher, log_dir, device)
+
+    graph = materialize_features(graph)
+    config = build_unsupervised_config(flags, graph)
     features = feature_table(graph, flags, device)
     train_adj = torch.from_numpy(train_adj_np).to(device)
     full_adj = torch.from_numpy(full_adj_np).to(device)
@@ -252,6 +281,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
             print(f"Resumed from checkpoint at step {total_steps}")
 
     logger = ScalarLogger(log_dir)
+    probe = (histogram_probe(config.sage, graph, B, eval_seed, device)
+             if flags.log_histograms else None)
     sampler_generator = torch.Generator(device=device).manual_seed(flags.seed)
     host_rng = np.random.default_rng(flags.seed)
     train_shadow = torch.full((), -1.0, device=device)  # < 0: unset
@@ -260,6 +291,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     avg_time = 0.0
     timed_steps = 0   # steps timed in this process (not resumed ones)
     stop = False
+    profiler = (TrainingProfile(flags.profile_dir, device)
+                if flags.profile_dir else None)
 
     chunk = max(1, min(flags.print_every, flags.validate_iter))
     for epoch in range(flags.epochs):
@@ -330,6 +363,11 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                     "time=", "{:.5f}".format(avg_time),
                 )
                 logger.log(total_steps - 1, step_time=avg_time, **scal)
+                if probe is not None:
+                    logger.log_histograms(total_steps - 1, params)
+                    logger.log_histograms(
+                        total_steps - 1,
+                        probe(params, features, train_adj), prefix="")
 
             if (flags.checkpoint_dir and flags.checkpoint_every
                     and total_steps % flags.checkpoint_every < n):
@@ -340,6 +378,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                 break
         if stop:
             break
+    if profiler is not None:
+        profiler.stop()
     logger.close()
 
     print("Optimization Finished!")
@@ -360,3 +400,98 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
         "steps": total_steps,
         "log_dir": log_dir,
     }
+
+
+def _train_n2v(flags: TrainFlags, graph, deg, batcher: EdgeBatcher,
+               log_dir: str, device) -> dict:
+    """node2vec over the batcher's pairs, then, with --save_embeddings,
+    the inductive retrain: fresh walks over the full graph from the val
+    and test nodes, every context row but theirs frozen, a fresh SGD
+    state, ``n2v_test_epochs`` epochs."""
+    num_nodes = graph.num_nodes
+    config = n2v.Node2VecConfig(
+        num_nodes=num_nodes + 1, dim=2 * flags.dim_1,
+        neg_sample_size=flags.neg_sample_size,
+        learning_rate=flags.learning_rate)
+    params = n2v.init_node2vec_params(
+        torch.Generator().manual_seed(flags.seed), config, device)
+    optimizer = n2v.make_optimizer(flags.learning_rate)
+    logits = unigram_logits(
+        np.concatenate([deg, [0]]).astype(np.float32)).to(device)
+    host_rng = np.random.default_rng(flags.seed)
+    B = flags.batch_size
+    logger = ScalarLogger(log_dir)
+
+    def run_epochs(n_epochs, pairs, update_mask, verbose):
+        """SGD from a fresh state over ``pairs``, epochs of chunks of
+        ``print_every`` steps; returns the steps run."""
+        opt_state = optimizer.init(params)
+        pairs_padded = pad_pairs(pairs, B, num_nodes)
+        steps_per_epoch = len(pairs_padded) // B
+        run_chunk = make_node2vec_chunk_runner(
+            config, optimizer, B, num_nodes,
+            with_update_mask=update_mask is not None)
+        shadow = torch.full((), -1.0, device=device)   # < 0: unset
+        total = 0
+        avg_time = 0.0
+        chunk = max(1, flags.print_every)
+        for epoch in range(n_epochs):
+            if verbose:
+                print("Epoch: %04d" % (epoch + 1))
+            pairs_perm = torch.from_numpy(
+                pairs_padded[host_rng.permutation(len(pairs_padded))]
+            ).to(device)
+            it = 0
+            while it < steps_per_epoch:
+                n = min(chunk, steps_per_epoch - it,
+                        max(1, flags.max_total_steps + 1 - total))
+                t = time.time()
+                negs = sample_negatives_unique(
+                    host_rng, logits, config.neg_sample_size, n)
+                _, opt_state, shadow, loss, mrr = run_chunk(
+                    params, opt_state, shadow, pairs_perm, negs, it, n,
+                    update_mask)
+                it += n
+                total += n
+                avg_time = (avg_time * (total - n) + time.time() - t) / total
+                if verbose and (total - 1) % flags.print_every < n:
+                    scal = {"train_loss": float(loss),
+                            "train_mrr": float(mrr),
+                            "train_mrr_ema": float(shadow)}
+                    print("Iter:", "%04d" % (it - 1),
+                          "train_loss=", "{:.5f}".format(scal["train_loss"]),
+                          "train_mrr=", "{:.5f}".format(scal["train_mrr"]),
+                          "train_mrr_ema=",
+                          "{:.5f}".format(scal["train_mrr_ema"]),
+                          "time=", "{:.5f}".format(avg_time))
+                    logger.log(total - 1, step_time=avg_time, **scal)
+                if total > flags.max_total_steps:
+                    return total
+        return total
+
+    total_steps = run_epochs(flags.epochs, batcher.train_pairs, None, True)
+    logger.close()
+    print("Optimization Finished!")
+    if flags.save_embeddings:
+        write_embeddings(log_dir, _target_rows(params, num_nodes),
+                         graph.node_ids)
+        evalnodes = np.flatnonzero(graph.is_val | graph.is_test)
+        pairs = run_random_walks(graph.neighbors, evalnodes,
+                                 rng=np.random.default_rng(flags.seed))
+        # fixed_n2v: contexts are train nodes, whose frozen rows carry
+        # the signal
+        retrain = EdgeBatcher(graph, deg, B, context_pairs=pairs,
+                              seed=flags.seed, n2v_retrain=True,
+                              fixed_n2v=True)
+        update_mask = torch.zeros(num_nodes + 1, device=device)
+        update_mask[torch.from_numpy(evalnodes).to(device)] = 1.0
+        run_epochs(flags.n2v_test_epochs, retrain.train_pairs, update_mask,
+                   False)
+        write_embeddings(log_dir, _target_rows(params, num_nodes),
+                         graph.node_ids, mod="-test")
+    return {"params": params, "steps": total_steps, "log_dir": log_dir}
+
+
+def _target_rows(params, num_nodes: int) -> np.ndarray:
+    """The target table's node rows in id order, on the host."""
+    return params["target"].detach()[:num_nodes].cpu().numpy()

@@ -755,3 +755,65 @@ def test_positive_equal_to_negatives_ranks_last(cuda):
         torch.from_numpy(adj).to(cuda), pairs[:, 0], pairs[:, 1],
         torch.ones(64, device=cuda), pairs[0, 1].repeat(8), config)
     assert int(aux["ranks"][0]) == 9
+
+
+def test_node2vec_runner_on_card_matches_cpu(cuda):
+    """Three node2vec steps with the freeze mask on the card and on the
+    CPU, from the same tables, pairs and host-noise negatives: the
+    negatives equal, the params within 1e-5, the frozen context rows
+    bit-identical to the start."""
+    from graphsage_tpu_torch.models import node2vec as n2v
+    from graphsage_tpu_torch.nn.negative import (
+        sample_negatives_unique,
+        unigram_logits,
+    )
+    from graphsage_tpu_torch.parallel.dp import make_node2vec_chunk_runner
+
+    n, d, b = 400, 32, 64
+    config = n2v.Node2VecConfig(n + 1, d, 8, 2.0)
+    rng = np.random.default_rng(3)
+    pairs = rng.integers(0, n, (3 * b, 2)).astype(np.int32)
+    deg = np.append(rng.integers(0, 6, n), 0).astype(np.float32)
+    mask = np.append(rng.random(n) < 0.3, False).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = n2v.init_node2vec_params(torch.Generator().manual_seed(1),
+                                          config, dev)
+        start = params["context"].detach().clone()
+        opt = n2v.make_optimizer(2.0)
+        opt_state = opt.init(params)
+        negs = sample_negatives_unique(np.random.default_rng(9),
+                                       unigram_logits(deg).to(dev), 8, 3)
+        run = make_node2vec_chunk_runner(config, opt, b, n,
+                                         with_update_mask=True)
+        run(params, opt_state, torch.tensor(-1.0, device=dev),
+            torch.from_numpy(pairs).to(dev), negs, 0, 3,
+            torch.from_numpy(mask).to(dev))
+        frozen = torch.from_numpy(mask == 0).to(dev)
+        assert torch.equal(params["context"].detach()[frozen], start[frozen])
+        out[dev.type] = ({k: v.detach().cpu() for k, v in params.items()},
+                         negs.cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    for k in out["cpu"][0]:
+        torch.testing.assert_close(out["cuda"][0][k], out["cpu"][0][k],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_eval_fit_on_card_matches_cpu(cuda):
+    """The eval's SGD logistic regression on the card and on the CPU
+    (float64, one shuffle per epoch), on tests/test_evaluation.py's
+    three-class problem, whose fit moves by 1e-13 of its norm when X
+    moves by 1e-13 (on overlapping classes SGD's first epochs, at eta
+    ~10, grow such differences to a quarter of it): the same epochs and
+    predictions, coefficients within 1e-9 of their largest."""
+    from graphsage_tpu_torch.evaluation import LogisticSGD
+
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 3, 200)
+    x = np.eye(3, 8)[y] * 4 + rng.normal(0, 0.5, (200, 8))
+    card = LogisticSGD(seed=4, device=cuda).fit(x, y)
+    cpu = LogisticSGD(seed=4, device="cpu").fit(x, y)
+    assert list(card.n_iter_) == list(cpu.n_iter_)
+    np.testing.assert_array_equal(card.predict(x), cpu.predict(x))
+    scale = cpu.coef_.abs().max()
+    assert (card.coef_.cpu() - cpu.coef_).abs().max() <= 1e-9 * scale

@@ -1,7 +1,7 @@
 """The port's data layer against graphsage_tpu/data: the loader and the
-padded adjacency on example_data/toy-ppi (the JAX side on its NumPy
-path, with the native builder switched off), and the synthetic
-fixtures."""
+padded adjacency on example_data/toy-ppi (both sides on their NumPy
+paths, with the C++ builders switched off; tests/test_torch_native.py
+holds the two C++ paths to each other), and the synthetic fixtures."""
 
 import os
 
@@ -14,6 +14,7 @@ from graphsage_tpu.data.io import load_data as jax_load_data
 from graphsage_tpu.data.synthetic import (
     make_synthetic_graph as jax_make_synthetic_graph,
 )
+from graphsage_tpu_torch.data import native
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
 from graphsage_tpu_torch.data.io import load_data
 from graphsage_tpu_torch.data.synthetic import (
@@ -45,9 +46,11 @@ def _assert_same_graph(a, b):
 
 @pytest.fixture()
 def jax_numpy_path(monkeypatch):
-    """The JAX adjacency builder without its C++ fast path, which draws
-    different neighbors."""
+    """Both adjacency builders without their C++ fast paths, which draw
+    other neighbors than the NumPy paths."""
     monkeypatch.setattr(jax_native, "native_pad_adjacency",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(native, "native_pad_adjacency",
                         lambda *a, **k: None)
 
 

@@ -86,9 +86,31 @@ def test_unigram_logits_match_jax():
 def test_unique_negatives_distinct_and_never_zero_degree():
     deg = _degrees(6)
     logits = tn.unigram_logits(deg)
-    gen = torch.Generator().manual_seed(1)
-    for _ in range(20):
-        ids = tn.sample_negatives_unique(gen, logits, 40)
-        assert ids.dtype == torch.int32
+    draws = tn.sample_negatives_unique(np.random.default_rng(1), logits, 40,
+                                       20)
+    assert draws.dtype == torch.int32 and draws.shape == (20, 40)
+    for ids in draws:
         assert len(set(ids.tolist())) == 40
         assert (deg[ids.numpy()] > 0).all()
+    # the top k of the logits plus the host's noise, largest first
+    noise = tn.gumbel_noise(np.random.default_rng(1), (20, len(deg)))
+    np.testing.assert_array_equal(
+        draws.numpy(),
+        np.argsort(-(logits.numpy() + noise), axis=1, kind="stable")[:, :40])
+
+
+@pytest.mark.parametrize("cols", [57, 64])
+def test_unique_negatives_in_blocks_equal_one_draw(monkeypatch, cols):
+    """A chunk of 120 steps drawn in blocks of 7 rows (an odd count of
+    values when ``cols`` is odd: the generator's buffered half-word
+    crosses a block) picks the ids of one [120, cols] draw."""
+    deg = np.append(np.random.default_rng(3).integers(1, 9, cols - 1), 0)
+    logits = tn.unigram_logits(deg)
+    monkeypatch.setattr(tn, "NOISE_BLOCK_ELEMS", 7 * cols)
+    blocks = tn.sample_negatives_unique(np.random.default_rng(4), logits,
+                                        10, 120)
+    noise = torch.from_numpy(tn.gumbel_noise(np.random.default_rng(4),
+                                             (120, cols)))
+    whole = torch.topk(logits + noise, 10, dim=-1).indices.to(torch.int32)
+    assert blocks.shape == (120, 10)
+    assert torch.equal(blocks, whole)

@@ -1,6 +1,6 @@
 """The port's unsupervised data layer against the JAX package's: the
-random walks (the same pairs as JAX's Python walker for the same NumPy
-generator), the walks file, ``load_data(load_walks=True)`` and the
+Python walker (the same pairs as JAX's for the same NumPy generator),
+the walks file, ``load_data(load_walks=True)`` and the
 ``EdgeBatcher``'s train, val, sampled-val and embedding batches, over
 walk pairs and over raw edges. All exact."""
 
@@ -39,8 +39,8 @@ def _train_subgraph(g):
 def test_walks_match_jax_python_walker(graph, num_walks, walk_len, seed):
     nbrs = _train_subgraph(graph)
     nodes = np.flatnonzero(graph.is_train)
-    ours = twalks.run_random_walks(nbrs, nodes, num_walks, walk_len,
-                                   np.random.default_rng(seed))
+    ours = twalks.python_random_walks(nbrs, nodes, num_walks, walk_len,
+                                      np.random.default_rng(seed))
     theirs = jwalks._python_random_walks(nbrs, nodes, num_walks, walk_len,
                                          np.random.default_rng(seed))
     assert ours.dtype == np.int32 and ours.shape[1] == 2

@@ -380,9 +380,11 @@ def test_unsupervised_cli_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "n2v"], "A.7"),
+    (["--n_model_shards", "2"], "A.9"),
     (["--graph_shards", "2"], "A.9"),
     (["--data_shards", "2"], "A.9"),
+    (["--coordinator_address", "localhost:1234", "--num_processes", "2",
+      "--process_id", "0"], "A.9"),
 ])
 def test_unported_options_raise(tmp_path, argv, match):
     g = make_synthetic_graph(num_nodes=40, num_classes=3, feat_dim=8, seed=1)
@@ -391,12 +393,11 @@ def test_unported_options_raise(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["unsupervised", "--train_prefix", prefix,
                   "--no-random_context", "--device", "cpu"] + argv)
-    if "n2v" not in argv:
-        for command in ("embed", "supervised", "predict"):
-            with pytest.raises(NotImplementedError, match=match):
-                cli.main([command, "--train_prefix", prefix,
-                          "--checkpoint_dir", str(tmp_path / "none"),
-                          "--device", "cpu"] + argv)
+    for command in ("embed", "supervised", "predict"):
+        with pytest.raises(NotImplementedError, match=match):
+            cli.main([command, "--train_prefix", prefix,
+                      "--checkpoint_dir", str(tmp_path / "none"),
+                      "--device", "cpu"] + argv)
 
 
 def test_random_context_needs_walks(tmp_path):
