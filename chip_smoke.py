@@ -4,6 +4,8 @@
     python3 chip_smoke.py           # from the root of a checkout
     python3 chip_smoke.py --loads   # only K1/K3's load probe
                                     # (probe_loads)
+    python3 chip_smoke.py --cards 4 # the sharded runner on 4 cards
+                                    # (NCCL; sharded_ranks)
 
 Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
@@ -90,6 +92,20 @@ Phases; any failure exits non-zero without the final ok line:
      card and the CPU: us per sample update, F1s within 1e-3 (rounding
      alone moves them: the CPU against itself with X moved by 1e-15 is
      logged beside), a profile
+     The graph-sharded stack (``parallel/graph_sharded.py``) at the same
+     width: on a world-size-1 NCCL group in this process, the sharded
+     chunk runner against the single-device runner (first_k, dropout 0:
+     equal losses, bit-equal params), three timed chunks of 50 steps at
+     dropout 0.5 (K2 once per step, no request dropped), and the sharded
+     eval sweep over every node (K1 once per batch, the single-device
+     sweep's predictions; with dedup_gather K3 once per batch); then two
+     gloo ranks spawned on this one card (``parallel/launch.py``), the
+     exchange and the split mean on the card, held to the single-device
+     runner at the JAX tests' tolerances, then 4 steps at dropout 0.5
+     (finite losses, params bit-equal across the ranks, nothing
+     dropped); and ``supervised --graph_shards
+     2``, which must refuse this one-card machine, naming the two devices
+     it needs
   6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
      the plain gather): equal gradients and params after a few steps
      from the same state; the same for unsupervised training (K1, K6)
@@ -2983,6 +2999,414 @@ def n2v_job(dev, tmp: str, prefix: str):
     return label, cmd, finish
 
 
+# ----------------------------------------- the sharded path (phase 5b)
+
+SHARDED_EQ_STEPS = 5    # steps held to the single-device runner
+
+
+def first_k(config):
+    """``config`` with the deterministic first_k sampler: no draws, so two
+    paths sample alike."""
+    import dataclasses
+
+    return dataclasses.replace(config, sage=dataclasses.replace(
+        config.sage, sampler_mode="first_k"))
+
+
+def bench_stream(seed: int) -> np.ndarray:
+    """A shuffled epoch of every node, padded with the dummy to whole
+    batches (the trainer's id stream)."""
+    n_b = -(-NUM_NODES // BATCH)
+    ids = np.full((n_b * BATCH,), NUM_NODES, dtype=np.int32)
+    ids[:NUM_NODES] = np.arange(NUM_NODES)
+    return ids[np.random.default_rng(seed).permutation(len(ids))]
+
+
+def eq_run(dev, data, make_run) -> tuple:
+    """``SHARDED_EQ_STEPS`` single steps of bench.py's model (first_k,
+    dropout 0, weights from seed 0) through the runner that
+    ``make_run(config, optimizer)`` gives, on the epoch stream of seed 4:
+    (losses, params, (params, Adam's nu) after the first step, the last
+    step's outputs)."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    config = first_k(bench_config(True))
+    ids_perm = torch.from_numpy(bench_stream(4)).to(dev)
+    params = init_supervised_params(torch.Generator().manual_seed(0),
+                                    config, device=dev)
+    optimizer = make_optimizer(LEARNING_RATE)
+    opt_state = optimizer.init(params)
+    run = make_run(config, optimizer)
+    losses = []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for step in range(SHARDED_EQ_STEPS):
+        res = run(params, opt_state, gen, features, adj, ids_perm,
+                  labels_table, step, 1)
+        losses.append(float(res[2]))
+        if step == 0:   # copies: the step updates in place
+            first = ({k: v.detach().cpu().clone().numpy()
+                      for k, v in params.items()},
+                     {k: v.cpu().clone() for k, v in optimizer.state_dict(
+                         opt_state, params)["nu"].items()})
+    return losses, params, first, res
+
+
+def single_device_reference(dev, data) -> dict:
+    """The single-device runner's ``eq_run``, packed for the multi-rank
+    phases: the stream, every step's loss, the last ids, the params and
+    sqrt of Adam's bias-corrected nu after the first step, and the
+    initial weights."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import init_supervised_params
+    from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
+
+    losses, params, (first_params, first_nu), res = eq_run(
+        dev, data, lambda config, opt: make_supervised_chunk_runner(
+            config, opt, BATCH))
+    config = first_k(bench_config(True))
+    return {"ids": bench_stream(4), "losses": losses,
+            "last_ids": res[4].cpu().numpy(), "params": first_params,
+            "root_nu": {k: (v / (1 - 0.999)).sqrt().numpy()
+                        for k, v in first_nu.items()},
+            "init": {k: v.cpu().numpy() for k, v in init_supervised_params(
+                torch.Generator().manual_seed(0), config).items()},
+            "config": config, "final": params}
+
+
+def sharded_one_rank(dev, card_line: str, data) -> dict:
+    """bench.py's model through the graph-sharded stack on a world-size-1
+    NCCL group in this process (``parallel/graph_sharded.py``): the
+    chunk runner against the single-device runner (first_k, dropout 0:
+    equal losses, bit-equal params), three timed chunks of 50 steps at
+    dropout 0.5 (K2 once per step, nothing dropped), and the sharded
+    eval sweep over every node against the single-device sweep (K1 once
+    per batch, equal predictions; with dedup_gather K3 once per batch,
+    within 1e-5). Returns the launch counts, and the equality run for
+    the two-rank phase."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.parallel.distributed import (
+        fold_seed,
+        host_array,
+        init_distributed,
+        make_grid,
+    )
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        make_sharded_supervised_chunk_runner,
+        make_sharded_supervised_eval_sweep,
+        reassemble_sharded_rows,
+    )
+    from graphsage_tpu_torch.train.supervised import (
+        _run_eval_sweep as run_eval_sweep,
+    )
+    from graphsage_tpu_torch.train.supervised import (
+        labels_table_of,
+        make_eval_sweep,
+    )
+
+    features, adj, labels_np = data
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    store = tempfile.mkdtemp(dir=scratch)
+    init_distributed(f"file://{store}/store", 1, 0, dev)
+    out = {}
+    try:
+        check(dist.get_backend() == "nccl",
+              f"backend {dist.get_backend()}, expected nccl")
+        grid = make_grid(1, 1)
+
+        # 1. the chunk runner against the single-device runner
+        eq = single_device_reference(dev, data)
+        losses, params, _, res = eq_run(
+            dev, data, lambda config, opt:
+                make_sharded_supervised_chunk_runner(config, opt, grid,
+                                                     BATCH))
+        unequal = [k for k in params
+                   if not torch.equal(params[k], eq["final"][k])]
+        log(f"sharded D=1 vs the single-device runner, {SHARDED_EQ_STEPS} "
+            f"steps (first_k, dropout 0): losses {losses} vs "
+            f"{eq['losses']}; params not bit-equal: {unequal or 'none'}; "
+            f"dropped {int(res[5])}")
+        check(losses == eq["losses"],
+              "sharded D=1 and single-device losses differ")
+        check(not unequal, f"sharded D=1 params differ from the "
+              f"single-device runner's in {unequal}")
+        check(int(res[5]) == 0, "requests dropped at D=1")
+        del eq["final"], params
+        out["eq"] = eq
+        ids_perm = torch.from_numpy(eq["ids"]).to(dev)
+
+        # 2. timed training at dropout 0.5: K2 once per step
+        config = bench_config(True, DROPOUT)
+        params = init_supervised_params(torch.Generator().manual_seed(0),
+                                        config, device=dev)
+        optimizer = make_optimizer(LEARNING_RATE)
+        opt_state = optimizer.init(params)
+        run = make_sharded_supervised_chunk_runner(config, optimizer, grid,
+                                                   BATCH)
+        gen = torch.Generator(device=dev).manual_seed(fold_seed(5, grid.me))
+        state = {"step": 0, "dropped": 0}
+
+        def chunk(n):
+            nonlocal params, opt_state
+            params, opt_state, loss, _, _, dropped = run(
+                params, opt_state, gen, features, adj, ids_perm,
+                labels_table, state["step"], n, drop_seed=7)
+            state["step"] += n
+            return loss, dropped
+
+        chunk(5)                               # warm-up
+        reset_counts()
+        times, losses, dropped_total = [], [], 0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, dropped = chunk(TRAIN_CHUNK)
+            losses.append(float(loss))         # the print boundary
+            times.append(time.perf_counter() - t0)
+            dropped_total += int(dropped)
+            check(np.isfinite(losses[-1]), f"non-finite loss {losses[-1]}")
+        counts = launch_counts()
+        check_counts(counts, "K2", 3 * TRAIN_CHUNK, "sharded D=1 training")
+        check(dropped_total == 0, f"{dropped_total} requests dropped")
+        for i, (dt, lv) in enumerate(zip(times, losses)):
+            log(f"sharded D=1 mean train chunk {i + 1}: {TRAIN_CHUNK} steps "
+                f"in {dt * 1e3:.2f} ms, {dt / TRAIN_CHUNK * 1e3:.4f} ms/step"
+                f", {EDGES_PER_STEP * TRAIN_CHUNK / dt:.1f} edges/s, loss "
+                f"{lv:.5f} ({card_line})")
+        log(f"sharded D=1 training: launches {counts} in "
+            f"{3 * TRAIN_CHUNK} steps; dropped requests {dropped_total}")
+        out["K2"] = counts["K2"]
+        count_syncs("sharded D=1 mean", lambda: chunk(10), 10)
+        profile_window(lambda: chunk(5), "sharded D=1, 5 training steps")
+        del params, opt_state
+
+        # 3. the sharded eval sweep against the single-device sweep
+        nodes = np.arange(NUM_NODES)
+        n_b = -(-NUM_NODES // BATCH)
+        ids_all = np.full((n_b * BATCH,), NUM_NODES, dtype=np.int32)
+        ids_all[:NUM_NODES] = nodes
+        ids_all = torch.from_numpy(ids_all).to(dev)
+        params = init_supervised_params(torch.Generator().manual_seed(0),
+                                        bench_config(True), device=dev)
+        for _ in range(2):   # warm-up, then timed
+            single_loss, single_preds, _, single_dt = run_eval_sweep(
+                make_eval_sweep(bench_config(True), BATCH, NUM_NODES),
+                params, features, adj, nodes, labels_np, BATCH, NUM_NODES,
+                torch.Generator(device=dev).manual_seed(1))
+        log(f"single-device mean sweep beside it: {single_dt * 1e3:.2f} ms, "
+            f"{NUM_NODES / single_dt:.1f} nodes/s ({card_line})")
+        sweeps = {}
+        for label, config, kernel in (
+                ("mean", bench_config(True), "K1"),
+                ("mean dedup_gather", bench_config(True, dedup=True), "K3")):
+            sweep = make_sharded_supervised_eval_sweep(config, grid, BATCH)
+            sweep(params, features, adj, ids_all[:2 * BATCH], labels_table,
+                  torch.Generator(device=dev).manual_seed(1))  # warm-up
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, preds, dropped = sweep(
+                params, features, adj, ids_all, labels_table,
+                torch.Generator(device=dev).manual_seed(1))
+            preds = reassemble_sharded_rows(host_array(preds), 1,
+                                            n_b)[:NUM_NODES]
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            check_counts(counts, kernel, n_b,
+                         f"sharded D=1 {label} serving sweep")
+            check(int(dropped) == 0, f"{int(dropped)} requests dropped")
+            loss = float(np.mean(losses.cpu().numpy()))
+            diff = float(np.abs(preds - single_preds).max())
+            log(f"sharded D=1 {label} sweep: {NUM_NODES} nodes in {n_b} "
+                f"batches, {dt * 1e3:.2f} ms, {NUM_NODES / dt:.1f} nodes/s "
+                f"({card_line}); launches {counts}; loss {loss:.6f} vs "
+                f"single-device {single_loss:.6f}; predictions max abs diff "
+                f"{diff:.3e} vs the single-device K1 sweep")
+            sweeps[kernel] = (loss, preds)
+            out[kernel] = counts[kernel]
+        check(np.array_equal(sweeps["K1"][1], single_preds)
+              and sweeps["K1"][0] == single_loss,
+              "the sharded D=1 sweep's predictions are not the "
+              "single-device sweep's")
+        dedup_diff = float(np.abs(sweeps["K3"][1] - single_preds).max())
+        check(dedup_diff <= 1e-5, f"the K3 sweep differs by {dedup_diff}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def sharded_ranks(card_line: str, data, eq: dict, devices: list,
+                  backend: str, grid: tuple) -> None:
+    """Ranks on ``devices`` over ``backend``, spawned through
+    ``parallel/launch.py``, in a ``grid`` = (graph_shards, data_shards):
+    the exchange's bucketing, scatters and the split mean run on the card
+    at bench.py's width. On the one card of the main path: two gloo ranks
+    (NCCL puts no two ranks on one device), the collectives through the
+    host. The runner's ``SHARDED_EQ_STEPS`` steps (first_k, dropout 0,
+    an exact capacity) are held to the single-device runner's ``eq``
+    (``single_device_reference``): each
+    step's loss rtol 1e-5, the last ids equal, nothing dropped, the
+    ranks' params bit-equal; the params after the first step rtol 2e-4 /
+    atol 1e-6 where Adam's sqrt(v) is 1e3 eps or more (the elements
+    below are counted). Later steps' params are not held element by
+    element: an element whose gradient is near eps steps by a share of
+    lr that last-bit differences set, and at this width that moves a
+    few other elements' later gradients by a share of a percent. Then
+    10 timed steps (first_k, dropout 0), and 4 steps at dropout
+    ``DROPOUT`` (the split mean's two Philox masks, the plain dropouts;
+    other masks than one device's, so held to properties: finite losses,
+    equal on the ranks, the params bit-equal across the ranks, nothing
+    dropped), 3 of them timed."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from graphsage_tpu_torch.parallel import launch
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    label = (f"sharded {grid[0]} x {grid[1]} on {len(devices)} ranks "
+             f"({backend})")
+    job = dict(kind="train", grid=grid, runner="sharded",
+               sup_config=eq["config"], params=eq["init"],
+               features=features.cpu().numpy(), adj=adj.cpu().numpy(),
+               ids_perm=eq["ids"],
+               labels_table=labels_table_of(labels_np, NUM_NODES),
+               batch_size=BATCH, lr=LEARNING_RATE,
+               capacity_factor=float(grid[0]),   # exact: nothing drops
+               chunks=[(s, 1) for s in range(SHARDED_EQ_STEPS)])
+    jobs = {"eq": job, "first": dict(job, chunks=[(0, 1)]),
+            "timed": dict(job, chunks=[(0, 2), (2, 10)]),
+            "dropout": dict(job, sup_config=dataclasses.replace(
+                eq["config"], sage=dataclasses.replace(
+                    eq["config"].sage, dropout=DROPOUT)), drop_seed=7,
+                chunks=[(0, 1), (1, 3)])}
+    scratch = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        torch.save(jobs, os.path.join(scratch, "jobs.pt"))
+        del jobs, job
+        t0 = time.perf_counter()
+        launch.spawn(launch.check_rank,
+                     (os.path.join(scratch, "jobs.pt"), scratch), devices,
+                     f"file://{scratch}/store", backend=backend,
+                     timeout_s=600)
+        log(f"{label}: {time.perf_counter() - t0:.2f} s, start-up included")
+        outs = [torch.load(os.path.join(scratch, f"rank{r}.pt"),
+                           weights_only=False) for r in range(len(devices))]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    chunks = [o["eq"]["chunks"] for o in outs]
+    losses = [c["loss"] for c in chunks[0]]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses, eq["losses"]))
+    ids = np.concatenate([c[-1]["ids"] for c in chunks])
+    dropped = sum(c["dropped"] for rank in chunks for c in rank)
+    held = loose = total = 0
+    worst_loose = 0.0
+    for k, want in eq["params"].items():
+        got = outs[0]["first"]["params"][k]
+        for job in ("eq", "first"):
+            for o in outs[1:]:
+                check(np.array_equal(o[job]["params"][k],
+                                     outs[0][job]["params"][k]),
+                      f"the ranks' {k} differ")
+        resolved = eq["root_nu"][k] >= ADAM_FLOOR * 1e-8
+        excess = np.abs(got - want) - (1e-6 + 2e-4 * np.abs(want))
+        held = max(held, float(excess[resolved].max(initial=-1.0)))
+        diff = np.abs(got - want)[~resolved]
+        worst_loose = max(worst_loose, float(diff.max(initial=0.0)))
+        loose += int((~resolved).sum())
+        total += got.size
+    timed = outs[0]["timed"]["chunks"][-1]
+    drop_chunks = [o["dropout"]["chunks"] for o in outs]
+    drop_losses = [c["loss"] for c in drop_chunks[0]]
+    drop_dropped = sum(c["dropped"] for rank in drop_chunks for c in rank)
+    drop_unequal = [k for k, v in outs[0]["dropout"]["params"].items()
+                    if any(not np.array_equal(o["dropout"]["params"][k], v)
+                           for o in outs[1:])]
+    log(f"{label} vs the single-device runner, "
+        f"{SHARDED_EQ_STEPS} steps (first_k, dropout 0): losses {losses} vs "
+        f"{eq['losses']} (worst rel diff {loss_diff:.3e}, limit 1e-5); ids "
+        f"equal {np.array_equal(ids, eq['last_ids'])}; dropped {dropped}; "
+        f"params after one step beyond rtol 2e-4 / atol 1e-6 where "
+        f"resolved: {held:.3e} (limit 0); {loose} of {total} elements "
+        f"below {ADAM_FLOOR:g} eps, worst {worst_loose:.3e} (not held)")
+    log(f"{label}: 10 steps in "
+        f"{timed['seconds'] * 1e3:.2f} ms, {timed['seconds'] * 100:.4f} "
+        f"ms/step, {EDGES_PER_STEP * 10 / timed['seconds']:.1f} edges/s "
+        f"({card_line})")
+    drop_timed = drop_chunks[0][-1]
+    log(f"{label} at dropout {DROPOUT} (first_k): losses {drop_losses} "
+        f"(the ranks' equal: "
+        f"{all([c['loss'] for c in r] == drop_losses for r in drop_chunks)}"
+        f"); params not bit-equal across the ranks: "
+        f"{drop_unequal or 'none'}; dropped {drop_dropped}; 3 steps in "
+        f"{drop_timed['seconds'] * 1e3:.2f} ms, "
+        f"{drop_timed['seconds'] / 3 * 1e3:.4f} ms/step ({card_line})")
+    check(loss_diff <= 1e-5, f"losses differ by {loss_diff} (relative)")
+    check(np.array_equal(ids, eq["last_ids"]), "last ids differ")
+    check(dropped == 0, f"{dropped} requests dropped")
+    check(held <= 0.0, "params differ beyond rtol 2e-4 / atol 1e-6")
+    check(bool(np.all(np.isfinite(drop_losses))),
+          f"non-finite losses at dropout {DROPOUT}: {drop_losses}")
+    check(all([c["loss"] for c in r] == drop_losses for r in drop_chunks),
+          f"the ranks' losses differ at dropout {DROPOUT}")
+    check(not drop_unequal, f"the ranks' {drop_unequal} differ at dropout "
+          f"{DROPOUT}")
+    check(drop_dropped == 0, f"{drop_dropped} requests dropped at dropout "
+          f"{DROPOUT}")
+
+
+def sharded_cli_refusal(dev) -> None:
+    """``python -m graphsage_tpu_torch supervised --graph_shards 2`` on
+    this one-card machine: it must fail, naming the two devices it needs,
+    and must not train on the CPU."""
+    from graphsage_tpu_torch.data.synthetic import (
+        make_synthetic_graph,
+        write_dataset,
+    )
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        prefix = os.path.join(tmp, "toy", "toy")
+        write_dataset(make_synthetic_graph(num_nodes=60, num_classes=3,
+                                           feat_dim=8, seed=3), prefix)
+        proc = subprocess.run(
+            [sys.executable, "-m", "graphsage_tpu_torch", "supervised",
+             "--train_prefix", prefix, "--graph_shards", "2",
+             "--base_log_dir", os.path.join(tmp, "log"), "--device",
+             str(dev.type)], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        last = (proc.stderr.strip().splitlines() or [""])[-1]
+        log(f"supervised --graph_shards 2 on one card: exit {proc.returncode}"
+            f", {last}")
+        check(proc.returncode != 0, "--graph_shards 2 ran on one card")
+        check("needs 2 CUDA devices" in proc.stderr,
+              "the refusal does not name the two devices")
+        check(not os.path.exists(os.path.join(tmp, "log")),
+              "the refused run wrote logs")
+
+
 def cli_phases(dev) -> None:
     """Every CLI check: ``predict`` (plain and ``--dedup_gather``),
     ``supervised`` (graphsage_mean, graphsage_meanpool, graphsage_seq
@@ -3076,6 +3500,20 @@ def main() -> int:
                         or "spill" in line):
                     log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
 
+    if sys.argv[1:2] == ["--cards"]:
+        n = int(sys.argv[2])
+        check(torch.cuda.device_count() >= n,
+              f"--cards {n}: {torch.cuda.device_count()} cards here")
+        phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
+              ("gather_mean",))
+        data = phase("bench data", bench_data, dev)
+        eq = phase("the single-device runner", single_device_reference,
+                   dev, data)
+        devices = [torch.device("cuda", r) for r in range(n)]
+        for grid in ((n, 1), (n // 2, 2)):
+            phase(f"sharded {grid[0]} x {grid[1]} on {n} cards (nccl)",
+                  sharded_ranks, card_line, data, eq, devices, "nccl", grid)
+        return 0
     if sys.argv[1:] == ["--loads"]:
         phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
               ("gather_mean",))
@@ -3133,6 +3571,16 @@ def main() -> int:
     k2["launches_unsup_train"] = routes["K2"]
     k6["launches_unsup_train"] = routes["K6"]
     k5["launches_embed_sweep"] = routes["K5"]
+    sharded = phase("sharded D=1 (nccl)", sharded_one_rank, dev, card_line,
+                    data)
+    k2["launches_sharded_train"] = sharded["K2"]
+    k1["launches_sharded_sweep"] = sharded["K1"]
+    k3["launches_sharded_sweep"] = sharded["K3"]
+    phase("sharded D=2 on one card (gloo)", sharded_ranks, card_line, data,
+          sharded["eq"], [dev, dev], "gloo", (2, 1))
+    del sharded
+    phase("CLI: supervised --graph_shards 2 on one card", sharded_cli_refusal,
+          dev)
     graph = phase("native host builder on bench.py's graph", native_walks,
                   data)
     target = phase("node2vec at full width", train_node2vec, dev, graph)

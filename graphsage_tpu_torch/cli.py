@@ -4,10 +4,18 @@ supervised|predict|unsupervised|embed|eval|walks ...``.
 The subcommands take the JAX package's flag names and defaults for the
 fields the port reads (``unsupervised`` and ``embed``: lr 1e-5, 1 epoch,
 max_degree 100, print_every 50), plus ``--device`` (default ``cuda``).
-The multi-device flags (``--graph_shards``, ``--data_shards``,
-``--n_model_shards`` above 1, and the multi-host
-``--coordinator_address``/``--num_processes``/``--process_id``) are
-accepted and refused.
+
+``supervised`` and ``predict`` run on several devices with
+``--graph_shards N`` (row-sharded tables, the all-to-all exchange)
+and ``--data_shards M`` (data parallelism; both: an M x N grid), one
+process per device (``parallel/launch.py``): on one host this command
+starts the ranks itself (``cuda:0 ..``, or gloo ranks with ``--device
+cpu``); ``torchrun --nproc_per_node N -m graphsage_tpu_torch ...`` runs
+one rank per process; across hosts each host runs this command with
+``--coordinator_address host:port --num_processes P --process_id i``.
+Still refused, each naming its ROADMAP.md item: ``unsupervised`` and
+``embed`` with shards or hosts above 1 (A.9b), and ``--n_model_shards``
+above 1 (A.9c).
 """
 
 from __future__ import annotations
@@ -68,19 +76,33 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
     p.add_argument("--feature_dtype", choices=("float32", "bfloat16"),
                    default=d.feature_dtype)
     p.add_argument("--graph_shards", type=int, default=d.graph_shards,
-                   help="accepted for the JAX package's command lines; "
-                   "above 1 it is refused (one device)")
+                   help="row-shard the feature/adjacency/identity tables "
+                   "over N devices, frontier rows through an all-to-all "
+                   "exchange (supervised, predict)")
     p.add_argument("--data_shards", type=int, default=d.data_shards,
-                   help="accepted for the JAX package's command lines; "
-                   "above 1 it is refused (one device)")
+                   help="data parallelism over N devices (whole tables, "
+                   "the batch split, gradients summed); with "
+                   "--graph_shards G an N x G grid")
+    p.add_argument("--capacity_factor", type=float,
+                   default=d.capacity_factor,
+                   help="--graph_shards per-destination request budget as "
+                   "a multiple of the balanced share; 0 sizes it from the "
+                   "adjacency (overflowed requests are counted and warned)")
+    p.add_argument("--shard_layout", choices=("strided", "block"),
+                   default=d.shard_layout,
+                   help="--graph_shards row ownership: 'strided' (id %% N) "
+                   "spreads degree-ordered hubs; 'block' keeps contiguous "
+                   "row ranges")
     p.add_argument("--n_model_shards", type=int, default=d.n_model_shards,
-                   help="accepted for the JAX package's command lines; "
-                   "above 1 it is refused (one device)")
-    for flag in ("--coordinator_address", "--num_processes",
-                 "--process_id"):
-        p.add_argument(flag, default=None,
-                       help="multi-host: accepted for the JAX package's "
-                       "command lines and refused (one device)")
+                   help="feature-dim tensor parallelism: not ported yet, "
+                   "refused above 1 (ROADMAP.md A.9c)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="multi-host: host:port of the rank-0 host's store")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-host: the number of hosts (processes of "
+                   "this command)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-host: this host's index")
     p.add_argument("--defer_features", action=argparse.BooleanOptionalAction,
                    default=d.defer_features,
                    help="leave the feature table on disk at load time "
@@ -227,26 +249,39 @@ def main(argv=None) -> int:
                         else None),
             device=args.device)
         return 0
-    if (args.coordinator_address is not None
-            or int(args.num_processes or 0) > 1):
+    multi_host = (args.coordinator_address is not None
+                  or (args.num_processes or 1) > 1)
+    unsup = args.command in ("unsupervised", "embed")
+    if unsup and multi_host:
         raise NotImplementedError(
-            "multi-host training (--coordinator_address, --num_processes): "
-            "the port runs on one device; the parallel stack is "
-            "ROADMAP.md A.9")
-    defaults = (UNSUP_DEFAULTS if args.command in ("unsupervised", "embed")
-                else TrainFlags())
+            f"{args.command} across hosts (--coordinator_address, "
+            "--num_processes): the sharded unsupervised paths are not "
+            "ported yet (ROADMAP.md A.9b)")
+    defaults = UNSUP_DEFAULTS if unsup else TrainFlags()
     fields = {f.name for f in dataclasses.fields(TrainFlags)}
     flags = dataclasses.replace(
         defaults, **{k: v for k, v in vars(args).items() if k in fields})
-    if args.command == "supervised":
-        from graphsage_tpu_torch.train.supervised import train
+    if args.command in ("supervised", "predict"):
+        from graphsage_tpu_torch.parallel import launch
+        from graphsage_tpu_torch.train.config import require_ported
 
-        train(flags, device=args.device)
-    elif args.command == "predict":
-        from graphsage_tpu_torch.infer import predict
-
-        predict(flags, out_dir=args.out_dir, nodes=args.nodes,
-                num_classes=args.num_classes, device=args.device)
+        require_ported(flags)
+        grid = (flags.graph_shards, flags.data_shards)
+        if args.command == "supervised":
+            fn, fn_args = launch.supervised_rank, (flags,)
+        else:
+            fn, fn_args = launch.predict_rank, (
+                flags, args.out_dir, args.nodes, args.num_classes)
+            if flags.graph_shards == 1:   # as the JAX package's predict
+                grid = (1, 1)
+        if grid[0] * grid[1] > 1 or multi_host:
+            launch.run_command(
+                fn, fn_args, *grid, device=args.device,
+                coordinator_address=args.coordinator_address,
+                num_processes=args.num_processes,
+                process_id=args.process_id)
+        else:
+            fn(args.device, *fn_args)
     elif args.command == "unsupervised":
         from graphsage_tpu_torch.train.unsupervised import train
 

@@ -45,12 +45,20 @@ class NodeBatcher:
     def num_batches(self) -> int:
         return -(-len(self.train_nodes) // self.batch_size)
 
-    def sample_val_batch(self, size: int) -> NodeBatch:
-        """Random with-replacement val sample of ``size`` nodes."""
+    def sample_val_batch(self, size: int,
+                         pad_to: int | None = None) -> NodeBatch:
+        """Random with-replacement val sample of ``size`` nodes, padded
+        with the dummy node (zero mask) up to ``pad_to`` rows (a multiple
+        of the shard count under ``--graph_shards``)."""
         nodes = self._rng.choice(self.val_nodes, size=size, replace=True)
-        return NodeBatch(ids=nodes.astype(np.int32),
-                         labels=self.graph.labels[nodes].astype(np.float32),
-                         mask=np.ones((size,), dtype=np.float32))
+        b = max(size, pad_to or 0)
+        ids = np.full((b,), self.graph.num_nodes, dtype=np.int32)
+        ids[:size] = nodes
+        labels = np.zeros((b, self.graph.num_classes), dtype=np.float32)
+        labels[:size] = self.graph.labels[nodes]
+        mask = np.zeros((b,), dtype=np.float32)
+        mask[:size] = 1.0
+        return NodeBatch(ids=ids, labels=labels, mask=mask)
 
 
 @dataclasses.dataclass

@@ -69,6 +69,7 @@ class SAGEConfig:
     fused_gather: bool = False  # CUDA kernel for the innermost hop
     dedup_gather: bool = False  # K3: the fused mean loads distinct rows once
     rows_gather: bool = False   # K4 gathers the innermost hop's rows
+    shard_layout: str = "strided"  # row ownership under --graph_shards
 
     @property
     def input_dim(self) -> int:

@@ -61,21 +61,24 @@ def _softmax_xent(logits, labels):
     return -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
 
 
+def per_node_loss(logits, labels, config: SupervisedConfig):
+    """[B] loss of each node: the sigmoid loss sums over classes and
+    divides by C; softmax reduces per node."""
+    if config.sigmoid_loss:
+        return sigmoid_xent(labels, logits).sum(dim=-1) / config.num_classes
+    return _softmax_xent(logits, labels)
+
+
 def supervised_loss(params, features, adj, ids, labels, mask,
                     config: SupervisedConfig, generator=None,
                     deterministic: bool = False, drop_key=None):
-    """(masked mean loss + weight decay, logits). The sigmoid loss sums
-    over classes per node and divides by C; softmax reduces per node.
+    """(masked mean of ``per_node_loss`` + weight decay, logits).
     ``drop_key`` = (seed, step) keys the fused hop's dropout masks."""
     logits = supervised_logits(params, features, adj, ids, config,
                                generator=generator,
                                deterministic=deterministic,
                                drop_key=drop_key)
-    if config.sigmoid_loss:
-        per_node = (sigmoid_xent(labels, logits).sum(dim=-1)
-                    / config.num_classes)
-    else:
-        per_node = _softmax_xent(logits, labels)
+    per_node = per_node_loss(logits, labels, config)
     loss = (per_node * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if config.weight_decay > 0.0:
         decayed = sage_decay_weights(params, config.sage)

@@ -1,1 +1,3 @@
-"""Training steps and chunk runners (single device for now)."""
+"""Training steps and chunk runners, on one device and on several:
+process groups and start-up (``distributed.py``, ``launch.py``), data
+parallelism (``dp.py``) and graph sharding (``graph_sharded.py``)."""

@@ -1,4 +1,5 @@
-"""The training steps and chunk runners, on one device.
+"""The training steps and chunk runners: on one device, and the pure
+data-parallel supervised runner (P1, ``--data_shards``).
 
 The JAX package jits one function per step (forward, backward, the
 clipped Adam update) and runs a chunk of steps in one ``fori_loop``
@@ -9,11 +10,19 @@ device, each step slices its ids and takes its labels there, and
 nothing is copied to the host inside a chunk. The host synchronises
 only where the caller reads a result (the print and validate
 boundaries of ``train/supervised.py`` and ``train/unsupervised.py``).
+
+Under ``--data_shards M`` each of M ranks holds the whole tables and
+takes B/M rows of every step's batch; the gradients are summed over the
+ranks by hand (``distributed.all_reduce_grads``), after each rank's loss
+was normalised by the world's mask sum. DDP would average the gradients
+instead, which equals that sum only when every rank holds as many real
+rows, and a dummy-padded tail batch breaks that.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from graphsage_tpu_torch.models.node2vec import (
     Node2VecConfig,
@@ -22,11 +31,17 @@ from graphsage_tpu_torch.models.node2vec import (
 )
 from graphsage_tpu_torch.models.supervised import (
     SupervisedConfig,
+    per_node_loss,
+    supervised_logits,
     supervised_loss,
 )
 from graphsage_tpu_torch.models.unsupervised import (
     UnsupervisedConfig,
     unsupervised_loss,
+)
+from graphsage_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    fold_seed,
 )
 
 
@@ -234,5 +249,60 @@ def make_node2vec_chunk_runner(config: Node2VecConfig, optimizer,
                 params, opt_state, b1, b2, mask, neg_ids[j], update_mask)
             shadow_mrr = mrr_ema(shadow_mrr, aux["mrr"])
         return params, opt_state, shadow_mrr, loss, aux["mrr"]
+
+    return runner
+
+
+def make_dp_supervised_chunk_runner(sup_config: SupervisedConfig, optimizer,
+                                    grid, batch_size: int):
+    """--data_shards M: the chunk runner of ``make_supervised_chunk_runner``
+    (the same call and return layout, so the trainer swaps them 1:1) over
+    a grid of one graph shard and M data slices: tables and params
+    replicated, rank ``me`` takes rows ``me*B/M .. (me+1)*B/M`` of each
+    step's batch, its masked loss sum is normalised by the world's mask
+    sum, and the gradients and the last step's loss are summed over the
+    world. The
+    decay term, replicated work, is divided by M. The inner hop's
+    dropout is keyed with (``drop_seed`` folded with ``me``, i);
+    ``generator`` should be the rank's own. ``last_logits`` and
+    ``last_ids`` are this rank's rows."""
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        _check_batch_divisible,
+        _decay_term,
+    )
+
+    config = sup_config.sage
+    num_nodes = config.num_nodes
+    _require_num_nodes(num_nodes, "id stream")
+    _check_batch_divisible(grid, batch_size)
+    local_b = batch_size // grid.total
+
+    def runner(params, opt_state, generator, features, adj, ids_perm,
+               labels_table, start_step: int, n_steps: int,
+               drop_seed: int = 0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        seed = fold_seed(drop_seed, grid.me)
+        for i in range(start_step, start_step + n_steps):
+            lo = i * batch_size + grid.me * local_b
+            ids = ids_perm[lo:lo + local_b]
+            labels = labels_table.index_select(0, ids)
+            mask = (ids != num_nodes).float()
+            mask_sum = mask.sum()
+            dist.all_reduce(mask_sum)
+            opt_state.zero_grad(set_to_none=True)
+            logits = supervised_logits(
+                params, features, adj, ids, sup_config, generator=generator,
+                deterministic=False, drop_key=(seed, i))
+            per_node = per_node_loss(logits, labels, sup_config)
+            loss = ((per_node * mask).sum() / torch.clamp(mask_sum, min=1.0)
+                    + _decay_term(params, config, sup_config.weight_decay,
+                                  grid.total, head=True))
+            loss.backward()
+            all_reduce_grads(params, grid)
+            optimizer.update(opt_state, params)
+        loss = loss.detach()
+        dist.all_reduce(loss)   # the last step's, read by the caller
+        return params, opt_state, loss, logits.detach(), ids
 
     return runner

@@ -1,11 +1,10 @@
 """Typed configuration mirroring the reference flag surface.
 
 The fields are those the port's serving, supervised and unsupervised
-paths read, with the JAX package's defaults. ``graph_shards``,
-``data_shards`` and ``n_model_shards`` exist only to refuse a
-multi-device run clearly (``require_ported``): the parallel stack comes
-with its own slice. ``feature_table`` places the feature table the flags
-select, for both trainers and serving.
+paths read, with the JAX package's defaults. ``require_ported`` refuses
+what the port does not run yet: the unsupervised sharded paths and
+``n_model_shards`` above 1. ``feature_table`` places the feature table
+the flags select, for both trainers and serving.
 """
 
 from __future__ import annotations
@@ -63,9 +62,11 @@ class TrainFlags:
     fused_gather: bool = True   # CUDA kernel for the innermost hop
     dedup_gather: bool = False  # K3: the fused mean loads distinct rows once
     rows_gather: bool = False   # K4 gathers the pooled/seq hop's rows
-    graph_shards: int = 1       # > 1 is refused: one device only
-    data_shards: int = 1        # > 1 is refused: one device only
-    n_model_shards: int = 1     # > 1 is refused: one device only
+    graph_shards: int = 1       # row-shard the tables over N ranks (P2)
+    data_shards: int = 1        # pure data parallelism over N ranks (P1)
+    capacity_factor: float = 0.0  # the exchange's budget; 0 = auto-size
+    shard_layout: str = "strided"  # row ownership: "strided" or "block"
+    n_model_shards: int = 1     # > 1 is refused (ROADMAP.md A.9c)
     defer_features: bool = False  # read the feature table at training
                                   # time (node2vec never reads it)
     degree_relabel: bool = False  # internal ids by descending degree;
@@ -99,16 +100,21 @@ class TrainFlags:
         return d
 
 
-def require_ported(flags: TrainFlags) -> None:
+def require_ported(flags: TrainFlags, task: str = "supervised") -> None:
     """Refuse what the port does not run yet, naming the ROADMAP.md item
-    that brings it."""
-    if (flags.graph_shards > 1 or flags.data_shards > 1
-            or flags.n_model_shards > 1):
+    that brings it: feature-dim tensor parallelism (A.9c) on every task,
+    and the sharded unsupervised paths (``task`` "unsupervised" or
+    "embed", A.9b)."""
+    if flags.n_model_shards > 1:
         raise NotImplementedError(
-            f"--graph_shards {flags.graph_shards} --data_shards "
-            f"{flags.data_shards} --n_model_shards {flags.n_model_shards}: "
-            "the port runs on one device; the parallel stack is "
-            "ROADMAP.md A.9")
+            f"--n_model_shards {flags.n_model_shards}: feature-dim tensor "
+            "parallelism is not ported yet (ROADMAP.md A.9c)")
+    if task in ("unsupervised", "embed") and (
+            flags.graph_shards > 1 or flags.data_shards > 1):
+        raise NotImplementedError(
+            f"{task} with --graph_shards {flags.graph_shards} "
+            f"--data_shards {flags.data_shards}: the sharded unsupervised "
+            "paths are not ported yet (ROADMAP.md A.9b)")
 
 
 def build_layer_infos(flags: TrainFlags, supervised: bool):

@@ -205,7 +205,7 @@ def write_embeddings(out_dir: str, rows: np.ndarray, node_ids: list,
 def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     """Train on ``device`` (``cuda`` unless the caller asks for ``cpu``);
     returns the params and the last val loss, MRR and val-MRR EMA."""
-    require_ported(flags)
+    require_ported(flags, "unsupervised")
     device = resolve_device(device)
     if graph is None:
         print("Loading training data..")

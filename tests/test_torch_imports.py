@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("infer", "ops.gather", "ops.philox", "ops.pool",
                  "ops.gather_probe", "benchmarks.gather_probe",
-                 "nn.lstm", "parallel.dp",
+                 "nn.lstm", "parallel.dp", "parallel.distributed",
+                 "parallel.graph_sharded", "parallel.launch",
                  "train.supervised", "train.tblog", "data.minibatch",
                  "nn.prediction", "nn.negative", "data.walks",
                  "models.unsupervised", "train.unsupervised",
