@@ -4,8 +4,9 @@
     python3 chip_smoke.py           # from the root of a checkout
     python3 chip_smoke.py --loads   # only K1/K3's load probe
                                     # (probe_loads)
-    python3 chip_smoke.py --cards 4 # the sharded runner on 4 cards
-                                    # (NCCL; sharded_ranks)
+    python3 chip_smoke.py --cards 4 # the sharded runners on 4 cards
+                                    # (NCCL; sharded_ranks,
+                                    # sharded_unsup_ranks)
 
 Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
@@ -103,9 +104,23 @@ Phases; any failure exits non-zero without the final ok line:
      exchange and the split mean on the card, held to the single-device
      runner at the JAX tests' tolerances, then 4 steps at dropout 0.5
      (finite losses, params bit-equal across the ranks, nothing
-     dropped); and ``supervised --graph_shards
-     2``, which must refuse this one-card machine, naming the two devices
-     it needs
+     dropped). The unsupervised half at "unsup_mean"'s width: on a
+     world-size-1 NCCL group, the sharded unsupervised runner against
+     the single-device runner (first_k, dropout 0: equal losses and
+     MRRs, bit-equal params), three timed chunks of 50 steps (K1 once
+     per step at the [10440, 25] hop, nothing dropped, no host
+     synchronisation in a chunk, ms/step beside the single-device
+     cell's), 4 steps at dropout 0.5 (K2 once per step), the sharded
+     embed sweep over every node (K1 once per batch, embed_all_nodes'
+     rows bit for bit; with dedup_gather K3 once per batch; nodes/s and
+     request latency beside the single-device sweep's) and the sharded
+     eval sweep (the single-device sweep's loss and MRR); then two gloo
+     ranks on this card, 1 x 2 (data-parallel, held to the single-device
+     runner) and 2 x 1 (each rank its own negatives, held to a
+     reference built on one device from those negatives). And
+     ``supervised --graph_shards 2`` and ``unsupervised --graph_shards
+     2``, which must refuse this one-card machine, naming the two
+     devices they need
   6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
      the plain gather): equal gradients and params after a few steps
      from the same state; the same for unsupervised training (K1, K6)
@@ -1846,12 +1861,14 @@ def unsup_config(fused: bool, aggregator: str = "mean"):
         sage=bench_config(fused, aggregator=aggregator).sage)
 
 
-def unsup_stream(dev, n_steps: int, seed: int):
+def unsup_stream(dev, n_steps: int, seed: int, sets: int | None = None):
     """agg_sweep.py's unsupervised inputs for ``n_steps`` steps: uniform
     pairs [n_steps*512, 2] over the N nodes from numpy ``seed``, and each
     step's 20 negatives drawn from the same generator's uniforms against
     the unigram^0.75 CDF of agg_sweep's degrees (all 128, over the N+1
-    ids: the dummy has a share), mapped on the card."""
+    ids: the dummy has a share), mapped on the card; with ``sets``, that
+    many sets a step ([n_steps, sets, 20], a sharded runner's: its first
+    set is the 2-D draw's at ``sets`` 1)."""
     import torch
 
     from graphsage_tpu_torch.nn.negative import (
@@ -1861,7 +1878,8 @@ def unsup_stream(dev, n_steps: int, seed: int):
 
     rng = np.random.default_rng(seed)
     pairs = rng.integers(0, NUM_NODES, (n_steps * BATCH, 2), dtype=np.int32)
-    u = rng.random((n_steps, NEG_SAMPLES), dtype=np.float32)
+    u = rng.random((n_steps,) + ((sets,) if sets else ()) + (NEG_SAMPLES,),
+                   dtype=np.float32)
     cdf = torch.from_numpy(unigram_cdf(np.full(NUM_NODES + 1, MAX_DEGREE)))
     return (torch.from_numpy(pairs).to(dev),
             negatives_from_uniforms(cdf.to(dev), torch.from_numpy(u).to(dev)))
@@ -1874,7 +1892,8 @@ def train_unsupervised(dev, data, chunks: int = 3,
     ``chunks`` timed chunks of ``chunk_steps`` steps, each ended by
     reading the loss, the train MRR and its EMA; returns K1's launches
     over the timed chunks, which must be one per step with no other
-    kernel. No host synchronisation may fall inside a chunk."""
+    kernel, and each chunk's ms/step. No host synchronisation may fall
+    inside a chunk."""
     import torch
 
     from graphsage_tpu_torch.models.supervised import make_optimizer
@@ -1936,7 +1955,7 @@ def train_unsupervised(dev, data, chunks: int = 3,
           f"synchronisations per step")
     profile_window(lambda: chunk(n_profile),
                    f"unsupervised mean, {n_profile} training steps")
-    return counts["K1"]
+    return counts["K1"], [dt / chunk_steps * 1e3 for dt in times]
 
 
 def embed_full_width(dev, data, repeats: int = 2) -> int:
@@ -1946,7 +1965,8 @@ def embed_full_width(dev, data, repeats: int = 2) -> int:
     finite, of unit norm and within 1e-5 of the sweep without the
     kernel (the same samples); then ``repeats`` more sweeps, every
     request one at a time with its rows back on the host, and a profile
-    of 20 batches."""
+    of 20 batches. Also returns the sweeps' nodes/s and the requests'
+    p50 and p90 ms."""
     import torch
 
     from graphsage_tpu_torch.models.unsupervised import (
@@ -1993,8 +2013,10 @@ def embed_full_width(dev, data, repeats: int = 2) -> int:
         f"ms")
     check(norm_err <= 1e-5, f"embedding norms off 1 by {norm_err}")
     check(diff <= 1e-5, f"embed sweep with and without K1 differ by {diff}")
+    rates = []
     for rep in range(repeats):
         _, dt_rep = export(config)
+        rates.append(NUM_NODES / dt_rep)
         log(f"embed sweep repeat {rep + 1}: {dt_rep * 1e3:.2f} ms, "
             f"{NUM_NODES / dt_rep:.1f} nodes/s")
     lat = []
@@ -2008,7 +2030,9 @@ def embed_full_width(dev, data, repeats: int = 2) -> int:
         f"ms, max {max(lat):.3f} ms")
     profile_window(lambda: sweep(params, features, adj, ids_dev[:20 * BATCH],
                                  gen), "embed sweep of 20 batches")
-    return counts["K1"]
+    return counts["K1"], {"nodes_per_s": rates,
+                          "p50": float(np.percentile(lat, 50)),
+                          "p90": float(np.percentile(lat, 90))}
 
 
 # ------------------------------------------------- phase 5, node2vec
@@ -3083,6 +3107,33 @@ def single_device_reference(dev, data) -> dict:
             "config": config, "final": params}
 
 
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A world-size-1 process group in this process (NCCL on the card,
+    gloo on the CPU) for the length of the block; yields its Grid."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from graphsage_tpu_torch.parallel.distributed import (
+        init_distributed,
+        make_grid,
+    )
+
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    store = tempfile.mkdtemp(dir=scratch)
+    init_distributed(f"file://{store}/store", 1, 0, dev)
+    try:
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == want,
+              f"backend {dist.get_backend()}, expected {want}")
+        yield make_grid(1, 1)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def sharded_one_rank(dev, card_line: str, data) -> dict:
     """bench.py's model through the graph-sharded stack on a world-size-1
     NCCL group in this process (``parallel/graph_sharded.py``): the
@@ -3093,21 +3144,13 @@ def sharded_one_rank(dev, card_line: str, data) -> dict:
     per batch, equal predictions; with dedup_gather K3 once per batch,
     within 1e-5). Returns the launch counts, and the equality run for
     the two-rank phase."""
-    import shutil
-
     import torch
-    import torch.distributed as dist
 
     from graphsage_tpu_torch.models.supervised import (
         init_supervised_params,
         make_optimizer,
     )
-    from graphsage_tpu_torch.parallel.distributed import (
-        fold_seed,
-        host_array,
-        init_distributed,
-        make_grid,
-    )
+    from graphsage_tpu_torch.parallel.distributed import fold_seed, host_array
     from graphsage_tpu_torch.parallel.graph_sharded import (
         make_sharded_supervised_chunk_runner,
         make_sharded_supervised_eval_sweep,
@@ -3124,16 +3167,8 @@ def sharded_one_rank(dev, card_line: str, data) -> dict:
     features, adj, labels_np = data
     labels_table = torch.from_numpy(labels_table_of(labels_np,
                                                     NUM_NODES)).to(dev)
-    scratch = os.path.join(ROOT, "build")
-    os.makedirs(scratch, exist_ok=True)
-    store = tempfile.mkdtemp(dir=scratch)
-    init_distributed(f"file://{store}/store", 1, 0, dev)
     out = {}
-    try:
-        check(dist.get_backend() == "nccl",
-              f"backend {dist.get_backend()}, expected nccl")
-        grid = make_grid(1, 1)
-
+    with one_rank_group(dev) as grid:
         # 1. the chunk runner against the single-device runner
         eq = single_device_reference(dev, data)
         losses, params, _, res = eq_run(
@@ -3250,9 +3285,6 @@ def sharded_one_rank(dev, card_line: str, data) -> dict:
               "single-device sweep's")
         dedup_diff = float(np.abs(sweeps["K3"][1] - single_preds).max())
         check(dedup_diff <= 1e-5, f"the K3 sweep differs by {dedup_diff}")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
     return out
 
 
@@ -3378,10 +3410,471 @@ def sharded_ranks(card_line: str, data, eq: dict, devices: list,
           f"{DROPOUT}")
 
 
+# ------------------------------ the sharded unsupervised path (phase 5c)
+
+UNSUP_EQ_STEPS = 5      # steps held to one device (or its reference)
+
+
+def unsup_eq_config():
+    """agg_sweep's "unsup_mean" with the first_k sampler: nothing drawn,
+    so two paths sample alike."""
+    return first_k(unsup_config(True))
+
+
+def unsup_reference(dev, data, sets: int) -> dict:
+    """The equality runs' inputs and references: ``UNSUP_EQ_STEPS`` steps
+    of "unsup_mean" (first_k, dropout 0, weights from seed 0, Adam at
+    lr 1e-2 so that a step moves the params past the tolerances) on
+    pairs and [steps, ``sets``, 20] negatives from seed 9. "single":
+    the single-device runner with each step's first set (every step's
+    (loss, MRR), the params and sqrt of Adam's bias-corrected nu after
+    the first step, the final params on the card); with ``sets`` above 1
+    "per_rank<sets>": the same steps built on one device from ``sets``
+    consecutive slices of each batch, slice r with set r (the split and
+    negatives of a sharded runner over ``sets`` ranks: the loss the
+    slices' summed raw loss over the batch's count, the MRR their summed
+    reciprocal ranks over it)."""
+    import torch
+
+    from graphsage_tpu_torch.models.graphsage import l2_normalize, sage_embed
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.nn import prediction
+    from graphsage_tpu_torch.parallel.dp import make_unsupervised_chunk_runner
+
+    features, adj, _ = data
+    config = unsup_eq_config()
+    pairs, negs = unsup_stream(dev, UNSUP_EQ_STEPS, seed=9, sets=sets)
+    init = init_unsupervised_params(torch.Generator().manual_seed(0), config)
+    out = {"config": config, "pairs": pairs.cpu().numpy(),
+           "negs": negs.cpu().numpy(),
+           "init": {k: v.numpy() for k, v in init.items()}}
+
+    def fresh():
+        params = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in out["init"].items()}
+        optimizer = make_optimizer(LEARNING_RATE)
+        return params, optimizer, optimizer.init(params)
+
+    def first_state(params, optimizer, opt_state):
+        nu = optimizer.state_dict(opt_state, params)["nu"]
+        return ({k: v.detach().cpu().numpy() for k, v in params.items()},
+                {k: (v.cpu() / (1 - 0.999)).sqrt().numpy()
+                 for k, v in nu.items()})
+
+    params, optimizer, opt_state = fresh()
+    run = make_unsupervised_chunk_runner(config, optimizer, BATCH)
+    shadow = torch.full((), -1.0, device=dev)
+    values = []
+    for step in range(UNSUP_EQ_STEPS):
+        params, opt_state, shadow, loss, mrr = run(
+            params, opt_state, shadow, None, features, adj, pairs,
+            negs[:, 0], step, 1)
+        values.append((float(loss), float(mrr)))
+        if step == 0:
+            first = first_state(params, optimizer, opt_state)
+    out["single"] = {"values": values, "first": first, "final": params}
+
+    for total in (sets,) if sets > 1 else ():
+        lb = BATCH // total
+        params, optimizer, opt_state = fresh()
+        values = []
+        for step in range(UNSUP_EQ_STEPS):
+            batch = pairs[step * BATCH:(step + 1) * BATCH]
+            ids = torch.cat([torch.cat([batch[r * lb:(r + 1) * lb, 0],
+                                        batch[r * lb:(r + 1) * lb, 1],
+                                        negs[step, r]])
+                             for r in range(total)])
+            opt_state.zero_grad(set_to_none=True)
+            emb = sage_embed(params, features, adj, ids, config.sage,
+                             deterministic=False)
+            raw = rr = count = 0.0
+            for r in range(total):
+                o = emb[r * (2 * lb + NEG_SAMPLES):
+                        (r + 1) * (2 * lb + NEG_SAMPLES)]
+                aff, neg_aff = prediction.edge_pred_scores(
+                    l2_normalize(o[:lb], 1), l2_normalize(o[lb:2 * lb], 1),
+                    l2_normalize(o[2 * lb:], 1))
+                mask = torch.ones(lb, device=dev)
+                raw = raw + prediction.pair_loss(aff, neg_aff, "xent", mask)
+                ranks, _ = prediction.mrr_and_ranks(aff.detach(),
+                                                    neg_aff.detach(), mask)
+                rr = rr + (1.0 / ranks.float()).sum()
+                count += lb
+            loss = raw / count
+            loss.backward()
+            optimizer.update(opt_state, params)
+            values.append((float(loss.detach()), float(rr / count)))
+            if step == 0:
+                first = first_state(params, optimizer, opt_state)
+        out[f"per_rank{total}"] = {"values": values, "first": first}
+    return out
+
+
+def sharded_unsup_one_rank(dev, card_line: str, data, ref: dict,
+                           single_ms: list, single_embed: dict) -> dict:
+    """"unsup_mean" through the unsupervised sharded stack on a
+    world-size-1 NCCL group in this process: the sharded runner against
+    the single-device runner (``ref["single"]``: every step's loss and
+    MRR equal, every param bit-equal); three timed chunks of 50 steps at
+    the cell's settings (shared_perm, dropout 0: K1 once per step,
+    nothing dropped, no host synchronisation in a chunk; ms/step beside
+    the single-device cell's ``single_ms`` of this call); 4 steps at
+    dropout 0.5 (K2 once per step); the sharded embed sweep over every
+    node against ``embed_all_nodes`` (first_k: rows bit-equal, K1 once
+    per batch; with dedup_gather K3 once per batch, within 1e-5; nodes/s
+    and request p50/p90 beside ``single_embed``); and the sharded eval
+    sweep against the single-device one (shared_perm, the same sampler
+    seed: equal loss and MRR). Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.models.unsupervised import (
+        init_unsupervised_params,
+    )
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        make_sharded_unsup_embed,
+        make_sharded_unsup_eval_sweep,
+        make_sharded_unsupervised_chunk_runner,
+    )
+    from graphsage_tpu_torch.train.unsupervised import (
+        embed_all_nodes,
+        make_unsup_eval_sweep,
+        sharded_embed_all_nodes,
+    )
+
+    features, adj, _ = data
+    out = {}
+    with one_rank_group(dev) as grid:
+        # 1. the runner against the single-device runner
+        config = ref["config"]
+        params = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in ref["init"].items()}
+        optimizer = make_optimizer(LEARNING_RATE)
+        opt_state = optimizer.init(params)
+        run = make_sharded_unsupervised_chunk_runner(config, optimizer, grid,
+                                                     BATCH)
+        pairs = torch.from_numpy(ref["pairs"]).to(dev)
+        negs = torch.from_numpy(ref["negs"][:, :1].copy()).to(dev)
+        shadow = torch.full((), -1.0, device=dev)
+        values, dropped = [], 0
+        for step in range(UNSUP_EQ_STEPS):
+            params, opt_state, shadow, loss, mrr, d = run(
+                params, opt_state, shadow, None, features, adj, pairs, negs,
+                step, 1)
+            values.append((float(loss), float(mrr)))
+            dropped += int(d)
+        want = ref["single"]
+        unequal = [k for k in params
+                   if not torch.equal(params[k], want["final"][k])]
+        log(f"unsupervised sharded D=1 vs the single-device runner, "
+            f"{UNSUP_EQ_STEPS} steps (first_k, dropout 0, lr "
+            f"{LEARNING_RATE}): (loss, MRR) {values} vs {want['values']}; "
+            f"params not bit-equal: {unequal or 'none'}; dropped {dropped}")
+        check(values == want["values"], "unsupervised sharded D=1 and "
+              "single-device losses or MRRs differ")
+        check(not unequal, f"unsupervised sharded D=1 params differ from "
+              f"the single-device runner's in {unequal}")
+        check(dropped == 0, "requests dropped at D=1")
+        del params, opt_state, want["final"]
+
+        # 2. the cell's training: K1 once per step, then K2 at dropout
+        timed_pairs, timed_negs = unsup_stream(dev, 5 + 3 * TRAIN_CHUNK + 14,
+                                               seed=5, sets=1)
+        for dropout in (0.0, DROPOUT):
+            cfg = unsup_config(True)
+            cfg = dataclasses.replace(cfg, sage=dataclasses.replace(
+                cfg.sage, dropout=dropout))
+            params = init_unsupervised_params(
+                torch.Generator().manual_seed(0), cfg, device=dev)
+            optimizer = make_optimizer(UNSUP_LR)
+            opt_state = optimizer.init(params)
+            run = make_sharded_unsupervised_chunk_runner(cfg, optimizer, grid,
+                                                         BATCH)
+            gen = torch.Generator(device=dev).manual_seed(13)
+            state = {"step": 0, "shadow": torch.full((), -1.0, device=dev)}
+
+            def chunk(n):
+                nonlocal params, opt_state
+                (params, opt_state, state["shadow"], loss, mrr,
+                 d) = run(params, opt_state, state["shadow"], gen, features,
+                          adj, timed_pairs, timed_negs, state["step"], n,
+                          drop_seed=7)
+                state["step"] += n
+                return loss, mrr, d
+
+            if dropout > 0.0:
+                reset_counts()
+                loss, _, d = chunk(4)
+                counts = launch_counts()
+                check_counts(counts, "K2", 4, f"unsupervised sharded D=1 at "
+                             f"dropout {DROPOUT}")
+                check(np.isfinite(float(loss)) and int(d) == 0,
+                      f"dropout {DROPOUT}: loss {float(loss)}, dropped "
+                      f"{int(d)}")
+                log(f"unsupervised sharded D=1 at dropout {DROPOUT}: 4 "
+                    f"steps, launches {counts}, loss {float(loss):.5f}")
+                out["K2"] = counts["K2"]
+                continue
+            chunk(5)                             # warm-up
+            reset_counts()
+            times, reads, dropped = [], [], 0
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, mrr, d = chunk(TRAIN_CHUNK)
+                reads.append(torch.stack([loss, mrr, state["shadow"]])
+                             .tolist())        # the print boundary
+                times.append(time.perf_counter() - t0)
+                dropped += int(d)
+                lv, mv, sv = reads[-1]
+                check(np.isfinite(lv) and 0.0 < mv <= 1.0 and 0.0 < sv <= 1.0,
+                      f"unsupervised sharded D=1: loss {lv}, MRR {mv}, EMA "
+                      f"{sv}")
+            counts = launch_counts()
+            check_counts(counts, "K1", 3 * TRAIN_CHUNK,
+                         "unsupervised sharded D=1 training")
+            check(dropped == 0, f"{dropped} requests dropped")
+            for i, (dt, (lv, mv, sv)) in enumerate(zip(times, reads)):
+                ms = dt / TRAIN_CHUNK * 1e3
+                log(f"unsupervised sharded D=1 mean train chunk {i + 1}: "
+                    f"{TRAIN_CHUNK} steps in {dt * 1e3:.2f} ms, {ms:.4f} "
+                    f"ms/step ({ms / single_ms[i]:.2f}x the single-device "
+                    f"cell's {single_ms[i]:.4f} in this call), "
+                    f"{UNSUP_EDGES_PER_STEP * TRAIN_CHUNK / dt:.1f} edges/s; "
+                    f"loss {lv:.5f}, train MRR {mv:.5f}, EMA {sv:.5f} "
+                    f"({card_line})")
+            log(f"unsupervised sharded D=1 training: launches {counts} in "
+                f"{3 * TRAIN_CHUNK} steps; dropped requests {dropped}")
+            out["K1_train"] = counts["K1"]
+            syncs = count_syncs("unsupervised sharded D=1 mean",
+                                lambda: chunk(10), 10)
+            check(syncs == 0, f"unsupervised sharded D=1: {syncs} host "
+                  f"synchronisations per step")
+            profile_window(lambda: chunk(4),
+                           "unsupervised sharded D=1, 4 training steps")
+            del params, opt_state
+
+        # 3. the embed sweep against embed_all_nodes
+        params = init_unsupervised_params(torch.Generator().manual_seed(0),
+                                          config, device=dev)
+        want = embed_all_nodes(config, BATCH, params, features, adj, seed=1)
+        n_b = -(-NUM_NODES // BATCH)
+        sharded_embed_all_nodes(config, grid, BATCH, params, features, adj,
+                                1, 4.0)                     # warm-up
+        for label, cfg, kernel in (
+                ("mean", config, "K1"),
+                ("mean dedup_gather", dataclasses.replace(
+                    config, sage=dataclasses.replace(
+                        config.sage, dedup_gather=True)), "K3")):
+            rates = []
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, dropped = sharded_embed_all_nodes(
+                cfg, grid, BATCH, params, features, adj, 1, 4.0)
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            check_counts(counts, kernel, n_b,
+                         f"unsupervised sharded D=1 {label} embed sweep")
+            diff = float(np.abs(rows - want).max())
+            log(f"unsupervised sharded D=1 {label} embed sweep: {NUM_NODES} "
+                f"nodes in {n_b} batches, rows on the host: {dt * 1e3:.2f} "
+                f"ms, {NUM_NODES / dt:.1f} nodes/s ({card_line}); launches "
+                f"{counts}; dropped {int(dropped)}; rows max abs diff "
+                f"{diff:.3e} vs embed_all_nodes (K1)")
+            check(int(dropped) == 0, "requests dropped in the embed sweep")
+            if kernel == "K1":
+                check(np.array_equal(rows, want), "the sharded D=1 embed "
+                      "sweep's rows are not embed_all_nodes' rows")
+            else:
+                check(diff <= 1e-5, f"the K3 embed sweep differs by {diff}")
+            out[f"{kernel}_embed"] = counts[kernel]
+        cell = unsup_config(True)       # the cell's sampler, shared_perm
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sharded_embed_all_nodes(cell, grid, BATCH, params, features, adj,
+                                    1, 4.0)
+            rates.append(NUM_NODES / (time.perf_counter() - t0))
+        embed_fn = make_sharded_unsup_embed(cell, grid)
+        ids = torch.arange(n_b * BATCH, dtype=torch.int32, device=dev)
+        ids[NUM_NODES:] = NUM_NODES
+        lat = []
+        for i in range(n_b):
+            t1 = time.perf_counter()
+            embed_fn(params, features, adj,
+                     ids[i * BATCH:(i + 1) * BATCH])[0].cpu()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+        single_rates = single_embed["nodes_per_s"]
+        log(f"unsupervised sharded D=1 embed sweep: "
+            f"{', '.join(f'{r:.1f}' for r in rates)} nodes/s against the "
+            f"single-device sweep's "
+            f"{', '.join(f'{r:.1f}' for r in single_rates)} in this call "
+            f"({min(single_rates) / max(rates):.2f}-"
+            f"{max(single_rates) / min(rates):.2f}x the time); per request "
+            f"of {BATCH} nodes p50 {p50:.3f} ms, p90 "
+            f"{p90:.3f} ms (single-device p50 {single_embed['p50']:.3f}, p90 "
+            f"{single_embed['p90']:.3f}) ({card_line})")
+
+        # 4. the eval sweep against the single-device sweep
+        cfg = unsup_config(True)
+        val_pairs, val_negs = unsup_stream(dev, 20, seed=11, sets=1)
+        single = make_unsup_eval_sweep(cfg, BATCH)(
+            params, features, adj, val_pairs, val_negs[0, 0],
+            torch.Generator(device=dev).manual_seed(2))
+        t0 = time.perf_counter()
+        loss, mrr, dropped = make_sharded_unsup_eval_sweep(cfg, grid, BATCH)(
+            params, features, adj, val_pairs, val_negs[0],
+            torch.Generator(device=dev).manual_seed(2))
+        dt = time.perf_counter() - t0
+        log(f"unsupervised sharded D=1 eval sweep, 20 batches (shared_perm): "
+            f"loss {float(loss):.6f}, MRR {float(mrr):.6f} vs single-device "
+            f"{float(single[0]):.6f}, {float(single[1]):.6f}; {dt * 1e3:.2f} "
+            f"ms; dropped {int(dropped)}")
+        check(float(loss) == float(single[0]) and float(mrr) == float(
+            single[1]), "the sharded D=1 eval sweep differs from the "
+              "single-device sweep")
+        check(int(dropped) == 0, "requests dropped in the eval sweep")
+    return out
+
+
+def sharded_unsup_ranks(card_line: str, data, ref: dict, devices: list,
+                        backend: str, grids: tuple) -> None:
+    """Ranks on ``devices`` over ``backend`` (``parallel/launch.py``), one
+    spawn for every grid of ``grids`` (each with as many ranks as
+    devices): ``UNSUP_EQ_STEPS`` steps of the unsupervised runner at
+    first_k, dropout 0, lr 1e-2 and an exact capacity. A data-parallel
+    grid (1 x M) draws one negative set a step and is held to the
+    single-device runner (``ref["single"]``); a graph-sharded one to the
+    one-device reference built from its ranks' negatives
+    (``ref["per_rank<total>"]``): each step's loss within 1e-5
+    (relative), its MRR within 1e-5 or one near-tie off
+    (``mrr_flips``), at most one such step in the run, the ranks' params
+    bit-equal, nothing dropped, and the params after the first step
+    within rtol 2e-4 / atol 1e-6 where Adam's sqrt(v) is 1e3 eps or
+    more (the elements below are counted). Every grid is logged before
+    any is checked. On one card: gloo, the collectives staged through
+    the host, so no time target."""
+    import shutil
+
+    import torch
+
+    from graphsage_tpu_torch.parallel import launch
+
+    features, adj, _ = data
+    jobs = {}
+    for grid in grids:
+        total = grid[0] * grid[1]
+        dp = grid[0] == 1
+        jobs[grid] = dict(
+            kind="unsup_train", grid=grid, runner="dp" if dp else "sharded",
+            unsup_config=ref["config"], params=ref["init"],
+            features=features.cpu().numpy(), adj=adj.cpu().numpy(),
+            pairs_perm=ref["pairs"],
+            neg_ids=(ref["negs"][:, 0].copy() if dp
+                     else ref["negs"][:, :total].copy()),
+            batch_size=BATCH, lr=LEARNING_RATE,
+            capacity_factor=float(grid[0]),      # exact: nothing drops
+            chunks=[(s, 1) for s in range(UNSUP_EQ_STEPS)], first=True)
+    scratch = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    label = f"{len(devices)} ranks ({backend})"
+    try:
+        torch.save(jobs, os.path.join(scratch, "jobs.pt"))
+        del jobs
+        t0 = time.perf_counter()
+        launch.spawn(launch.check_rank,
+                     (os.path.join(scratch, "jobs.pt"), scratch), devices,
+                     f"file://{scratch}/store", backend=backend,
+                     timeout_s=600)
+        log(f"unsupervised sharded on {label}, grids {grids}: "
+            f"{time.perf_counter() - t0:.2f} s, start-up included")
+        outs = [torch.load(os.path.join(scratch, f"rank{r}.pt"),
+                           weights_only=False) for r in range(len(devices))]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    checks = []
+    for grid in grids:
+        total = grid[0] * grid[1]
+        want = ref["single" if grid[0] == 1 else f"per_rank{total}"]
+        name = (f"unsupervised sharded {grid[0]} x {grid[1]} on {label}"
+                + (" (data-parallel)" if grid[0] == 1 else ""))
+        chunks = [o[grid]["chunks"] for o in outs]
+        got = [(c["loss"], c["mrr"]) for c in chunks[0]]
+        loss_diff = max(abs(a[0] - b[0]) / abs(b[0])
+                        for a, b in zip(got, want["values"]))
+        mrr_diff = max(abs(a[1] - b[1]) for a, b in zip(got, want["values"]))
+        flips = [mrr_flips(a[1], b[1]) for a, b in zip(got, want["values"])]
+        dropped = sum(c["dropped"] for rank in chunks for c in rank)
+        held = loose = n_el = 0
+        worst_loose = 0.0
+        first_params, root_nu = want["first"]
+        for k, v in first_params.items():
+            ours = outs[0][grid]["first"][k]
+            for o in outs[1:]:
+                for part in ("first", "params"):
+                    check(np.array_equal(o[grid][part][k],
+                                         outs[0][grid][part][k]),
+                          f"{name}: the ranks' {k} differ")
+            resolved = root_nu[k] >= ADAM_FLOOR * 1e-8
+            excess = np.abs(ours - v) - (1e-6 + 2e-4 * np.abs(v))
+            held = max(held, float(excess[resolved].max(initial=-1.0)))
+            worst_loose = max(worst_loose, float(
+                np.abs(ours - v)[~resolved].max(initial=0.0)))
+            loose += int((~resolved).sum())
+            n_el += v.size
+        ms = [c["seconds"] * 1e3 for c in chunks[0][1:]]
+        against = ("the single-device runner" if grid[0] == 1 else
+                   "the one-device reference from its ranks' negatives")
+        log(f"{name} vs {against}, "
+            f"{UNSUP_EQ_STEPS} steps (first_k, dropout 0): (loss, MRR) {got}"
+            f" vs {want['values']} (worst rel loss diff {loss_diff:.3e}, "
+            f"limit 1e-5; MRR diff {mrr_diff:.3e}, near-tie rank flips by "
+            f"step {flips}, limit one step of one flip); dropped {dropped}; "
+            f"params after one step beyond rtol 2e-4 / atol 1e-6 where "
+            f"resolved: {held:.3e} (limit 0); {loose} of {n_el} elements "
+            f"below {ADAM_FLOOR:g} eps, worst {worst_loose:.3e} (not held); "
+            f"steps 2-{UNSUP_EQ_STEPS} "
+            f"{', '.join(f'{m:.2f}' for m in ms)} ms ({card_line})")
+        checks += [
+            (loss_diff <= 1e-5, f"{name}: losses differ by {loss_diff}"),
+            (None not in flips and sum(flips) <= 1,
+             f"{name}: MRRs differ by more than one near-tie: {flips}"),
+            (dropped == 0, f"{name}: {dropped} requests dropped"),
+            (held <= 0.0, f"{name}: params differ beyond rtol 2e-4 / atol "
+             f"1e-6")]
+    for ok, msg in checks:
+        check(ok, msg)
+
+
+def mrr_flips(got: float, want: float, batch: int = BATCH):
+    """0 if two MRRs of ``batch`` pairs agree within 1e-5; 1 if they are
+    one pair's rank one place apart: the two sides rank every pair alike
+    but one, whose positive score is within rounding of a negative's,
+    so that pair's reciprocal rank moves from 1/r to 1/(r+1) and the
+    MRR by (1/r - 1/(r+1)) / batch (to 1e-4 / batch: the f32 sums'
+    rounding); None otherwise. The embeddings on the two sides round
+    apart by ~1e-7, and a batch of 512 pairs scored against 20
+    negatives holds ~10k positive-negative margins, so a margin that
+    small turns up in a few percent of steps."""
+    gap = abs(got - want) * batch
+    if gap <= 1e-5 * batch:
+        return 0
+    if any(abs(gap - (1 / r - 1 / (r + 1))) <= 1e-4
+           for r in range(1, NEG_SAMPLES + 1)):
+        return 1
+    return None
+
+
 def sharded_cli_refusal(dev) -> None:
-    """``python -m graphsage_tpu_torch supervised --graph_shards 2`` on
-    this one-card machine: it must fail, naming the two devices it needs,
-    and must not train on the CPU."""
+    """``python -m graphsage_tpu_torch supervised --graph_shards 2`` and
+    ``unsupervised --graph_shards 2`` on this one-card machine, started
+    together: each must fail, naming the two devices it needs, and must
+    write no logs (nor train on the CPU)."""
     from graphsage_tpu_torch.data.synthetic import (
         make_synthetic_graph,
         write_dataset,
@@ -3391,20 +3884,34 @@ def sharded_cli_refusal(dev) -> None:
         prefix = os.path.join(tmp, "toy", "toy")
         write_dataset(make_synthetic_graph(num_nodes=60, num_classes=3,
                                            feat_dim=8, seed=3), prefix)
-        proc = subprocess.run(
-            [sys.executable, "-m", "graphsage_tpu_torch", "supervised",
-             "--train_prefix", prefix, "--graph_shards", "2",
-             "--base_log_dir", os.path.join(tmp, "log"), "--device",
-             str(dev.type)], cwd=ROOT, capture_output=True, text=True,
-            timeout=300)
-        last = (proc.stderr.strip().splitlines() or [""])[-1]
-        log(f"supervised --graph_shards 2 on one card: exit {proc.returncode}"
-            f", {last}")
-        check(proc.returncode != 0, "--graph_shards 2 ran on one card")
-        check("needs 2 CUDA devices" in proc.stderr,
-              "the refusal does not name the two devices")
-        check(not os.path.exists(os.path.join(tmp, "log")),
-              "the refused run wrote logs")
+        procs = {}
+        try:
+            for command in ("supervised", "unsupervised"):
+                pairs = (["--no-random_context"] if command == "unsupervised"
+                         else [])
+                procs[command] = subprocess.Popen(
+                    [sys.executable, "-m", "graphsage_tpu_torch", command,
+                     "--train_prefix", prefix, "--graph_shards", "2",
+                     "--base_log_dir", os.path.join(tmp, f"log_{command}"),
+                     "--device", str(dev.type)] + pairs, cwd=ROOT,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for command, proc in procs.items():
+                _, stderr = proc.communicate(timeout=300)
+                last = (stderr.strip().splitlines() or [""])[-1]
+                log(f"{command} --graph_shards 2 on one card: exit "
+                    f"{proc.returncode}, {last}")
+                check(proc.returncode != 0,
+                      f"{command} --graph_shards 2 ran on one card")
+                check("needs 2 CUDA devices" in stderr,
+                      f"{command}: the refusal does not name the two devices")
+                check(not os.path.exists(os.path.join(tmp,
+                                                      f"log_{command}")),
+                      f"the refused {command} run wrote logs")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
 
 def cli_phases(dev) -> None:
@@ -3513,6 +4020,12 @@ def main() -> int:
         for grid in ((n, 1), (n // 2, 2)):
             phase(f"sharded {grid[0]} x {grid[1]} on {n} cards (nccl)",
                   sharded_ranks, card_line, data, eq, devices, "nccl", grid)
+        del eq
+        ref = phase("the unsupervised references", unsup_reference, dev,
+                    data, n)
+        phase(f"unsupervised sharded {n} x 1 and {n // 2} x 2 on {n} cards "
+              f"(nccl)", sharded_unsup_ranks, card_line, data, ref, devices,
+              "nccl", ((n, 1), (n // 2, 2)))
         return 0
     if sys.argv[1:] == ["--loads"]:
         phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
@@ -3561,11 +4074,11 @@ def main() -> int:
     phase("seq training, rows_gather", train_full_width, dev, data,
           "seq rows_gather", bench_config(True, 0.0, "seq", rows=True), "K4",
           2, SEQ_TRAIN_CHUNK, 4, 3)
-    k1["launches_unsup_train"] = phase(
+    k1["launches_unsup_train"], unsup_ms = phase(
         "unsupervised mean training (unsup_mean)", train_unsupervised, dev,
         data)
-    k1["launches_embed_sweep"] = phase("embed sweep", embed_full_width, dev,
-                                       data)
+    k1["launches_embed_sweep"], embed_stats = phase(
+        "embed sweep", embed_full_width, dev, data)
     routes = phase("unsupervised routes through K2, K6 and K5",
                    unsup_other_routes, dev, data)
     k2["launches_unsup_train"] = routes["K2"]
@@ -3579,8 +4092,20 @@ def main() -> int:
     phase("sharded D=2 on one card (gloo)", sharded_ranks, card_line, data,
           sharded["eq"], [dev, dev], "gloo", (2, 1))
     del sharded
-    phase("CLI: supervised --graph_shards 2 on one card", sharded_cli_refusal,
-          dev)
+    ref = phase("the unsupervised references", unsup_reference, dev, data, 2)
+    unsup_sharded = phase("unsupervised sharded D=1 (nccl)",
+                          sharded_unsup_one_rank, dev, card_line, data, ref,
+                          unsup_ms, embed_stats)
+    k1["launches_unsup_sharded_train"] = unsup_sharded["K1_train"]
+    k1["launches_unsup_sharded_embed"] = unsup_sharded["K1_embed"]
+    k2["launches_unsup_sharded_train"] = unsup_sharded["K2"]
+    k3["launches_unsup_sharded_embed"] = unsup_sharded["K3_embed"]
+    phase("unsupervised sharded 1 x 2 and 2 x 1 on one card (gloo)",
+          sharded_unsup_ranks, card_line, data, ref, [dev, dev], "gloo",
+          ((1, 2), (2, 1)))
+    del ref, unsup_sharded
+    phase("CLI: supervised and unsupervised --graph_shards 2 on one card",
+          sharded_cli_refusal, dev)
     graph = phase("native host builder on bench.py's graph", native_walks,
                   data)
     target = phase("node2vec at full width", train_node2vec, dev, graph)

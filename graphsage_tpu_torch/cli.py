@@ -5,16 +5,18 @@ The subcommands take the JAX package's flag names and defaults for the
 fields the port reads (``unsupervised`` and ``embed``: lr 1e-5, 1 epoch,
 max_degree 100, print_every 50), plus ``--device`` (default ``cuda``).
 
-``supervised`` and ``predict`` run on several devices with
-``--graph_shards N`` (row-sharded tables, the all-to-all exchange)
-and ``--data_shards M`` (data parallelism; both: an M x N grid), one
-process per device (``parallel/launch.py``): on one host this command
-starts the ranks itself (``cuda:0 ..``, or gloo ranks with ``--device
-cpu``); ``torchrun --nproc_per_node N -m graphsage_tpu_torch ...`` runs
-one rank per process; across hosts each host runs this command with
-``--coordinator_address host:port --num_processes P --process_id i``.
-Still refused, each naming its ROADMAP.md item: ``unsupervised`` and
-``embed`` with shards or hosts above 1 (A.9b), and ``--n_model_shards``
+``supervised``, ``predict``, ``unsupervised`` and ``embed`` run on
+several devices with ``--graph_shards N`` (row-sharded tables, the
+all-to-all exchange) and ``--data_shards M`` (data parallelism; both:
+an M x N grid), one process per device (``parallel/launch.py``): on one
+host this command starts the ranks itself (``cuda:0 ..``, or gloo ranks
+with ``--device cpu``); ``torchrun --nproc_per_node N -m
+graphsage_tpu_torch ...`` runs one rank per process; across hosts each
+host runs this command with ``--coordinator_address host:port
+--num_processes P --process_id i``. ``predict`` and ``embed`` run
+``--data_shards`` alone on one device, and ``unsupervised --model n2v``
+trains on one device whatever the shard flags say, as in the JAX
+package. Still refused, naming its ROADMAP.md item: ``--n_model_shards``
 above 1 (A.9c).
 """
 
@@ -78,7 +80,7 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
     p.add_argument("--graph_shards", type=int, default=d.graph_shards,
                    help="row-shard the feature/adjacency/identity tables "
                    "over N devices, frontier rows through an all-to-all "
-                   "exchange (supervised, predict)")
+                   "exchange")
     p.add_argument("--data_shards", type=int, default=d.data_shards,
                    help="data parallelism over N devices (whole tables, "
                    "the batch split, gradients summed); with "
@@ -252,44 +254,41 @@ def main(argv=None) -> int:
     multi_host = (args.coordinator_address is not None
                   or (args.num_processes or 1) > 1)
     unsup = args.command in ("unsupervised", "embed")
-    if unsup and multi_host:
-        raise NotImplementedError(
-            f"{args.command} across hosts (--coordinator_address, "
-            "--num_processes): the sharded unsupervised paths are not "
-            "ported yet (ROADMAP.md A.9b)")
     defaults = UNSUP_DEFAULTS if unsup else TrainFlags()
     fields = {f.name for f in dataclasses.fields(TrainFlags)}
     flags = dataclasses.replace(
         defaults, **{k: v for k, v in vars(args).items() if k in fields})
-    if args.command in ("supervised", "predict"):
-        from graphsage_tpu_torch.parallel import launch
-        from graphsage_tpu_torch.train.config import require_ported
-
-        require_ported(flags)
-        grid = (flags.graph_shards, flags.data_shards)
-        if args.command == "supervised":
-            fn, fn_args = launch.supervised_rank, (flags,)
-        else:
-            fn, fn_args = launch.predict_rank, (
-                flags, args.out_dir, args.nodes, args.num_classes)
-            if flags.graph_shards == 1:   # as the JAX package's predict
-                grid = (1, 1)
-        if grid[0] * grid[1] > 1 or multi_host:
-            launch.run_command(
-                fn, fn_args, *grid, device=args.device,
-                coordinator_address=args.coordinator_address,
-                num_processes=args.num_processes,
-                process_id=args.process_id)
-        else:
-            fn(args.device, *fn_args)
-    elif args.command == "unsupervised":
+    if args.command == "unsupervised" and flags.model == "n2v":
+        # node2vec trains on one device whatever the shard flags say, as
+        # in the JAX package: no rank is started
         from graphsage_tpu_torch.train.unsupervised import train
 
         train(flags, device=args.device)
-    elif args.command == "embed":
-        from graphsage_tpu_torch.infer import export_embeddings
+        return 0
+    from graphsage_tpu_torch.parallel import launch
+    from graphsage_tpu_torch.train.config import require_ported
 
-        export_embeddings(flags, out_dir=args.out_dir, device=args.device)
+    require_ported(flags)
+    grid = (flags.graph_shards, flags.data_shards)
+    if args.command == "supervised":
+        fn, fn_args = launch.supervised_rank, (flags,)
+    elif args.command == "unsupervised":
+        fn, fn_args = launch.unsupervised_rank, (flags,)
+    elif args.command == "predict":
+        fn, fn_args = launch.predict_rank, (
+            flags, args.out_dir, args.nodes, args.num_classes)
+    else:
+        fn, fn_args = launch.embed_rank, (flags, args.out_dir)
+    if args.command in ("predict", "embed") and flags.graph_shards == 1:
+        grid = (1, 1)   # as the JAX package's predict and embed
+    if grid[0] * grid[1] > 1 or multi_host:
+        launch.run_command(
+            fn, fn_args, *grid, device=args.device,
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id)
+    else:
+        fn(args.device, *fn_args)
     return 0
 
 

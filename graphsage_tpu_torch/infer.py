@@ -23,7 +23,10 @@ count.
 ``export_embeddings`` restores an unsupervised checkpoint and writes
 ``val.npy``/``val.txt`` through the trainer's own embed sweep and
 sampler seed (``train/unsupervised.py``), so on the same device it
-reproduces the trainer's export bit for bit.
+reproduces the trainer's export bit for bit. With ``--graph_shards N``
+(and ``--data_shards M``) it runs as one rank, the tables sharded as
+``predict``'s, through the sharded embed sweep; ``--data_shards``
+alone runs on one device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,8 +57,8 @@ from graphsage_tpu_torch.train.config import (
     require_ported,
 )
 from graphsage_tpu_torch.train.metrics import calc_f1
+from graphsage_tpu_torch.train.sharding import place_sharded_features
 from graphsage_tpu_torch.train.supervised import (
-    _place_sharded_features,
     _run_eval_sweep,
     build_supervised_config,
     labels_table_of,
@@ -123,7 +126,7 @@ def _prepare_sharded(flags: TrainFlags, graph, params_like: dict,
     _, _, full_adj_np = build_both_adjs(
         graph, flags.max_degree, seed=flags.seed
     )
-    feat_local = _place_sharded_features(
+    feat_local = place_sharded_features(
         graph, D, grid.graph_rank, flags.feature_dtype, layout, device)
     full_adj = torch.from_numpy(
         local_shard(full_adj_np, D, grid.graph_rank, layout)).to(device)
@@ -263,25 +266,51 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
 
 
 def export_embeddings(flags: TrainFlags, out_dir: str | None = None,
-                      graph=None, device="cuda") -> str:
+                      graph=None, device="cuda") -> str | None:
     """Checkpoint -> the l2-normalised embedding of every node, written
     as val.npy + val.txt (the trainer's export) under ``out_dir``; runs
-    on ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    on ``device`` (``cuda`` unless the caller asks for ``cpu``). With
+    ``--graph_shards`` above 1 this process is one rank of an
+    initialised process group and rank 0 writes (the others return
+    None); the sweep and its sampler seed (``seed + 2``) are the sharded
+    trainer's, so a sharded run's ``val.npy`` comes back bit for bit."""
     from graphsage_tpu_torch.train.unsupervised import (
         build_unsupervised_config,
         embed_all_nodes,
+        sharded_embed_all_nodes,
         write_embeddings,
     )
 
-    require_ported(flags, "embed")
+    if flags.model == "n2v":
+        raise ValueError(
+            "n2v is embedding-table-only (transductive); its embeddings "
+            "are exported by the trainer itself (val.npy / val-test.npy)")
+    require_ported(flags)
     device = resolve_device(device)
-    graph, features, full_adj = _prepare(flags, graph, device)
-    config = build_unsupervised_config(flags, graph)
-    params, step = _restore_params(
-        flags, init_unsupervised_params(torch.Generator(), config), device)
-    # the trainer's sampler seed for its export
-    rows = embed_all_nodes(config, flags.batch_size, params, features,
-                           full_adj, flags.seed + 1)
+    if flags.graph_shards > 1:
+        if graph is None:
+            graph = load_data(flags.train_prefix,
+                              load_features=not flags.defer_features,
+                              degree_relabel=flags.degree_relabel)
+        config = build_unsupervised_config(flags, graph)
+        env = _prepare_sharded(flags, graph, init_unsupervised_params(
+            torch.Generator(), config), device)
+        rows, dropped = sharded_embed_all_nodes(
+            config, env.grid, flags.batch_size, env.params, env.feat_local,
+            env.full_adj_local, flags.seed + 2, env.cap_factor)
+        step = env.step
+        if not env.grid.is_chief:
+            return None
+        _warn_dropped(dropped, env.cap_factor, "embedding export")
+    else:
+        graph, features, full_adj = _prepare(flags, graph, device)
+        config = build_unsupervised_config(flags, graph)
+        params, step = _restore_params(
+            flags, init_unsupervised_params(torch.Generator(), config),
+            device)
+        # the trainer's sampler seed for its export
+        rows = embed_all_nodes(config, flags.batch_size, params, features,
+                               full_adj, flags.seed + 1)
     out_dir = out_dir or flags.log_dir("unsupervised")
     write_embeddings(out_dir, rows, graph.node_ids)
     print(f"Wrote {rows.shape[0]} x {rows.shape[1]} embeddings "

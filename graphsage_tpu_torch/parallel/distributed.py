@@ -122,19 +122,24 @@ def host_array(t: torch.Tensor, group=None) -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
-def all_reduce_grads(params: dict, grid: Grid) -> None:
+def all_reduce_grads(params: dict, grid: Grid,
+                     extra: torch.Tensor | None = None):
     """Sum the gradients of the step: every replicated parameter's over
     the world, in one flattened bucket, and the identity table's
     (``embeds``) over the data group only. Within a graph group that
     table is row-sharded, and the exchange's backward has already sent
     each row's gradient to its owner; under pure data parallelism the
     data group is the world. A parameter without a gradient counts as
-    zeros, as optax steps every leaf."""
+    zeros, as optax steps every leaf. ``extra``, a 1-D float32 tensor,
+    rides the same bucket (the unsupervised runners' MRR sums, which
+    then cost no collective of their own) and is returned summed over
+    the world; without it the call returns None."""
     for p in params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     shared = [p for k, p in params.items() if k != "embeds"]
-    flat = torch.cat([p.grad.reshape(-1) for p in shared])
+    flat = torch.cat([p.grad.reshape(-1) for p in shared]
+                     + ([] if extra is None else [extra]))
     dist.all_reduce(flat)
     offset = 0
     for p in shared:
@@ -142,3 +147,4 @@ def all_reduce_grads(params: dict, grid: Grid) -> None:
         offset += p.numel()
     if "embeds" in params and grid.data_size > 1:
         dist.all_reduce(params["embeds"].grad, group=grid.data_group)
+    return None if extra is None else flat[offset:]

@@ -1,5 +1,6 @@
 """The training steps and chunk runners: on one device, and the pure
-data-parallel supervised runner (P1, ``--data_shards``).
+data-parallel supervised and unsupervised runners (P1,
+``--data_shards``).
 
 The JAX package jits one function per step (forward, backward, the
 clipped Adam update) and runs a chunk of steps in one ``fori_loop``
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from graphsage_tpu_torch.models.graphsage import sage_embed
 from graphsage_tpu_torch.models.node2vec import (
     Node2VecConfig,
     mask_context_gradients,
@@ -304,5 +306,40 @@ def make_dp_supervised_chunk_runner(sup_config: SupervisedConfig, optimizer,
         loss = loss.detach()
         dist.all_reduce(loss)   # the last step's, read by the caller
         return params, opt_state, loss, logits.detach(), ids
+
+    return runner
+
+
+def make_dp_unsupervised_chunk_runner(unsup_config: UnsupervisedConfig,
+                                      optimizer, grid, batch_size: int):
+    """--data_shards M unsupervised: the chunk runner of
+    ``make_unsupervised_chunk_runner`` (the same call and return layout)
+    over a grid of one graph shard and M data slices: tables and params
+    replicated, rank ``me`` takes pairs ``me*B/M .. (me+1)*B/M`` of each
+    step's batch and every rank the step's one negative set
+    ``neg_ids[i]``, as one device does. The per-edge losses are
+    normalised by the world's mask count, the gradients summed over the
+    world and the MRR is the exact global masked mean (its sums ride
+    the gradient bucket), so under first_k it is the single-device
+    runner's to the rounding of the sums' order (bit for bit at one
+    rank). The decay term is divided by M; the inner hop's dropout is
+    keyed with (``drop_seed`` folded with ``me``, i); ``generator``
+    should be the rank's own."""
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        _unsup_chunk_runner,
+    )
+
+    config = unsup_config.sage
+
+    def embed(params, features, adj, ids, generator, drop_key):
+        return sage_embed(params, features, adj, ids, config,
+                          generator=generator, deterministic=False,
+                          drop_key=drop_key), None
+
+    run = _unsup_chunk_runner(unsup_config, optimizer, grid, batch_size,
+                              embed, rank_negatives=False)
+
+    def runner(*args, **kwargs):
+        return run(*args, **kwargs)[:5]
 
     return runner

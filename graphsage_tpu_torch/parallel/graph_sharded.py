@@ -23,6 +23,11 @@ gather-mean kernels (``ops/gather.py::fused_gather_mean``: K1, K2 with
 dropout, K3 with ``dedup_gather``). At more shards it splits: the local
 rows' share is a plain take, mask and mean off the local shard, the
 remote share rides the exchange, and the two partial sums add.
+
+The supervised runners, eval and sweep, and their unsupervised
+counterparts (three towers in one ``sharded_sage_embed``, the
+skip-gram loss, the MRR as the exact global masked mean) and the
+sharded embed sweep share the exchange and the reductions above.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from graphsage_tpu_torch.models.supervised import (
     per_node_loss,
     supervised_predict,
 )
+from graphsage_tpu_torch.nn import prediction
 from graphsage_tpu_torch.nn.dense import apply_dense
 from graphsage_tpu_torch.nn.sampler import sample_from_rows
 from graphsage_tpu_torch.ops.gather import fused_gather_mean
@@ -52,7 +58,7 @@ from graphsage_tpu_torch.parallel.distributed import (
     fold_seed,
     host_array,
 )
-from graphsage_tpu_torch.parallel.dp import _require_num_nodes
+from graphsage_tpu_torch.parallel.dp import _require_num_nodes, mrr_ema
 
 # Philox tags of the split mean's two partial sums (the identity columns
 # keep IDENTITY_DROP_TAG, a one-shard mean K2's KERNEL_DROP_TAG)
@@ -509,6 +515,15 @@ def _check_batch_divisible(grid, batch_size: int) -> None:
             f"data={grid.data_size})")
 
 
+def _graph_major_me(grid) -> int:
+    """This rank's slice of a batch split over the whole grid, graph-major
+    (g * M + d): each graph rank's slice nests over the data slices, so
+    every row keeps the graph rank it has on a 1 x D grid. The runners
+    and the row-output sweeps split data-major (``grid.me``, d * D + g,
+    the order in which the ranks' rows stack)."""
+    return grid.graph_rank * grid.data_size + grid.data_rank
+
+
 def _sup_per_node_xent(sup_config, params, feat_local, adj_local, ids,
                        labels, group, capacity_factor, generator,
                        deterministic, drop_key=None):
@@ -551,6 +566,45 @@ def _decay_term(params, sage_config, weight_decay: float, total: int,
 def _all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_reduce(t, group=group)
     return t
+
+
+def _unsup_pair_metrics(out1, out2, neg, mask, unsup_config):
+    """(raw skip-gram loss, [sum of rr * mask, sum of mask]) of the three
+    l2-normalised towers: the body of every sharded unsupervised path.
+    The affinities are ``prediction.edge_pred_scores``' (one product for
+    positive and negative scores), as on one device; the MRR's masked
+    sums, not their mean, leave the rank (``_global_masked_mrr``)."""
+    aff, neg_aff = prediction.edge_pred_scores(out1, out2, neg)
+    raw = prediction.pair_loss(aff, neg_aff, unsup_config.loss_fn, mask,
+                               unsup_config.neg_sample_weights)
+    ranks, _ = prediction.mrr_and_ranks(aff.detach(), neg_aff.detach(),
+                                        mask)
+    return raw, torch.stack([(1.0 / ranks.float() * mask).sum(), mask.sum()])
+
+
+def _masked_mean(sums: torch.Tensor) -> torch.Tensor:
+    """sum(rr * mask) / max(sum(mask), 1) of a [2] tensor of the sums:
+    ``mrr_and_ranks``' masked mean, the same division."""
+    return sums[0] / torch.clamp(sums[1], min=1.0)
+
+
+def _global_masked_mrr(sums: torch.Tensor, group=None) -> torch.Tensor:
+    """The exact global masked-mean MRR from each rank's [sum of rr *
+    mask, sum of mask]: both summed over ``group``, then divided. The
+    ranks' MRRs are not averaged: a rank whose slice of a dummy-padded
+    tail batch is all padding (MRR 0 of count 0) would pull the mean
+    down. The JAX package recovers the sums as mrr * count; here they
+    come straight from the ranks. The runners and evaluations reduce the
+    same two sums inside a collective they make anyway (the gradient
+    bucket, the loss's sums)."""
+    return _masked_mean(_all_reduce(sums.clone(), group))
+
+
+def _towers(out, b: int):
+    """The l2-normalised (batch1, batch2, negatives) rows of one
+    ``[b1; b2; neg]`` forward."""
+    return (l2_normalize(out[:b], 1), l2_normalize(out[b:2 * b], 1),
+            l2_normalize(out[2 * b:], 1))
 
 
 # ------------------------------------------------------------- runners
@@ -689,6 +743,251 @@ def make_sharded_supervised_eval_sweep(sup_config, grid, batch_size: int,
                 logits, sup_config)
             dropped_tot += dropped
         return losses, preds, _all_reduce(dropped_tot)
+
+    return sweep
+
+
+# ------------------------------------------------ unsupervised runners
+
+def _unsup_chunk_runner(unsup_config, optimizer, grid, batch_size: int,
+                        embed, rank_negatives: bool):
+    """The step loop of the sharded and the data-parallel unsupervised
+    runners; ``embed(params, features, adj, ids, generator, drop_key)``
+    -> (raw embeddings, dropped count or None) is theirs.
+    ``rank_negatives``: step i takes ``neg_ids[i, grid.me]`` (each rank
+    its own set), else ``neg_ids[i]`` (one set for every rank). Returns
+    the runner, whose sixth output is this rank's dropped count over the
+    chunk, not yet reduced."""
+    config = unsup_config.sage
+    num_nodes = config.num_nodes
+    _require_num_nodes(num_nodes, "pair stream")
+    _check_batch_divisible(grid, batch_size)
+    local_b = batch_size // grid.total
+
+    def runner(params, opt_state, shadow, generator, features, adj,
+               pairs_perm, neg_ids, start_step: int, n_steps: int,
+               drop_seed: int = 0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        seed = fold_seed(drop_seed, grid.me)
+        dropped_tot = torch.zeros((), dtype=torch.int32,
+                                  device=pairs_perm.device)
+        for i in range(start_step, start_step + n_steps):
+            lo = i * batch_size + grid.me * local_b
+            pair = pairs_perm[lo:lo + local_b]
+            b1, b2 = pair[:, 0], pair[:, 1]
+            mask = (b1 != num_nodes).float()
+            global_mask_sum = torch.clamp(_all_reduce(mask.sum()), min=1.0)
+            neg = neg_ids[i, grid.me] if rank_negatives else neg_ids[i]
+            opt_state.zero_grad(set_to_none=True)
+            out, dropped = embed(params, features, adj,
+                                 torch.cat([b1, b2, neg]), generator,
+                                 (seed, i))
+            raw, sums = _unsup_pair_metrics(*_towers(out, local_b), mask,
+                                            unsup_config)
+            loss = raw / global_mask_sum + _decay_term(
+                params, config, unsup_config.weight_decay, grid.total)
+            loss.backward()
+            # the MRR's sums ride the gradient bucket: two collectives a
+            # step, the mask sum and the bucket
+            mrr = _masked_mean(all_reduce_grads(params, grid, extra=sums))
+            optimizer.update(opt_state, params)
+            shadow = mrr_ema(shadow, mrr)
+            if dropped is not None:
+                dropped_tot = dropped_tot + dropped
+        return (params, opt_state, shadow, _all_reduce(loss.detach()), mrr,
+                dropped_tot)
+
+    return runner
+
+
+def make_sharded_unsupervised_chunk_runner(unsup_config, optimizer, grid,
+                                           batch_size: int,
+                                           capacity_factor: float = 4.0):
+    """runner(params, opt_state, shadow, generator, feat_local, adj_local,
+    pairs_perm, neg_ids, start_step, n_steps, drop_seed=0) -> (params,
+    opt_state, shadow, last_loss, last_mrr, dropped).
+
+    Steps ``start_step .. start_step + n_steps - 1`` of an epoch whose
+    padded, shuffled pair stream ``pairs_perm`` [P, 2] (the same on
+    every rank) lives on the device: step i's batch is
+    ``pairs_perm[i*B:(i+1)*B]``, this rank takes rows ``me*B/total ..
+    (me+1)*B/total`` of it (``grid.me``, data-major) and its own
+    negatives ``neg_ids[i, me]`` (``neg_ids`` [steps, total, n_neg],
+    the JAX package's ``fold_in(step_rng, me)``; at one rank the
+    single-device runner's draw). Its three towers run as one
+    ``sharded_sage_embed`` of ``[b1; b2; neg]``, one exchange per level.
+    The loss is normalised by the world's mask sum plus the decay term
+    over the world size; the replicated gradients are summed over the
+    world, the identity shard's over the data group only. The MRR is
+    the world's exact masked mean and feeds the train-MRR EMA
+    ``shadow`` on the device every step. The inner hop's dropout is
+    keyed with (``drop_seed`` folded with ``grid.me``, i). The last
+    step's loss and the chunk's dropped count are summed over the world
+    once, at the end of the chunk; nothing is read back."""
+    config = unsup_config.sage
+
+    def embed(params, feat_local, adj_local, ids, generator, drop_key):
+        return sharded_sage_embed(
+            params, feat_local, adj_local, ids, config, grid.graph_group,
+            capacity_factor, generator=generator,
+            deterministic=config.dropout == 0.0, drop_key=drop_key,
+            return_stats=True)
+
+    run = _unsup_chunk_runner(unsup_config, optimizer, grid, batch_size,
+                              embed, rank_negatives=True)
+
+    def runner(*args, **kwargs):
+        out = run(*args, **kwargs)
+        return out[:5] + (_all_reduce(out[5]),)
+
+    return runner
+
+
+def _unsup_batch_sums(unsup_config, params, feat_local, adj_local, b1, b2,
+                      mask, neg, group, capacity_factor, generator):
+    """One evaluation batch's [raw loss, sum of rr * mask, sum of mask]
+    on this rank, and its dropped count: the three towers in one
+    forward, no dropout."""
+    out, dropped = sharded_sage_embed(
+        params, feat_local, adj_local, torch.cat([b1, b2, neg]),
+        unsup_config.sage, group, capacity_factor, generator=generator,
+        deterministic=True, return_stats=True)
+    raw, sums = _unsup_pair_metrics(*_towers(out, b1.shape[0]), mask,
+                                    unsup_config)
+    return torch.cat([raw.reshape(1), sums]), dropped
+
+
+def _unsup_eval_values(unsup_config, params, total: torch.Tensor):
+    """(loss, mrr) of a batch from its summed [raw, rr sum, count]: the
+    single-device eval's arithmetic (its decay term added once), so that
+    at one rank the values are its bits."""
+    loss = total[0] / torch.clamp(total[2], min=1.0) + _decay_sum(
+        params, unsup_config.sage, unsup_config.weight_decay)
+    return loss, _masked_mean(total[1:])
+
+
+def make_sharded_unsupervised_eval(unsup_config, grid,
+                                   capacity_factor: float = 4.0):
+    """eval_fn(params, feat_local, adj_local, b1, b2, mask, neg_ids,
+    generator=None) -> (loss, mrr, dropped) of one validation batch,
+    split over the graph group (each data slice evaluates it whole; its
+    length must split evenly). Graph rank g scores against its own
+    negatives ``neg_ids[g]`` ([graph_size, n_neg]); the loss carries
+    the single-device eval's decay term and the MRR is the exact
+    masked mean over the group."""
+    D, g, group = grid.graph_size, grid.graph_rank, grid.graph_group
+
+    @torch.inference_mode()
+    def eval_fn(params, feat_local, adj_local, b1, b2, mask, neg_ids,
+                generator=None):
+        lb = b1.shape[0] // D
+        sl = slice(g * lb, (g + 1) * lb)
+        part, dropped = _unsup_batch_sums(
+            unsup_config, params, feat_local, adj_local, b1[sl], b2[sl],
+            mask[sl], neg_ids[g], group, capacity_factor, generator)
+        loss, mrr = _unsup_eval_values(unsup_config, params,
+                                       _all_reduce(part, group))
+        return loss, mrr, _all_reduce(dropped, group)
+
+    return eval_fn
+
+
+def make_sharded_unsup_eval_sweep(unsup_config, grid, batch_size: int,
+                                  capacity_factor: float = 4.0):
+    """sweep(params, feat_local, adj_local, pairs_all, neg_ids,
+    generator=None) -> (loss, mrr, dropped): the means over every real
+    pair of a dummy-padded pair stream (the same on every rank), each
+    batch weighted by its real pairs, as the single-device sweep
+    (``train/unsupervised.py::make_unsup_eval_sweep``) weighs them.
+
+    Each batch splits over the whole grid graph-major
+    (``_graph_major_me``), and graph rank g scores against ``neg_ids[g]``:
+    every pair keeps the graph rank and the negatives it has on a
+    1 x D grid, so with a position-independent sampler (first_k,
+    shared_perm; ``generator`` the same on every rank) the loss and
+    MRR do not move when only ``--data_shards`` changes (to the
+    rounding of the reduction's order). One all-reduce a batch, one a
+    sweep for the dropped count."""
+    config = unsup_config.sage
+    num_nodes = config.num_nodes
+    _require_num_nodes(num_nodes, "pair stream")
+    _check_batch_divisible(grid, batch_size)
+    local_b = batch_size // grid.total
+    me = _graph_major_me(grid)
+
+    @torch.inference_mode()
+    def sweep(params, feat_local, adj_local, pairs_all, neg_ids,
+              generator=None):
+        device = pairs_all.device
+        neg = neg_ids[grid.graph_rank]
+        loss_sum = mrr_sum = count = torch.zeros((), device=device)
+        dropped_tot = torch.zeros((), dtype=torch.int32, device=device)
+        for i in range(pairs_all.shape[0] // batch_size):
+            lo = i * batch_size + me * local_b
+            pair = pairs_all[lo:lo + local_b]
+            mask = (pair[:, 0] != num_nodes).float()
+            part, dropped = _unsup_batch_sums(
+                unsup_config, params, feat_local, adj_local, pair[:, 0],
+                pair[:, 1], mask, neg, grid.graph_group, capacity_factor,
+                generator)
+            total = _all_reduce(part)
+            loss, mrr = _unsup_eval_values(unsup_config, params, total)
+            k = total[2]
+            loss_sum, mrr_sum = loss_sum + loss * k, mrr_sum + mrr * k
+            count = count + k
+            dropped_tot += dropped
+        count = torch.clamp(count, min=1.0)
+        return loss_sum / count, mrr_sum / count, _all_reduce(dropped_tot)
+
+    return sweep
+
+
+def make_sharded_unsup_embed(unsup_config, grid,
+                             capacity_factor: float = 4.0):
+    """embed_fn(params, feat_local, adj_local, ids, generator=None) ->
+    (l2-normalised embeddings of this rank's ``ids``, this rank's
+    dropped count): the sharded export's forward, no dropout."""
+    config = unsup_config.sage
+
+    @torch.inference_mode()
+    def embed_fn(params, feat_local, adj_local, ids, generator=None):
+        out, dropped = sharded_sage_embed(
+            params, feat_local, adj_local, ids, config, grid.graph_group,
+            capacity_factor, generator=generator, deterministic=True,
+            return_stats=True)
+        return l2_normalize(out, 1), dropped
+
+    return embed_fn
+
+
+def make_sharded_embed_sweep(unsup_config, grid, batch_size: int,
+                             capacity_factor: float = 4.0):
+    """sweep(params, feat_local, adj_local, ids_all, generator=None) ->
+    (this rank's rows [n_b * B/total, dim], dropped): every id of a
+    dummy-padded stream (the same on every rank) through
+    ``make_sharded_unsup_embed``, each batch split over the whole grid
+    data-major. ``reassemble_sharded_rows`` over the total shard count
+    puts the ranks' stacked rows (``distributed.host_array``) in the
+    stream's order. One all-reduce a sweep, for the dropped count."""
+    _check_batch_divisible(grid, batch_size)
+    local_b = batch_size // grid.total
+    embed_fn = make_sharded_unsup_embed(unsup_config, grid, capacity_factor)
+
+    @torch.inference_mode()
+    def sweep(params, feat_local, adj_local, ids_all, generator=None):
+        n_b = ids_all.shape[0] // batch_size
+        out = torch.empty(n_b * local_b, unsup_config.sage.output_dim,
+                          device=ids_all.device)
+        dropped_tot = torch.zeros((), dtype=torch.int32,
+                                  device=ids_all.device)
+        for i in range(n_b):
+            lo = i * batch_size + grid.me * local_b
+            out[i * local_b:(i + 1) * local_b], dropped = embed_fn(
+                params, feat_local, adj_local, ids_all[lo:lo + local_b],
+                generator)
+            dropped_tot += dropped
+        return out, _all_reduce(dropped_tot)
 
     return sweep
 

@@ -1,7 +1,8 @@
 """Starting the ranks of a multi-device run, and the programs they run.
 
 One process per device (``distributed.py``). ``run_command`` is what the
-CLI calls for a sharded ``supervised`` or ``predict``:
+CLI calls for a sharded ``supervised``, ``predict``, ``unsupervised`` or
+``embed``:
 
 - under ``torchrun`` (``WORLD_SIZE`` set) this process is one rank and
   joins the group from the environment (``env://``);
@@ -160,6 +161,18 @@ def predict_rank(device, flags, out_dir, nodes, num_classes) -> None:
             device=device)
 
 
+def unsupervised_rank(device, flags) -> None:
+    from graphsage_tpu_torch.train.unsupervised import train
+
+    train(flags, device=device)
+
+
+def embed_rank(device, flags, out_dir) -> None:
+    from graphsage_tpu_torch.infer import export_embeddings
+
+    export_embeddings(flags, out_dir=out_dir, device=device)
+
+
 def _local_params(flat: dict, grid, layout: str, device, sharded: bool):
     """NumPy params (``embeds`` in canonical order) -> this rank's
     tensors: its shard of ``embeds`` when ``sharded``."""
@@ -173,10 +186,16 @@ def _local_params(flat: dict, grid, layout: str, device, sharded: bool):
     return out
 
 
+def _sage(job):
+    """The job's SAGEConfig, of its supervised or unsupervised config."""
+    return (job["sup_config"] if "sup_config" in job
+            else job["unsup_config"]).sage
+
+
 def _tables(job, grid, device, sharded: bool):
     from graphsage_tpu_torch.parallel.graph_sharded import local_shard
 
-    layout = job["sup_config"].sage.shard_layout
+    layout = _sage(job).shard_layout
     out = []
     for name in ("features", "adj"):
         t = job[name]
@@ -364,9 +383,141 @@ def _check_sweep(job, grid, device) -> dict:
             "dropped": int(dropped), "seconds": time.perf_counter() - t0}
 
 
+def _gathered_params(params: dict, grid, sage, sharded: bool) -> dict:
+    """Host copies of this rank's params, the identity table whole and
+    canonical (a collective call when ``sharded``)."""
+    from graphsage_tpu_torch.parallel.graph_sharded import gather_canonical
+
+    out = {k: v.detach().cpu().numpy() for k, v in params.items()
+           if k != "embeds" or not sharded}
+    if sharded and "embeds" in params:
+        out["embeds"] = gather_canonical(
+            params["embeds"].detach(), grid, sage.num_nodes + 1,
+            sage.shard_layout).numpy()
+    return out
+
+
+def _check_unsup_train(job, grid, device) -> dict:
+    """The sharded (``runner`` "sharded", ``neg_ids`` [steps, total,
+    n_neg]) or data-parallel ("dp", [steps, n_neg]) unsupervised runner
+    over ``chunks``: each chunk's loss, MRR, EMA, dropped count and
+    seconds, and the params at the end (with ``first``, also after the
+    first chunk)."""
+    from graphsage_tpu_torch.models.supervised import make_optimizer
+    from graphsage_tpu_torch.parallel.dp import (
+        make_dp_unsupervised_chunk_runner,
+    )
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        make_sharded_unsupervised_chunk_runner,
+    )
+
+    unsup = job["unsup_config"]
+    sharded = job["runner"] == "sharded"
+    params = _local_params(job["params"], grid, unsup.sage.shard_layout,
+                           device, sharded)
+    feat, adj = _tables(job, grid, device, sharded)
+    optimizer = make_optimizer(job["lr"])
+    opt_state = optimizer.init(params)
+    B = job["batch_size"]
+    if sharded:
+        run = make_sharded_unsupervised_chunk_runner(
+            unsup, optimizer, grid, B, capacity_factor=job["capacity_factor"])
+    else:
+        run = make_dp_unsupervised_chunk_runner(unsup, optimizer, grid, B)
+    pairs = torch.from_numpy(job["pairs_perm"]).to(device)
+    negs = torch.from_numpy(job["neg_ids"]).to(device)
+    gen = torch.Generator(device=device).manual_seed(
+        fold_seed(job.get("seed", 0), grid.me))
+    shadow = torch.full((), -1.0, device=device)
+    chunks = []
+    for start, n in job["chunks"]:
+        _sync(device)
+        t0 = time.perf_counter()
+        out = run(params, opt_state, shadow, gen, feat, adj, pairs, negs,
+                  start, n, drop_seed=job.get("drop_seed", 0))
+        loss, mrr, ema = float(out[3]), float(out[4]), float(out[2])
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        params, opt_state, shadow = out[0], out[1], out[2]
+        chunks.append({"loss": loss, "mrr": mrr, "ema": ema,
+                       "dropped": int(out[5]) if sharded else 0,
+                       "seconds": seconds})
+        if job.get("first") and len(chunks) == 1:
+            first = _gathered_params(params, grid, unsup.sage, sharded)
+    result = {"chunks": chunks,
+              "params": _gathered_params(params, grid, unsup.sage, sharded)}
+    if job.get("first"):
+        result["first"] = first
+    return result
+
+
+def _check_unsup_eval(job, grid, device) -> dict:
+    """The sharded unsupervised eval of one batch (``batch`` = (b1, b2,
+    mask)), the eval sweep over ``pairs`` and the embed sweep over
+    ``nodes``, each where the job names its input; the embed rows in
+    node order."""
+    from graphsage_tpu_torch.parallel.graph_sharded import (
+        make_sharded_unsup_eval_sweep,
+        make_sharded_unsupervised_eval,
+    )
+    from graphsage_tpu_torch.train.unsupervised import (
+        sharded_embed_all_nodes,
+    )
+
+    unsup = job["unsup_config"]
+    params = _local_params(job["params"], grid, unsup.sage.shard_layout,
+                           device, True)
+    feat, adj = _tables(job, grid, device, True)
+    B, cap = job["batch_size"], job["capacity_factor"]
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(job.get("seed", 0))
+
+    def host(values):
+        return tuple(float(v) for v in values[:2]) + (int(values[2]),)
+
+    out = {}
+    if "batch" in job:
+        batch = [torch.from_numpy(x).to(device) for x in job["batch"]]
+        negs = torch.from_numpy(job["val_negs"]).to(device)
+        out["eval"] = host(make_sharded_unsupervised_eval(
+            unsup, grid, capacity_factor=cap)(params, feat, adj, *batch,
+                                              negs, gen()))
+    if "pairs" in job:
+        negs = torch.from_numpy(job["val_negs"]).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        out["sweep"] = host(make_sharded_unsup_eval_sweep(
+            unsup, grid, B, capacity_factor=cap)(
+                params, feat, adj, torch.from_numpy(job["pairs"]).to(device),
+                negs, gen()))
+        out["sweep_seconds"] = time.perf_counter() - t0
+    if job.get("embed"):
+        _sync(device)
+        t0 = time.perf_counter()
+        rows, dropped = sharded_embed_all_nodes(
+            unsup, grid, B, params, feat, adj, job.get("seed", 0), cap)
+        out["embed"] = rows
+        out["embed_dropped"] = int(dropped)
+        out["embed_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _check_masked_mrr(job, grid, device) -> dict:
+    """``_global_masked_mrr`` of this rank's reciprocal ranks ``rr`` and
+    ``mask`` (rows ``grid.me`` of the job's) over the graph group."""
+    from graphsage_tpu_torch.parallel.graph_sharded import _global_masked_mrr
+
+    rr, mask = (torch.from_numpy(job[k][grid.me]).to(device)
+                for k in ("rr", "mask"))
+    sums = torch.stack([(rr * mask).sum(), mask.sum()])
+    return float(_global_masked_mrr(sums, grid.graph_group))
+
+
 CHECKS = {"exchange": _check_exchange, "embed": _check_embed,
           "split_mean": _check_split_mean, "train": _check_train,
-          "sweep": _check_sweep}
+          "sweep": _check_sweep, "unsup_train": _check_unsup_train,
+          "unsup_eval": _check_unsup_eval, "masked_mrr": _check_masked_mrr}
 
 
 def check_rank(device, job_path: str, out_dir: str) -> None:

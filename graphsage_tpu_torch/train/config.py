@@ -2,9 +2,9 @@
 
 The fields are those the port's serving, supervised and unsupervised
 paths read, with the JAX package's defaults. ``require_ported`` refuses
-what the port does not run yet: the unsupervised sharded paths and
-``n_model_shards`` above 1. ``feature_table`` places the feature table
-the flags select, for both trainers and serving.
+what the port does not run yet: ``n_model_shards`` above 1.
+``feature_table`` places the feature table the flags select, for both
+trainers and serving.
 """
 
 from __future__ import annotations
@@ -100,21 +100,13 @@ class TrainFlags:
         return d
 
 
-def require_ported(flags: TrainFlags, task: str = "supervised") -> None:
+def require_ported(flags: TrainFlags) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP.md item
-    that brings it: feature-dim tensor parallelism (A.9c) on every task,
-    and the sharded unsupervised paths (``task`` "unsupervised" or
-    "embed", A.9b)."""
+    that brings it: feature-dim tensor parallelism (A.9c)."""
     if flags.n_model_shards > 1:
         raise NotImplementedError(
             f"--n_model_shards {flags.n_model_shards}: feature-dim tensor "
             "parallelism is not ported yet (ROADMAP.md A.9c)")
-    if task in ("unsupervised", "embed") and (
-            flags.graph_shards > 1 or flags.data_shards > 1):
-        raise NotImplementedError(
-            f"{task} with --graph_shards {flags.graph_shards} "
-            f"--data_shards {flags.data_shards}: the sharded unsupervised "
-            "paths are not ported yet (ROADMAP.md A.9b)")
 
 
 def build_layer_infos(flags: TrainFlags, supervised: bool):

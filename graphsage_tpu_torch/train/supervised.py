@@ -40,12 +40,7 @@ import numpy as np
 import torch
 
 from graphsage_tpu_torch.data.adjacency import build_both_adjs
-from graphsage_tpu_torch.data.io import (
-    feature_stats,
-    load_data,
-    load_feature_rows,
-    materialize_features,
-)
+from graphsage_tpu_torch.data.io import load_data, materialize_features
 from graphsage_tpu_torch.data.minibatch import NodeBatcher
 from graphsage_tpu_torch.device import resolve_device
 from graphsage_tpu_torch.models.graphsage import SAGEConfig
@@ -66,8 +61,6 @@ from graphsage_tpu_torch.parallel.dp import (
     make_supervised_chunk_runner,
 )
 from graphsage_tpu_torch.parallel.graph_sharded import (
-    device_rows_to_node_ids,
-    gather_canonical,
     local_shard,
     make_sharded_supervised_chunk_runner,
     make_sharded_supervised_eval,
@@ -77,19 +70,26 @@ from graphsage_tpu_torch.parallel.graph_sharded import (
 )
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
-    FEATURE_DTYPES,
     TrainFlags,
     build_layer_infos,
     feature_table,
     require_ported,
 )
 from graphsage_tpu_torch.train.metrics import calc_f1
+from graphsage_tpu_torch.train.sharding import (
+    DroppedRequests,
+    canonical_state,
+    local_state,
+    place_sharded_features,
+    quiet,
+    restore,
+    sharded_params,
+)
 from graphsage_tpu_torch.train.tblog import (
     ScalarLogger,
     TrainingProfile,
     histogram_probe,
 )
-
 
 
 def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
@@ -194,10 +194,6 @@ def _run_eval_sweep(sweep_fn, params, features, adj, nodes, labels_np,
     return loss, preds, labels_np[nodes], time.perf_counter() - t0
 
 
-def _quiet(*args, **kwargs) -> None:
-    """``print`` of a rank that is not rank 0."""
-
-
 def _write_stats(path: str, loss, f1_mic, f1_mac, duration=None) -> None:
     line = "loss={:.5f} f1_micro={:.5f} f1_macro={:.5f}".format(
         loss, f1_mic, f1_mac)
@@ -219,7 +215,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     grid = (make_grid(flags.graph_shards, flags.data_shards)
             if sharded or flags.data_shards > 1 else None)
     chief = grid is None or grid.is_chief
-    say = print if chief else _quiet
+    say = print if chief else quiet
     if graph is None:
         say("Loading training data..")
         graph = load_data(flags.train_prefix,
@@ -245,17 +241,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                      full_adj_np, labels_table_dev, device, say)
     params = pc.params
     opt_state = optimizer.init(params)
-    dropped_total = 0
-
-    def note_dropped(dropped, where: str) -> None:
-        nonlocal dropped_total
-        d = int(dropped)
-        if d > 0:
-            dropped_total += d
-            say(f"WARNING: {where}: {d} gather requests overflowed the "
-                f"all-to-all capacity and returned ZERO rows "
-                f"(capacity_factor={pc.capacity_factor:.2f}; total dropped "
-                f"{dropped_total}). Raise --capacity_factor.")
+    drops = DroppedRequests(pc.capacity_factor, say)
 
     def eval_generator():
         # the same on every rank, as the JAX package's eval key, so a
@@ -265,7 +251,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     def full_eval(nodes):
         t0 = time.perf_counter()
         loss, preds, dropped = pc.sweep(params, nodes, eval_generator())
-        note_dropped(dropped, "eval sweep")
+        drops.note(dropped, "eval sweep")
         return loss, preds, graph.labels[nodes], time.perf_counter() - t0
 
     def save(step):
@@ -276,21 +262,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
 
     total_steps = 0
     if flags.checkpoint_dir and flags.resume:
-        restored = ckpt.restore_train_state(flags.checkpoint_dir, device)
-        if restored is not None:
-            saved, saved_opt, total_steps = restored
-            ckpt.check_matches(saved, pc.saved_like)
-            with torch.no_grad():
-                for k, v in pc.to_local(saved).items():
-                    params[k].copy_(v)
-            if saved_opt is not None:
-                saved_opt = dict(saved_opt, mu=pc.to_local(saved_opt["mu"]),
-                                 nu=pc.to_local(saved_opt["nu"]))
-                optimizer.load_state_dict(opt_state, params, saved_opt)
-            else:
-                say("The checkpoint holds no optimizer state: Adam "
-                    "starts from zero moments")
-            say(f"Resumed from checkpoint at step {total_steps}")
+        total_steps = restore(flags, params, optimizer, opt_state,
+                              pc.saved_like, pc.to_local, device, say)
 
     # rank 0 logs; it evaluates alone unless the tables are sharded
     evaluates = chief or pc.collective
@@ -341,6 +314,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                     val_f1_mic, val_f1_mac = calc_f1(vl, vp, sigmoid)
                 else:
                     vbs = flags.validate_batch_size
+                    if sharded:   # as the JAX package's sharded trainer
+                        vbs = max(vbs, 1)
                     # a sharded eval splits the batch over the graph
                     # group: padded to a multiple of it (zero mask)
                     vb = batcher.sample_val_batch(
@@ -348,7 +323,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
                         * pc.val_multiple)
                     val_cost, vpred, vdropped = pc.eval_batch(
                         params, vb, eval_generator())
-                    note_dropped(vdropped, "validation")
+                    drops.note(vdropped, "validation")
                     k = int(vb.mask.sum())
                     val_f1_mic, val_f1_mac = calc_f1(
                         vb.labels[:k], vpred[:k], sigmoid
@@ -363,7 +338,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
 
             if (total_steps - 1) % flags.print_every < n:
                 if sharded:
-                    note_dropped(pending_dropped, "train chunks")
+                    drops.note(pending_dropped, "train chunks")
                     pending_dropped = 0
                 ids_np = pc.rows(last_ids)   # every rank's rows
                 preds = pc.rows(supervised_predict(logits, config))
@@ -407,7 +382,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     if profiler is not None:
         profiler.stop()
     if sharded:
-        note_dropped(pending_dropped, "train chunks")
+        drops.note(pending_dropped, "train chunks")
 
     say("Optimization Finished!")
     if not evaluates:
@@ -444,7 +419,7 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
         "test_f1_mac": test_f1_mac,
         "steps": total_steps,
         "log_dir": log_dir,
-        "dropped": dropped_total,
+        "dropped": drops.total,
     }
 
 
@@ -526,62 +501,6 @@ def _replicated_pieces(flags, graph, config, optimizer, grid, train_adj_np,
         to_local=lambda tree: tree, saved_like=params, collective=False)
 
 
-def _place_sharded_features(graph, n_shards: int, index: int,
-                            feature_dtype: str, layout: str, device):
-    """Shard ``index`` of the dummy-padded feature table on ``device``, in
-    ``feature_dtype`` (None in featureless mode). An in-memory table is
-    sliced on the host; a deferred one (``--defer_features``) reads only
-    this shard's rows off the disk (``load_feature_rows``, standardised
-    with the train rows' ``feature_stats``), so no rank holds the whole
-    table."""
-    if feature_dtype not in FEATURE_DTYPES:
-        raise ValueError(
-            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}")
-    dtype = FEATURE_DTYPES[feature_dtype]
-    feats_np = graph.padded_features()
-    if feats_np is not None:
-        rows = local_shard(feats_np, n_shards, index, layout)
-    elif graph.feature_meta is not None:
-        shard_size = -(-(graph.num_nodes + 1) // n_shards)
-        node_ids = device_rows_to_node_ids(
-            np.arange(index * shard_size, (index + 1) * shard_size),
-            n_shards, shard_size, layout)
-        rows = load_feature_rows(graph, node_ids, stats=feature_stats(graph))
-    else:
-        return None
-    return torch.from_numpy(rows).to(device=device, dtype=dtype)
-
-
-def _canonical_state(params: dict, opt_state: dict, grid, layout: str,
-                     n_rows: int):
-    """A checkpoint's (params, Adam state) with the row-sharded identity
-    table and its moments whole, in canonical id order (collective over
-    the graph group)."""
-    if "embeds" not in params:
-        return params, opt_state
-    params = dict(params)
-    params["embeds"] = gather_canonical(params["embeds"].detach(), grid,
-                                        n_rows, layout)
-    opt_state = dict(opt_state)
-    for m in ("mu", "nu"):
-        opt_state[m] = dict(opt_state[m])
-        opt_state[m]["embeds"] = gather_canonical(
-            opt_state[m]["embeds"], grid, n_rows, layout)
-    return params, opt_state
-
-
-def _local_state(tree: dict, grid, layout: str) -> dict:
-    """This rank's shard of a canonical ``embeds`` leaf, the rest kept."""
-    if "embeds" not in tree:
-        return tree
-    tree = dict(tree)
-    e = tree["embeds"]
-    tree["embeds"] = torch.from_numpy(local_shard(
-        e.cpu().numpy(), grid.graph_size, grid.graph_rank, layout)).to(
-            e.device)
-    return tree
-
-
 def _sharded_pieces(flags, graph, config, optimizer, grid, train_adj_np,
                     full_adj_np, labels_table_dev, device, say):
     """--graph_shards N (x --data_shards M): the feature, adjacency and
@@ -591,8 +510,8 @@ def _sharded_pieces(flags, graph, config, optimizer, grid, train_adj_np,
     D, g, layout = grid.graph_size, grid.graph_rank, flags.shard_layout
     B, dummy = flags.batch_size, graph.num_nodes
     n_rows = graph.num_nodes + 1
-    feat_local = _place_sharded_features(graph, D, g, flags.feature_dtype,
-                                         layout, device)
+    feat_local = place_sharded_features(graph, D, g, flags.feature_dtype,
+                                        layout, device)
     full_adj = torch.from_numpy(
         local_shard(full_adj_np, D, g, layout)).to(device)
     cap_factor = flags.capacity_factor or suggest_capacity_factor(
@@ -600,15 +519,9 @@ def _sharded_pieces(flags, graph, config, optimizer, grid, train_adj_np,
     say(f"graph_shards={D} layout={layout} "
         f"capacity_factor={cap_factor:.2f}"
         + (" (auto)" if not flags.capacity_factor else ""))
-    whole = init_supervised_params(
+    params, saved_like = sharded_params(init_supervised_params(
         torch.Generator().manual_seed(flags.seed), config, device
-    )
-    params = _local_state(whole, grid, layout)
-    saved_like = dict(params)
-    if "embeds" in whole:
-        saved_like["embeds"] = torch.empty(whole["embeds"].shape,
-                                           device="meta")
-    del whole
+    ), grid, layout)
     eval_step = make_sharded_supervised_eval(config, grid,
                                              capacity_factor=cap_factor)
     eval_sweep = make_sharded_supervised_eval_sweep(
@@ -641,8 +554,8 @@ def _sharded_pieces(flags, graph, config, optimizer, grid, train_adj_np,
         run_chunk=make_sharded_supervised_chunk_runner(
             config, optimizer, grid, B, capacity_factor=cap_factor),
         eval_batch=eval_batch, sweep=sweep, rows=host_array,
-        to_saved=lambda params, opt: _canonical_state(
+        to_saved=lambda params, opt: canonical_state(
             params, opt, grid, layout, n_rows),
-        to_local=lambda tree: _local_state(tree, grid, layout),
+        to_local=lambda tree: local_state(tree, grid, layout),
         saved_like=saved_like, collective=True, val_multiple=D,
         capacity_factor=cap_factor)

@@ -1,33 +1,50 @@
-"""Unsupervised training on one device, and the embedding export.
+"""Unsupervised training, on one device or several, and the embedding
+export.
 
-``train`` follows the JAX package's single-device loop: the padded pair
-stream lives on the device; each epoch's pair permutation and its
-negatives' uniforms ([steps, neg_sample_size]) are drawn on the host,
-from a NumPy generator seeded by ``--seed``, copied to the device once
-and mapped to node ids there against the unigram^0.75 CDF, so the card
-and the CPU draw the same negatives. The chunk runner
-(``parallel/dp.py``) runs up to ``min(print_every, validate_iter)``
-steps between host synchronisations and carries the train-MRR EMA on
-the device. Validation crosses ``validate_iter`` on the full adjacency
-(a sampled batch of val edges, or all of them with
-``validate_batch_size <= 0``) with one fixed set of negatives drawn
-from ``seed + 1``; its EMA decays 0.99 per step toward the latest val
-MRR. At the end every node's l2-normalised embedding goes to
-``val.npy`` and its original id to ``val.txt``, in one sweep and one
-copy to the host.
+``train`` follows the JAX package's loop: the padded pair stream lives
+on the device; each epoch's pair permutation and its negatives'
+uniforms ([steps, neg_sample_size]) are drawn on the host, from a NumPy
+generator seeded by ``--seed``, copied to the device once and mapped to
+node ids there against the unigram^0.75 CDF, so the card and the CPU
+draw the same negatives. The chunk runner (``parallel/dp.py``) runs up
+to ``min(print_every, validate_iter)`` steps between host
+synchronisations and carries the train-MRR EMA on the device.
+Validation crosses ``validate_iter`` on the full adjacency (a sampled
+batch of val edges, or all of them with ``validate_batch_size <= 0``)
+with one fixed set of negatives drawn from ``seed + 1``; its EMA decays
+0.99 per step toward the latest val MRR. At the end every node's
+l2-normalised embedding goes to ``val.npy`` and its original id to
+``val.txt``, in one sweep and one copy to the host.
 
-``--model n2v`` trains the node2vec tables instead (``_train_n2v``):
-SGD over the pair stream, each chunk's unique negatives drawn as
-Gumbel top-k from host noise (``sample_negatives_unique``: [steps, N+1]
+Multi-device runs (one process per device, ``parallel/launch.py``) go
+through the same loop with other pieces (``_Pieces``), as
+``train/supervised.py`` does: ``--data_shards M`` alone swaps in the
+data-parallel runner, every rank holding the whole tables and drawing
+the same negatives (``_replicated_pieces``; rank 0 validates and
+exports alone); ``--graph_shards N`` (with ``--data_shards M``: an
+M x N grid) row-shards the tables over each graph group, each rank
+drawing its own negatives ([steps, ranks, n_neg] uniforms) and each
+graph rank validating against its own set, the ranks validating and
+exporting together (``_sharded_pieces``, ``parallel/graph_sharded.py``;
+the export's sampler seed is ``seed + 2``, as in the JAX package). Rank
+0 prints and writes the logs, embeddings and checkpoints; a checkpoint
+keeps the identity table in canonical id order, so a run resumes under
+any shard count or layout.
+
+``--model n2v`` trains the node2vec tables instead (``_train_n2v``), on
+one device whatever the shard flags say, as in the JAX package: SGD
+over the pair stream, each chunk's unique negatives drawn as Gumbel
+top-k from host noise (``sample_negatives_unique``: [steps, N+1]
 float32 noise, drawn and copied in blocks of at most 16 MiB), so the
-card and the CPU draw the same ids; with ``--save_embeddings`` it writes the
-target table to ``val.npy``, retrains on fresh walks from the val and
-test nodes with every other context row frozen, and writes the retrained
-table to ``val-test.npy``.
+card and the CPU draw the same ids; with ``--save_embeddings`` it
+writes the target table to ``val.npy``, retrains on fresh walks from
+the val and test nodes with every other context row frozen, and writes
+the retrained table to ``val-test.npy``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -57,9 +74,24 @@ from graphsage_tpu_torch.nn.negative import (
     unigram_cdf,
     unigram_logits,
 )
+from graphsage_tpu_torch.parallel.distributed import (
+    fold_seed,
+    host_array,
+    make_grid,
+)
 from graphsage_tpu_torch.parallel.dp import (
+    make_dp_unsupervised_chunk_runner,
     make_node2vec_chunk_runner,
     make_unsupervised_chunk_runner,
+)
+from graphsage_tpu_torch.parallel.graph_sharded import (
+    local_shard,
+    make_sharded_embed_sweep,
+    make_sharded_unsup_eval_sweep,
+    make_sharded_unsupervised_chunk_runner,
+    make_sharded_unsupervised_eval,
+    reassemble_sharded_rows,
+    suggest_capacity_factor,
 )
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
@@ -67,6 +99,15 @@ from graphsage_tpu_torch.train.config import (
     build_layer_infos,
     feature_table,
     require_ported,
+)
+from graphsage_tpu_torch.train.sharding import (
+    DroppedRequests,
+    canonical_state,
+    local_state,
+    place_sharded_features,
+    quiet,
+    restore,
+    sharded_params,
 )
 from graphsage_tpu_torch.train.tblog import (
     ScalarLogger,
@@ -96,6 +137,7 @@ def build_unsupervised_config(flags: TrainFlags,
         fused_gather=flags.fused_gather,
         dedup_gather=flags.dedup_gather,
         rows_gather=flags.rows_gather,
+        shard_layout=flags.shard_layout,
     )
     return UnsupervisedConfig(sage=sage, weight_decay=flags.weight_decay)
 
@@ -168,9 +210,10 @@ def pad_pairs(pairs: np.ndarray, batch_size: int, dummy: int) -> np.ndarray:
     return out
 
 
-def fixed_negatives(cdf: torch.Tensor, n: int, seed: int) -> torch.Tensor:
-    """The validation's negatives: ``n`` ids from uniforms of
-    ``default_rng(seed)``, mapped on ``cdf``'s device."""
+def fixed_negatives(cdf: torch.Tensor, n, seed: int) -> torch.Tensor:
+    """The validation's negatives: ids of shape ``n`` (an int, or
+    (sets, n_neg): the uniforms of one set after another) from uniforms
+    of ``default_rng(seed)``, mapped on ``cdf``'s device."""
     u = np.random.default_rng(seed).random(n, dtype=np.float32)
     return negatives_from_uniforms(cdf, torch.from_numpy(u).to(cdf.device))
 
@@ -182,14 +225,20 @@ def embed_all_nodes(config: UnsupervisedConfig, batch_size: int, params,
     copied to the host once. The trainer's export and ``embed`` both
     call it, so they agree bit for bit on one device."""
     n = config.sage.num_nodes
+    generator = torch.Generator(device=adj.device).manual_seed(seed)
+    rows = make_embed_sweep(config, batch_size)(
+        params, features, adj, _node_stream(n, batch_size, adj.device),
+        generator)
+    return rows[:n].cpu().numpy()
+
+
+def _node_stream(n: int, batch_size: int, device) -> torch.Tensor:
+    """Every node id in order, dummy-padded to whole batches, on
+    ``device``."""
     n_b = max(1, -(-n // batch_size))
     ids_all = np.full((n_b * batch_size,), n, dtype=np.int32)
     ids_all[:n] = np.arange(n)
-    generator = torch.Generator(device=adj.device).manual_seed(seed)
-    rows = make_embed_sweep(config, batch_size)(
-        params, features, adj, torch.from_numpy(ids_all).to(adj.device),
-        generator)
-    return rows[:n].cpu().numpy()
+    return torch.from_numpy(ids_all).to(device)
 
 
 def write_embeddings(out_dir: str, rows: np.ndarray, node_ids: list,
@@ -202,18 +251,52 @@ def write_embeddings(out_dir: str, rows: np.ndarray, node_ids: list,
         fp.write("\n".join(map(str, node_ids)))
 
 
+def sharded_embed_all_nodes(config: UnsupervisedConfig, grid, batch_size: int,
+                            params, feat_local, adj_local, seed: int,
+                            capacity_factor: float):
+    """``embed_all_nodes`` over tables row-sharded across ``grid``: the
+    sharded embed sweep (``parallel/graph_sharded.py``) of every node,
+    each batch split over the whole grid, the sampler seeded ``seed`` on
+    every rank -> ([N, dim] rows in id order on every rank, dropped). A
+    collective call; the trainer's export and ``embed`` both make it
+    with ``seed + 2``, as the JAX package's sharded pair does, so they
+    agree bit for bit."""
+    n = config.sage.num_nodes
+    ids_all = _node_stream(n, batch_size, adj_local.device)
+    generator = torch.Generator(device=adj_local.device).manual_seed(seed)
+    rows, dropped = make_sharded_embed_sweep(
+        config, grid, batch_size, capacity_factor=capacity_factor)(
+            params, feat_local, adj_local, ids_all, generator)
+    rows = reassemble_sharded_rows(host_array(rows), grid.total,
+                                   ids_all.shape[0] // batch_size)
+    return rows[:n], dropped
+
+
 def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     """Train on ``device`` (``cuda`` unless the caller asks for ``cpu``);
-    returns the params and the last val loss, MRR and val-MRR EMA."""
-    require_ported(flags, "unsupervised")
+    returns the params and the last val loss, MRR and val-MRR EMA. With
+    ``--graph_shards`` or ``--data_shards`` above 1 this process is one
+    rank of an initialised process group (``parallel/launch.py``), on
+    its own device; the metrics are rank 0's. ``--model n2v`` trains on
+    this one device whatever the shard flags say, as the JAX package's
+    node2vec does."""
     device = resolve_device(device)
+    n2v_model = flags.model == "n2v"
+    if not n2v_model:
+        require_ported(flags)
+    sharded = not n2v_model and flags.graph_shards > 1
+    grid = (make_grid(flags.graph_shards, flags.data_shards)
+            if not n2v_model and (sharded or flags.data_shards > 1)
+            else None)
+    chief = grid is None or grid.is_chief
+    say = print if chief else quiet
     if graph is None:
-        print("Loading training data..")
+        say("Loading training data..")
         graph = load_data(flags.train_prefix,
                           load_walks=flags.random_context,
                           load_features=not flags.defer_features,
                           degree_relabel=flags.degree_relabel)
-        print("Done loading training data..")
+        say("Done loading training data..")
     if flags.random_context and graph.walks is None:
         raise ValueError("--random_context needs the walk pairs "
                          "(<prefix>-walks.txt, or graph.walks)")
@@ -226,64 +309,56 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
         context_pairs=graph.walks if flags.random_context else None,
         seed=flags.seed,
     )
-    log_dir = flags.log_dir("unsupervised")
-    if flags.model == "n2v":
+    if n2v_model:
         # node2vec reads no features: a deferred table stays on disk
-        return _train_n2v(flags, graph, deg, batcher, log_dir, device)
+        return _train_n2v(flags, graph, deg, batcher,
+                          flags.log_dir("unsupervised"), device)
 
-    graph = materialize_features(graph)
+    if not sharded:   # whole tables: a deferred table is read whole now
+        graph = materialize_features(graph)
     config = build_unsupervised_config(flags, graph)
-    features = feature_table(graph, flags, device)
-    train_adj = torch.from_numpy(train_adj_np).to(device)
-    full_adj = torch.from_numpy(full_adj_np).to(device)
     neg_cdf = torch.from_numpy(unigram_cdf(deg)).to(device)
-
-    params = init_unsupervised_params(
-        torch.Generator().manual_seed(flags.seed), config, device
-    )
     optimizer = make_optimizer(flags.learning_rate)
+    make_pieces = _sharded_pieces if sharded else _replicated_pieces
+    pc = make_pieces(flags, graph, config, optimizer, grid, batcher,
+                     train_adj_np, full_adj_np, neg_cdf, device, say)
+    params = pc.params
     opt_state = optimizer.init(params)
+    drops = DroppedRequests(pc.capacity_factor, say)
 
     B = flags.batch_size
-    dummy = graph.num_nodes
     n_neg = flags.neg_sample_size
-    pairs_padded = pad_pairs(batcher.train_pairs, B, dummy)
+    pairs_padded = pad_pairs(batcher.train_pairs, B, graph.num_nodes)
     steps_per_epoch = len(pairs_padded) // B
-    run_chunk = make_unsupervised_chunk_runner(config, optimizer, B)
-
-    eval_seed = flags.seed + 1
-    val_negs = fixed_negatives(neg_cdf, n_neg, eval_seed)
+    # the epoch's negatives: one set a step, or one a step for each rank
+    neg_shape = ((steps_per_epoch, n_neg) if pc.neg_sets is None
+                 else (steps_per_epoch, pc.neg_sets, n_neg))
     full_val = flags.validate_batch_size <= 0
-    if full_val:
-        eval_sweep = make_unsup_eval_sweep(config, B)
-        val_pairs_dev = torch.from_numpy(
-            pad_pairs(batcher.val_pairs, B, dummy)).to(device)
-    else:
-        eval_step = make_unsup_eval_step(config)
 
     def eval_generator():
-        return torch.Generator(device=device).manual_seed(eval_seed)
+        # the same on every rank, so a sharded evaluation samples as the
+        # single-device one does
+        return torch.Generator(device=device).manual_seed(flags.seed + 1)
+
+    def save(step):
+        saved, saved_opt = pc.to_saved(
+            params, optimizer.state_dict(opt_state, params))
+        if chief:
+            ckpt.save(flags.checkpoint_dir, saved, step, saved_opt)
 
     total_steps = 0
     if flags.checkpoint_dir and flags.resume:
-        restored = ckpt.restore_train_state(flags.checkpoint_dir, device)
-        if restored is not None:
-            saved, saved_opt, total_steps = restored
-            ckpt.check_matches(saved, params)
-            with torch.no_grad():
-                for k, v in saved.items():
-                    params[k].copy_(v)
-            if saved_opt is not None:
-                optimizer.load_state_dict(opt_state, params, saved_opt)
-            else:
-                print("The checkpoint holds no optimizer state: Adam "
-                      "starts from zero moments")
-            print(f"Resumed from checkpoint at step {total_steps}")
+        total_steps = restore(flags, params, optimizer, opt_state,
+                              pc.saved_like, pc.to_local, device, say)
 
-    logger = ScalarLogger(log_dir)
-    probe = (histogram_probe(config.sage, graph, B, eval_seed, device)
-             if flags.log_histograms else None)
-    sampler_generator = torch.Generator(device=device).manual_seed(flags.seed)
+    # rank 0 logs; it validates alone unless the tables are sharded
+    evaluates = chief or pc.collective
+    log_dir = flags.log_dir("unsupervised") if chief else None
+    logger = ScalarLogger(log_dir) if chief else None
+    probe = (histogram_probe(config.sage, graph, B, flags.seed + 1, device)
+             if flags.log_histograms and chief and not sharded else None)
+    sampler_generator = torch.Generator(device=device).manual_seed(
+        flags.seed if grid is None else fold_seed(flags.seed, grid.me))
     host_rng = np.random.default_rng(flags.seed)
     train_shadow = torch.full((), -1.0, device=device)  # < 0: unset
     shadow_mrr = None
@@ -291,16 +366,18 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     avg_time = 0.0
     timed_steps = 0   # steps timed in this process (not resumed ones)
     stop = False
+    # overflow drops add up on the device; the host reads them at prints
+    pending_dropped = 0
     profiler = (TrainingProfile(flags.profile_dir, device)
-                if flags.profile_dir else None)
+                if flags.profile_dir and chief else None)
 
     chunk = max(1, min(flags.print_every, flags.validate_iter))
     for epoch in range(flags.epochs):
-        print("Epoch: %04d" % (epoch + 1))
+        say("Epoch: %04d" % (epoch + 1))
         pairs_perm = torch.from_numpy(
             pairs_padded[host_rng.permutation(len(pairs_padded))]
         ).to(device)
-        neg_u = host_rng.random((steps_per_epoch, n_neg), dtype=np.float32)
+        neg_u = host_rng.random(neg_shape, dtype=np.float32)
         neg_ids = negatives_from_uniforms(
             neg_cdf, torch.from_numpy(neg_u).to(device))
         drop_seed = int(host_rng.integers(0, 2**63))
@@ -309,26 +386,27 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
             n = min(chunk, steps_per_epoch - it,
                     max(1, flags.max_total_steps + 1 - total_steps))
             t = time.time()
-            params, opt_state, train_shadow, loss, train_mrr = run_chunk(
+            out = pc.run_chunk(
                 params, opt_state, train_shadow, sampler_generator,
-                features, train_adj, pairs_perm, neg_ids, it, n,
+                pc.features, pc.train_adj, pairs_perm, neg_ids, it, n,
                 drop_seed=drop_seed,
             )
+            params, opt_state, train_shadow, loss, train_mrr = out[:5]
+            if sharded:
+                pending_dropped = pending_dropped + out[5]
 
             # validate when [it, it+n) crosses a multiple of validate_iter
-            if (it + n - 1) % flags.validate_iter < n:
+            if evaluates and (it + n - 1) % flags.validate_iter < n:
                 if full_val:
-                    val_cost, val_mrr = eval_sweep(
-                        params, features, full_adj, val_pairs_dev, val_negs,
-                        eval_generator())
+                    val_cost, val_mrr, vdropped = pc.sweep(
+                        params, eval_generator())
                 else:
+                    # a sampled batch has batch_size rows (a multiple of
+                    # the graph group): <= 0 sweeps, as in the JAX package
                     vb = batcher.sample_val_batch(flags.validate_batch_size)
-                    val_cost, val_mrr = eval_step(
-                        params, features, full_adj,
-                        torch.from_numpy(vb.batch1).to(device),
-                        torch.from_numpy(vb.batch2).to(device),
-                        torch.from_numpy(vb.mask).to(device), val_negs,
-                        eval_generator())
+                    val_cost, val_mrr, vdropped = pc.eval_batch(
+                        params, vb, eval_generator())
+                drops.note(vdropped, "validation")
             if shadow_mrr is None:
                 shadow_mrr = val_mrr
             else:
@@ -344,35 +422,40 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
             ) / timed_steps
 
             if (total_steps - 1) % flags.print_every < n:
-                scal = {
-                    "train_loss": float(loss),
-                    "train_mrr": float(train_mrr),
-                    "train_mrr_ema": float(train_shadow),
-                    "val_loss": float(val_cost),
-                    "val_mrr": float(val_mrr),
-                    "val_mrr_ema": float(shadow_mrr),
-                }
-                print(
-                    "Iter:", "%04d" % (it - 1),
-                    "train_loss=", "{:.5f}".format(scal["train_loss"]),
-                    "train_mrr=", "{:.5f}".format(scal["train_mrr"]),
-                    "train_mrr_ema=", "{:.5f}".format(scal["train_mrr_ema"]),
-                    "val_loss=", "{:.5f}".format(scal["val_loss"]),
-                    "val_mrr=", "{:.5f}".format(scal["val_mrr"]),
-                    "val_mrr_ema=", "{:.5f}".format(scal["val_mrr_ema"]),
-                    "time=", "{:.5f}".format(avg_time),
-                )
-                logger.log(total_steps - 1, step_time=avg_time, **scal)
+                if sharded:
+                    drops.note(pending_dropped, "train chunks")
+                    pending_dropped = 0
+                if chief:
+                    scal = {
+                        "train_loss": float(loss),
+                        "train_mrr": float(train_mrr),
+                        "train_mrr_ema": float(train_shadow),
+                        "val_loss": float(val_cost),
+                        "val_mrr": float(val_mrr),
+                        "val_mrr_ema": float(shadow_mrr),
+                    }
+                    print(
+                        "Iter:", "%04d" % (it - 1),
+                        "train_loss=", "{:.5f}".format(scal["train_loss"]),
+                        "train_mrr=", "{:.5f}".format(scal["train_mrr"]),
+                        "train_mrr_ema=",
+                        "{:.5f}".format(scal["train_mrr_ema"]),
+                        "val_loss=", "{:.5f}".format(scal["val_loss"]),
+                        "val_mrr=", "{:.5f}".format(scal["val_mrr"]),
+                        "val_mrr_ema=", "{:.5f}".format(scal["val_mrr_ema"]),
+                        "time=", "{:.5f}".format(avg_time),
+                    )
+                    logger.log(total_steps - 1, step_time=avg_time, **scal)
+                    if flags.log_histograms:
+                        logger.log_histograms(total_steps - 1, params)
                 if probe is not None:
-                    logger.log_histograms(total_steps - 1, params)
                     logger.log_histograms(
                         total_steps - 1,
-                        probe(params, features, train_adj), prefix="")
+                        probe(params, pc.features, pc.train_adj), prefix="")
 
-            if (flags.checkpoint_dir and flags.checkpoint_every
+            if (evaluates and flags.checkpoint_dir and flags.checkpoint_every
                     and total_steps % flags.checkpoint_every < n):
-                ckpt.save(flags.checkpoint_dir, params, total_steps,
-                          optimizer.state_dict(opt_state, params))
+                save(total_steps)
             if total_steps > flags.max_total_steps:
                 stop = True
                 break
@@ -380,16 +463,21 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
             break
     if profiler is not None:
         profiler.stop()
-    logger.close()
+    if sharded:
+        drops.note(pending_dropped, "train chunks")
 
-    print("Optimization Finished!")
+    say("Optimization Finished!")
+    if not evaluates:
+        return {"params": params, "steps": total_steps, "log_dir": None}
     if flags.save_embeddings:
-        write_embeddings(log_dir, embed_all_nodes(
-            config, B, params, features, full_adj, eval_seed),
-            graph.node_ids)
+        rows, dropped = pc.export(params)
+        drops.note(dropped, "embedding export")
+        if chief:
+            write_embeddings(log_dir, rows, graph.node_ids)
     if flags.checkpoint_dir:
-        ckpt.save(flags.checkpoint_dir, params, total_steps,
-                  optimizer.state_dict(opt_state, params))
+        save(total_steps)
+    if chief:
+        logger.close()
 
     return {
         "params": params,
@@ -399,7 +487,163 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
         "train_mrr_ema": float(train_shadow),
         "steps": total_steps,
         "log_dir": log_dir,
+        "dropped": drops.total,
     }
+
+
+# ------------------------------------------------- the trainer's modes
+
+@dataclasses.dataclass
+class _Pieces:
+    """What a mode hands ``train``'s loop: this rank's tables and params,
+    the chunk runner, and the evaluation, export and checkpoint
+    functions.
+
+    - ``run_chunk``: the runners' call; its first five outputs are
+      (params, opt_state, shadow, last_loss, last_mrr), a sharded
+      runner's sixth the chunk's dropped count;
+    - ``neg_sets``: the epoch's negatives have one set a step
+      (``None``) or ``neg_sets`` a step, one for each rank;
+    - ``eval_batch(params, vb, generator)`` -> (loss, mrr, dropped) of a
+      sampled val batch; ``sweep(params, generator)`` the same over
+      every val pair;
+    - ``export(params)`` -> (every node's embedding [N, dim] on the host,
+      in id order, dropped);
+    - ``to_saved(params, opt_state_dict)`` and ``to_local(tree)``: a
+      checkpoint's whole, canonical state from this rank's and back
+      (``saved_like`` gives the checkpoint's shapes);
+    - ``collective``: every rank takes part in the evaluations, the
+      export and the saves (the tables are sharded); else rank 0 runs
+      them alone.
+    """
+
+    features: object
+    train_adj: torch.Tensor
+    params: dict
+    run_chunk: object
+    neg_sets: int | None
+    eval_batch: object
+    sweep: object
+    export: object
+    to_saved: object
+    to_local: object
+    saved_like: dict
+    collective: bool
+    capacity_factor: float = 0.0
+
+
+def _val_pairs(flags, batcher, num_nodes: int, device):
+    """The padded val pair stream on the device, for the full sweep."""
+    if flags.validate_batch_size > 0:
+        return None
+    return torch.from_numpy(pad_pairs(batcher.val_pairs, flags.batch_size,
+                                      num_nodes)).to(device)
+
+
+def _edge_batch(vb, device):
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (vb.batch1, vb.batch2, vb.mask))
+
+
+def _replicated_pieces(flags, graph, config, optimizer, grid, batcher,
+                       train_adj_np, full_adj_np, neg_cdf, device, say):
+    """One device, or ``--data_shards M`` alone (``grid``): every rank
+    holds the whole tables and params; one set of val negatives, drawn
+    from ``seed + 1``."""
+    B = flags.batch_size
+    features = feature_table(graph, flags, device)
+    full_adj = torch.from_numpy(full_adj_np).to(device)
+    params = init_unsupervised_params(
+        torch.Generator().manual_seed(flags.seed), config, device
+    )
+    if grid is None:
+        run_chunk = make_unsupervised_chunk_runner(config, optimizer, B)
+    else:
+        run_chunk = make_dp_unsupervised_chunk_runner(config, optimizer,
+                                                      grid, B)
+    val_negs = fixed_negatives(neg_cdf, flags.neg_sample_size, flags.seed + 1)
+    val_pairs = _val_pairs(flags, batcher, graph.num_nodes, device)
+    eval_step = make_unsup_eval_step(config)
+    eval_sweep = make_unsup_eval_sweep(config, B)
+
+    def eval_batch(params, vb, generator):
+        return (*eval_step(params, features, full_adj, *_edge_batch(
+            vb, device), val_negs, generator), 0)
+
+    def sweep(params, generator):
+        return (*eval_sweep(params, features, full_adj, val_pairs, val_negs,
+                            generator), 0)
+
+    def export(params):
+        return embed_all_nodes(config, B, params, features, full_adj,
+                               flags.seed + 1), 0
+
+    return _Pieces(
+        features=features,
+        train_adj=torch.from_numpy(train_adj_np).to(device), params=params,
+        run_chunk=run_chunk, neg_sets=None, eval_batch=eval_batch,
+        sweep=sweep, export=export, to_saved=lambda params, opt: (params,
+                                                                  opt),
+        to_local=lambda tree: tree, saved_like=params, collective=False)
+
+
+def _sharded_pieces(flags, graph, config, optimizer, grid, batcher,
+                    train_adj_np, full_adj_np, neg_cdf, device, say):
+    """--graph_shards N (x --data_shards M): the feature, adjacency and
+    identity tables row-sharded over each graph group, every frontier
+    gather through the all-to-all exchange, each batch split over the
+    whole grid (``parallel/graph_sharded.py``). Each rank draws its own
+    train negatives, each graph rank its own set of val negatives (row
+    g of ``[D, n_neg]`` uniforms from ``seed + 1``: at one shard the
+    single-device set)."""
+    D, g, layout = grid.graph_size, grid.graph_rank, flags.shard_layout
+    B = flags.batch_size
+    n_rows = graph.num_nodes + 1
+    feat_local = place_sharded_features(graph, D, g, flags.feature_dtype,
+                                        layout, device)
+    full_adj = torch.from_numpy(
+        local_shard(full_adj_np, D, g, layout)).to(device)
+    cap_factor = flags.capacity_factor or suggest_capacity_factor(
+        full_adj_np, D, layout=layout)
+    say(f"graph_shards={D} layout={layout} "
+        f"capacity_factor={cap_factor:.2f}"
+        + (" (auto)" if not flags.capacity_factor else ""))
+    params, saved_like = sharded_params(init_unsupervised_params(
+        torch.Generator().manual_seed(flags.seed), config, device
+    ), grid, layout)
+    val_negs = fixed_negatives(neg_cdf, (D, flags.neg_sample_size),
+                               flags.seed + 1)
+    val_pairs = _val_pairs(flags, batcher, graph.num_nodes, device)
+    eval_fn = make_sharded_unsupervised_eval(config, grid,
+                                             capacity_factor=cap_factor)
+    eval_sweep = make_sharded_unsup_eval_sweep(config, grid, B,
+                                               capacity_factor=cap_factor)
+
+    def eval_batch(params, vb, generator):
+        return eval_fn(params, feat_local, full_adj,
+                       *_edge_batch(vb, device), val_negs, generator)
+
+    def sweep(params, generator):
+        return eval_sweep(params, feat_local, full_adj, val_pairs, val_negs,
+                          generator)
+
+    def export(params):
+        return sharded_embed_all_nodes(config, grid, B, params, feat_local,
+                                       full_adj, flags.seed + 2, cap_factor)
+
+    return _Pieces(
+        features=feat_local,
+        train_adj=torch.from_numpy(
+            local_shard(train_adj_np, D, g, layout)).to(device),
+        params=params,
+        run_chunk=make_sharded_unsupervised_chunk_runner(
+            config, optimizer, grid, B, capacity_factor=cap_factor),
+        neg_sets=grid.total, eval_batch=eval_batch, sweep=sweep,
+        export=export,
+        to_saved=lambda params, opt: canonical_state(
+            params, opt, grid, layout, n_rows),
+        to_local=lambda tree: local_state(tree, grid, layout),
+        saved_like=saved_like, collective=True, capacity_factor=cap_factor)
 
 
 def _train_n2v(flags: TrainFlags, graph, deg, batcher: EdgeBatcher,

@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
                  "ops.gather_probe", "benchmarks.gather_probe",
                  "nn.lstm", "parallel.dp", "parallel.distributed",
                  "parallel.graph_sharded", "parallel.launch",
-                 "train.supervised", "train.tblog", "data.minibatch",
+                 "train.supervised", "train.sharding", "train.tblog",
+                 "data.minibatch",
                  "nn.prediction", "nn.negative", "data.walks",
                  "models.unsupervised", "train.unsupervised",
                  "models.node2vec", "evaluation", "data.native",

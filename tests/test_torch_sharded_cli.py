@@ -12,8 +12,11 @@ params and Adam moments are saved back bit for bit; and ``predict
 sample alike, the split mean sums in another order). Each run is a
 process group of its own with a 120 s limit
 (``tests/_torch_common.py::run_cli``); the command starts its gloo
-ranks itself. Also what is still refused, and that a CUDA run never
-falls back to the CPU.
+ranks itself. Also ``--validate_batch_size`` below 1 under
+``--graph_shards``, which validates on one sampled row as the JAX
+package's sharded trainer does; what is still refused, what the
+sharded unsupervised commands do in place of their former refusal, and
+that a CUDA run never falls back to the CPU.
 """
 
 import os
@@ -246,16 +249,52 @@ def test_predict_graph_shards_matches_one_device(prefix, sharded_run,
             == (tmp_path / "one" / "nodes.txt").read_text())
 
 
+def test_validate_batch_size_below_one_samples_one_row(prefix, tmp_path):
+    """``--graph_shards 2`` with ``--validate_batch_size`` 0 or -2
+    validates on max(v, 1) = 1 sampled row, as the JAX package's sharded
+    trainer (``graphsage_tpu/train/supervised.py:737-739``): its printed
+    lines are those of ``--validate_batch_size 1``."""
+    runs = [(["supervised", "--train_prefix", prefix, "--base_log_dir",
+              str(tmp_path / f"log{v}"), "--graph_shards", "2"] + MODEL
+             + ["--epochs", "1", "--validate_iter", "3", "--print_every",
+                "2", "--max_total_steps", "5", "--validate_batch_size", v],
+             {}) for v in ("0", "-2", "1")]
+    outs = run_clis(runs, tmp_path)
+    lines = [[line.rsplit(" time=", 1)[0] for line in out.splitlines()
+              if line.startswith("Iter:")] for out in outs]
+    assert len(lines[2]) == 3 and "val_f1_mic=" in lines[2][0]
+    assert lines[0] == lines[2] and lines[1] == lines[2]
+
+
 @pytest.mark.parametrize("command,argv,match", [
-    ("unsupervised", ["--graph_shards", "2"], "A.9b"),
-    ("embed", ["--data_shards", "2"], "A.9b"),
+    ("unsupervised", ["--graph_shards", "2"], None),
+    ("embed", ["--data_shards", "2"], None),
     ("supervised", ["--n_model_shards", "2"], "A.9c"),
     ("predict", ["--n_model_shards", "2", "--graph_shards", "2"], "A.9c"),
 ])
-def test_still_refused(prefix, tmp_path, command, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main([command, "--train_prefix", prefix, "--checkpoint_dir",
-                  str(tmp_path / "ck"), "--device", "cpu"] + argv)
+def test_still_refused(prefix, tmp_path, monkeypatch, command, argv, match):
+    """``--n_model_shards`` is still refused (A.9c). The sharded
+    unsupervised commands no longer are: ``unsupervised --graph_shards
+    2`` starts its two ranks (recorded here instead of started; the runs
+    are tests/test_torch_unsup_sharded_cli.py's), and ``embed
+    --data_shards 2`` runs on one device, as the JAX package's, and so
+    asks for its checkpoint."""
+    started = []
+    monkeypatch.setattr(launch, "spawn", lambda fn, args, devices, *a, **k:
+                        started.append((fn, len(devices))))
+    argv = [command, "--train_prefix", prefix, "--checkpoint_dir",
+            str(tmp_path / "ck"), "--device", "cpu"] + argv
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            cli.main(argv)
+    elif command == "unsupervised":
+        assert cli.main(argv + ["--no-random_context"]) == 0
+        assert started == [(launch.unsupervised_rank, 2)]
+    else:
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            cli.main(argv)
+    if command != "unsupervised":
+        assert started == []
 
 
 def test_cuda_without_a_card_never_runs_on_the_cpu(prefix, tmp_path,

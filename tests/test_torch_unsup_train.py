@@ -381,20 +381,21 @@ def test_unsupervised_cli_defaults_match_jax():
 
 @pytest.mark.parametrize("argv,match", [
     (["--n_model_shards", "2"], "A.9c"),
-    (["--graph_shards", "2"], "A.9b"),
-    (["--data_shards", "2"], "A.9b"),
+    (["--graph_shards", "2"], None),
+    (["--data_shards", "2"], None),
     (["--coordinator_address", "localhost:1234", "--num_processes", "2",
-      "--process_id", "0"], "A.9b"),
+      "--process_id", "0"], None),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
-    """The unsupervised subcommands still refuse every multi-device
-    option, naming their ROADMAP.md item; ``supervised`` and ``predict``
-    refuse ``--n_model_shards`` (A.9c) and now run the others: shards
+    """Every subcommand refuses ``--n_model_shards`` (A.9c), naming its
+    ROADMAP.md item, and runs the other multi-device options: shards
     start their ranks (recorded here instead of started: the sharded
-    runs are tests/test_torch_sharded_cli.py's), ``predict`` runs
-    ``--data_shards`` alone on one device as the JAX package does, and
-    a multi-host command whose ranks do not split over its hosts is
-    refused before anything starts."""
+    runs are tests/test_torch_sharded_cli.py's and
+    tests/test_torch_unsup_sharded_cli.py's), ``predict`` and ``embed``
+    run ``--data_shards`` alone on one device as the JAX package does
+    (and so ask for their checkpoint), and a multi-host command whose
+    ranks do not split over its hosts is refused before anything
+    starts."""
     from graphsage_tpu_torch.parallel import launch
 
     started = []
@@ -403,25 +404,26 @@ def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
     g = make_synthetic_graph(num_nodes=40, num_classes=3, feat_dim=8, seed=1)
     prefix = str(tmp_path / "toy" / "toy")
     write_dataset(g, prefix)
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["unsupervised", "--train_prefix", prefix,
-                  "--no-random_context", "--device", "cpu"] + argv)
-    for command in ("embed", "supervised", "predict"):
+    rank_fns = {"unsupervised": launch.unsupervised_rank,
+                "embed": launch.embed_rank,
+                "supervised": launch.supervised_rank,
+                "predict": launch.predict_rank}
+    for command, rank_fn in rank_fns.items():
         args = [command, "--train_prefix", prefix, "--checkpoint_dir",
                 str(tmp_path / "none"), "--device", "cpu"] + argv
-        if command == "embed" or "--n_model_shards" in argv:
+        if command == "unsupervised":
+            args.append("--no-random_context")
+        if match is not None:
             with pytest.raises(NotImplementedError, match=match):
                 cli.main(args)
         elif "--num_processes" in argv:
             with pytest.raises(ValueError, match="--num_processes 2"):
                 cli.main(args)
-        elif command == "predict" and "--data_shards" in argv:
+        elif command in ("predict", "embed") and "--data_shards" in argv:
             with pytest.raises(FileNotFoundError, match="no checkpoint"):
                 cli.main(args)
         else:
             assert cli.main(args) == 0
-            rank_fn = {"supervised": launch.supervised_rank,
-                       "predict": launch.predict_rank}[command]
             assert started.pop() == (rank_fn, 2)
     assert started == []
 
