@@ -93,6 +93,18 @@ Phases; any failure exits non-zero without the final ok line:
      card and the CPU: us per sample update, F1s within 1e-3 (rounding
      alone moves them: the CPU against itself with X moved by 1e-15 is
      logged beside), a profile
+     Accuracy on the proxies (``graphsage_tpu_torch/benchmarks/
+     accuracy_acceptance.py``): K1, K5 and K6 (rate 0) against their
+     plain versions at proxy-ppi's hop (its [15001, 50] table, idx
+     [5120, 25] through the sampler over its adjacency), timed beside
+     their bounds; then proxy-reddit at full spec (50k nodes, 602
+     features, 41 classes, generator seed 12) written to a temporary
+     directory and trained through the script's ``supervised_row`` with
+     the acceptance flags (10 epochs, dropout 0) as GraphSAGE-mean (K1
+     once a step and once an evaluation batch) and GraphSAGE-meanpool
+     (K6 once a step, K5 once an evaluation batch): each test micro-F1
+     within 0.02 of the JAX package's (0.9833, 0.9692), ms/step and wall
+     seconds
      The graph-sharded stack (``parallel/graph_sharded.py``) at the same
      width: on a world-size-1 NCCL group in this process, the sharded
      chunk runner against the single-device runner (first_k, dropout 0:
@@ -986,9 +998,11 @@ def pool_products(elem_bytes: int, dropout: bool) -> int:
     return 3 if elem_bytes == 4 or dropout else 2
 
 
-def pool_bounds(idx_sets, elem_bytes: int, residual: bool):
+def pool_bounds(idx_sets, elem_bytes: int, residual: bool,
+                F: int = FEAT_DIM):
     """(bound ms, bytes ms, operations ms, f32 CUDA-core ms) of one K5/K6
-    launch at the hop shape, averaged over ``idx_sets``: each distinct
+    launch at the hop shape (a table of F columns), averaged over
+    ``idx_sets``: each distinct
     gathered row read once, w, b, idx read once, the output (and K6's
     residual) written once. Operations: the f32-accurate product as
     3xTF32 (2 for a bf16 table without dropout) of 2*F*H per gathered row
@@ -998,7 +1012,7 @@ def pool_bounds(idx_sets, elem_bytes: int, residual: bool):
     the product in f32 on the CUDA cores."""
     import torch
 
-    B, S, F, H = HOP_ROWS, FANOUTS[0], FEAT_DIM, POOL_HIDDEN
+    B, S, H = HOP_ROWS, FANOUTS[0], POOL_HIDDEN
     bytes_ms = float(np.mean([
         (int(torch.unique(idx).numel()) * F * elem_bytes + F * H * 4 + H * 4
          + B * S * 4 + B * H * 4 + (B * S * F * 4 if residual else 0))
@@ -2348,6 +2362,205 @@ def eval_full_width(dev, target: np.ndarray, is_train: np.ndarray,
         NUM_CLASSES)).astype(np.float64)).to(dev)
     profile_window(lambda: fit_sgd_logistic(x, y, max_iter=1, tol=None),
                    f"eval, {n_profile} sample updates")
+
+
+# ------------------------------------------- accuracy on the proxies
+
+# proxy-reddit's supervised rows trained by the phase, the kernel each
+# training step launches once and the one each evaluation batch launches
+# once; each row is held to the acceptance script's band around the JAX
+# package's micro-F1 (0.9833 and 0.9692 +- 0.02)
+ACCURACY_ROWS = (("graphsage_mean", "K1", "K1"),
+                 ("graphsage_meanpool", "K6", "K5"))
+
+
+def proxy_ppi_hop(dev, n_sets: int = 8):
+    """proxy-ppi at full spec (``make_powerlaw_graph``, generator seed
+    11: 15k nodes, F = 50) in memory: its table [N+1, 50] f32 on the card
+    and ``n_sets`` innermost-hop idx [5120, 25], each from 512 train
+    nodes through the sampler over its train adjacency (max degree 128,
+    as the acceptance flags)."""
+    import torch
+
+    from graphsage_tpu_torch.benchmarks.accuracy_acceptance import (
+        proxy_specs,
+    )
+    from graphsage_tpu_torch.data.adjacency import build_both_adjs
+    from graphsage_tpu_torch.data.synthetic import make_powerlaw_graph
+    from graphsage_tpu_torch.models.graphsage import sample_frontier
+
+    graph = make_powerlaw_graph(**proxy_specs(False)["proxy-ppi"])
+    train_adj, _, _ = build_both_adjs(graph, MAX_DEGREE, seed=123)
+    table = torch.from_numpy(graph.padded_features()).to(dev)
+    adj = torch.from_numpy(train_adj).to(dev)
+    train = np.flatnonzero(graph.is_train).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rng = np.random.default_rng(11)
+    sets = []
+    for _ in range(n_sets):
+        ids = torch.from_numpy(rng.choice(train, BATCH, replace=False)
+                               ).to(dev)
+        samples = sample_frontier(gen, adj, ids, FANOUTS, mode="shared_perm")
+        sets.append(samples[-1].reshape(HOP_ROWS, FANOUTS[0]).contiguous())
+    return table, sets
+
+
+def check_proxy_ppi_kernels(dev, card_line: str) -> dict:
+    """K1, K5 and K6 (rate 0, as the acceptance flags) against their
+    plain versions at proxy-ppi's hop: idx [5120, 25] from its adjacency
+    into its [15001, 50] table, H = 512; their times, plain and library
+    times and bounds there. -> {kernel: numbers for the kernels line}."""
+    import torch
+    import torch.nn.functional as fnn
+
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_mean,
+        gather_mean_reference,
+    )
+    from graphsage_tpu_torch.ops.pool import (
+        fused_gather_mlp_pool,
+        gather_mlp_pool_reference,
+        gather_mlp_pool_with_rows,
+        gathered_rows_reference,
+        pool_rows,
+    )
+
+    table, idx_sets = proxy_ppi_hop(dev)
+    n, F = table.shape
+    B, S, H = HOP_ROWS, FANOUTS[0], POOL_HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(50)
+    limit = float(np.sqrt(6.0 / (F + H)))
+    w = (torch.rand(F, H, generator=gen, device=dev) * 2 - 1) * limit
+    b = torch.randn(H, generator=gen, device=dev) * 0.1
+    err = {"K1": 0.0, "K5": 0.0, "K6": 0.0}
+    for idx in idx_sets[:3]:
+        got = fused_gather_mean(table, idx)
+        err["K1"] = max(err["K1"], float(
+            (got - gather_mean_reference(table, idx)).abs().max()))
+        got = fused_gather_mlp_pool(table, idx, w, b, "mean")
+        err["K5"] = max(err["K5"], float((got - gather_mlp_pool_reference(
+            table, idx, w, b, "mean")).abs().max()))
+        got, x = gather_mlp_pool_with_rows(table, idx, w, b, "mean")
+        x_ref = gathered_rows_reference(table, idx)
+        check(bool(torch.equal(x, x_ref)),
+              "K6 at proxy-ppi's hop: the residual differs from the plain "
+              f"rows in {int((x != x_ref).sum())} elements")
+        err["K6"] = max(err["K6"], float(
+            (got - pool_rows(x_ref, w, b, "mean", S)).abs().max()))
+    torch.cuda.synchronize()
+    limits = {"K1": F32_TOL, "K5": POOL_TOL, "K6": POOL_TOL}
+    log(f"K1, K5, K6 vs plain at proxy-ppi's hop (idx [{B},{S}] from its "
+        f"adjacency into [{n},{F}] f32, H {H}, rate 0): max abs err "
+        + ", ".join(f"{k} {v:.3e} (limit {limits[k]})"
+                    for k, v in err.items())
+        + "; K6's residual bit-equal")
+    for k, v in err.items():
+        check(v <= limits[k], f"{k} at proxy-ppi's hop: error {v}")
+
+    def plain_with_rows(x):
+        return pool_rows(x, w, b, "mean", S), x
+
+    def library_pool(idx):
+        rows = table.index_select(0, idx.view(-1))
+        return torch.relu(torch.addmm(b, rows, w)).view(B, S, H).mean(dim=1)
+
+    runs = {
+        "K1": (lambda idx: fused_gather_mean(table, idx),
+               lambda idx: gather_mean_reference(table, idx),
+               lambda idx: fnn.embedding_bag(idx, table, mode="mean")),
+        "K5": (lambda idx: fused_gather_mlp_pool(table, idx, w, b, "mean"),
+               lambda idx: gather_mlp_pool_reference(table, idx, w, b,
+                                                     "mean"),
+               library_pool),
+        "K6": (lambda idx: gather_mlp_pool_with_rows(table, idx, w, b,
+                                                     "mean"),
+               lambda idx: plain_with_rows(gathered_rows_reference(table,
+                                                                   idx)),
+               None),
+    }
+    g_bytes = float(np.mean([gather_bytes_ms(i, F) for i in idx_sets]))
+    g_ops = (B * S * F + B * F) / F32_OPS_PER_S * 1e3
+    bounds = {"K1": (max(g_bytes, g_ops),
+                     "bytes" if g_bytes >= g_ops else "operations")}
+    for k, residual in (("K5", False), ("K6", True)):
+        bound, bytes_ms, ops_ms, _ = pool_bounds(idx_sets, 4, residual, F)
+        bounds[k] = (bound, "bytes" if bytes_ms >= ops_ms else "operations")
+    out = {}
+    for k, (kernel, plain, library) in runs.items():
+        ms = cuda_ms(cycling(kernel, idx_sets), iters=20)
+        plain_ms = cuda_ms(cycling(plain, idx_sets), iters=20)
+        library_ms = (cuda_ms(cycling(library, idx_sets), iters=20)
+                      if library is not None else None)
+        bound_ms, bound_by = bounds[k]
+        out[k] = {"max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+        log(f"{k} at proxy-ppi's hop: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+            + f"; bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}; on {card_line}")
+    return out
+
+
+def last_step_seconds(stdout: str) -> float:
+    """The trainer's mean seconds a step, from its last Iter line."""
+    times = [float(line.rsplit("time=", 1)[1]) for line in
+             stdout.splitlines() if line.startswith("Iter:")]
+    check(bool(times), "the trainer printed no Iter line")
+    return times[-1]
+
+
+def accuracy_on_proxies(dev, card_line: str) -> dict:
+    """proxy-reddit at full spec through the acceptance script's entry
+    points (``gen_datasets``, then ``supervised_row``: the trainer with
+    the acceptance flags, 10 epochs, dropout 0), for each of
+    ACCURACY_ROWS: the test micro-F1 inside its band around the JAX
+    package's (``in_band``); the training kernel launched once a step
+    and the evaluation's kernel once for each validation batch (one an
+    epoch) and sweep batch (val and test, 512 a batch), nothing else.
+    -> {row's kernels: launches}."""
+    from graphsage_tpu_torch.benchmarks import accuracy_acceptance as aa
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        (prefix, spec), = aa.gen_datasets(root, False,
+                                          ("proxy-reddit",)).values()
+        log(f"proxy-reddit generated and written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        n_eval = int(0.15 * spec["num_nodes"])        # val, and test
+        epochs = aa.sup_flags(prefix, "proxy-reddit", root, False).epochs
+        for model, train_k, eval_k in ACCURACY_ROWS:
+            reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                row, res = aa.supervised_row(prefix, "proxy-reddit", spec,
+                                             model, root, False, dev)
+            counts = launch_counts()
+            steps = res["steps"]
+            jax_f1 = aa.JAX_MICRO_F1["proxy-reddit", row.run]
+            half = aa.band("proxy-reddit", row.run)
+            evals = epochs + 2 * -(-n_eval // BATCH)
+            want = dict.fromkeys(KERNELS, 0)
+            want[train_k] += steps
+            want[eval_k] += evals
+            check(counts == want, f"proxy-reddit {model}: launches "
+                  f"{counts}, expected {want}")
+            step_s = last_step_seconds(buf.getvalue())
+            log(f"proxy-reddit supervised {model}: test micro-F1 "
+                f"{row.micro_f1:.4f} (macro {row.macro_f1:.4f}; JAX "
+                f"{jax_f1:.4f} +- {half}), {steps} steps in "
+                f"{epochs} epochs at {step_s * 1e3:.3f} ms/step, wall "
+                f"{row.wall_s:.2f} s (load, training, sweeps); "
+                f"{train_k} {counts[train_k]} (1 a step), {eval_k} "
+                f"{counts[eval_k] - (steps if eval_k == train_k else 0)} "
+                f"in the evaluations; on {card_line}")
+            check(aa.in_band("proxy-reddit", row.run, row.micro_f1),
+                  f"proxy-reddit {model}: test micro-F1 {row.micro_f1:.4f} "
+                  f"outside {jax_f1} +- {half}")
+            launches[model] = counts
+    return launches
 
 
 @contextlib.contextmanager
@@ -4112,6 +4325,16 @@ def main() -> int:
     phase("eval at full width", eval_full_width, dev, target,
           graph["is_train"])
     del graph, target
+    ppi = phase("K1, K5 and K6 at proxy-ppi's hop (F = 50)",
+                check_proxy_ppi_kernels, dev, card_line)
+    for key, entry in (("K1", k1), ("K5", k5), ("K6", k6)):
+        entry["proxy_ppi_hop"] = ppi[key]
+    accuracy = phase("accuracy on the proxies: proxy-reddit supervised "
+                     "mean and meanpool", accuracy_on_proxies, dev,
+                     card_line)
+    k1["launches_accuracy"] = accuracy["graphsage_mean"]["K1"]
+    k6["launches_accuracy"] = accuracy["graphsage_meanpool"]["K6"]
+    k5["launches_accuracy"] = accuracy["graphsage_meanpool"]["K5"]
     k1["ms_unsup_hop"] = unsup_hop["ms"]
     k1["bound_ms_unsup_hop"] = unsup_hop["bound_ms"]
     for label, fused, plain, kernel, p_limit in (

@@ -56,8 +56,9 @@ def run_cli(argv: list, tmp_dir, timeout: float = 120) -> str:
     return run_clis([(argv, {})], tmp_dir, timeout)[0]
 
 
-def run_clis(runs: list, tmp_dir, timeout: float = 120) -> list:
-    """``python -m graphsage_tpu_torch <argv>`` for each (argv, extra
+def run_clis(runs: list, tmp_dir, timeout: float = 120,
+             module: str = "graphsage_tpu_torch") -> list:
+    """``python -m <module> <argv>`` for each (argv, extra
     environment) of ``runs``, started together, each in a process group
     of its own, one thread a process, every group killed past
     ``timeout`` seconds (a hung run fails its test); returns their
@@ -82,7 +83,7 @@ def run_clis(runs: list, tmp_dir, timeout: float = 120) -> list:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(path),
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "graphsage_tpu_torch", *argv], cwd=root,
+        [sys.executable, "-m", module, *argv], cwd=root,
         env={**env, **extra}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True) for argv, extra in runs]
     deadline = time.monotonic() + timeout

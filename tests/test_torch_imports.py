@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                  "nn.prediction", "nn.negative", "data.walks",
                  "models.unsupervised", "train.unsupervised",
                  "models.node2vec", "evaluation", "data.native",
-                 "nn.metrics"):
+                 "nn.metrics", "data.synthetic",
+                 "benchmarks.accuracy_acceptance", "benchmarks.seed_study"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
