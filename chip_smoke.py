@@ -4,9 +4,10 @@
     python3 chip_smoke.py           # from the root of a checkout
     python3 chip_smoke.py --loads   # only K1/K3's load probe
                                     # (probe_loads)
-    python3 chip_smoke.py --cards 4 # the sharded runners on 4 cards
-                                    # (NCCL; sharded_ranks,
-                                    # sharded_unsup_ranks)
+    python3 chip_smoke.py --cards 4 # the sharded and tensor-parallel
+                                    # runners on 4 cards (NCCL;
+                                    # sharded_ranks, sharded_unsup_ranks,
+                                    # tp_ranks)
 
 Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
@@ -129,10 +130,25 @@ Phases; any failure exits non-zero without the final ok line:
      eval sweep (the single-device sweep's loss and MRR); then two gloo
      ranks on this card, 1 x 2 (data-parallel, held to the single-device
      runner) and 2 x 1 (each rank its own negatives, held to a
-     reference built on one device from those negatives). And
-     ``supervised --graph_shards 2`` and ``unsupervised --graph_shards
-     2``, which must refuse this one-card machine, naming the two
-     devices they need
+     reference built on one device from those negatives). Feature-dim
+     tensor parallelism (``parallel/tensor.py``): K1 and K2 on the 304-
+     and 298-column blocks of F = 602 (M = 2) against their plain
+     versions and the whole table's columns, timed beside the whole
+     width; the tensor-parallel runner on a world-size-1 NCCL group
+     (one model shard) against the single-device runner at dropout 0.5
+     (equal losses, bit-equal params), three timed chunks of 50 steps
+     (K2 once per step, the all-reduce calls a step) and its eval sweep
+     over every node (K1, and K3 with dedup_gather, once per batch; the
+     single-device sweep's predictions); then two gloo ranks on this
+     card, 1 x 2: mean at first_k and dropout 0 held to the
+     single-device runner (K1 once a step on each rank's block), 10
+     timed steps, 4 steps at dropout 0.5 held to one device from the
+     same seeds (K2), gcn with dedup_gather (K3) and one-layer seq with
+     rows_gather (K4), their losses held to one device's. And
+     ``supervised --graph_shards 2``, ``unsupervised --graph_shards 2``
+     and ``supervised --n_model_shards 2``, which must refuse this
+     one-card machine, naming the two devices they need. ``--cards 4``
+     adds tensor parallelism at 1 x 4 and 2 x 2 over NCCL
   6. fused vs unfused training at dropout 0 (K1, K6, K4 or K3 against
      the plain gather): equal gradients and params after a few steps
      from the same state; the same for unsupervised training (K1, K6)
@@ -2576,10 +2592,11 @@ def plain_hop():
     from graphsage_tpu_torch.ops.pool import gathered_rows_reference, pool_rows
 
     def mean(features, idx, drop_rate=0.0, seed=None, offset=None,
-             dedup=False):
+             dedup=False, col_base=0, row_width=None):
         if drop_rate > 0.0:
             return gather_mean_dropout_reference(features, idx, drop_rate,
-                                                 seed, offset)
+                                                 seed, offset, col_base,
+                                                 row_width)
         return gather_mean_reference(features, idx)
 
     def mlp_pool(features, idx, w, b, reduce="max", drop_rate=0.0,
@@ -3259,12 +3276,13 @@ def bench_stream(seed: int) -> np.ndarray:
     return ids[np.random.default_rng(seed).permutation(len(ids))]
 
 
-def eq_run(dev, data, make_run) -> tuple:
+def eq_run(dev, data, make_run, config=None, drop_seed: int = 0) -> tuple:
     """``SHARDED_EQ_STEPS`` single steps of bench.py's model (first_k,
-    dropout 0, weights from seed 0) through the runner that
-    ``make_run(config, optimizer)`` gives, on the epoch stream of seed 4:
-    (losses, params, (params, Adam's nu) after the first step, the last
-    step's outputs)."""
+    dropout 0, weights from seed 0; or ``config``, its dropout keyed by
+    ``drop_seed``) through the runner that ``make_run(config,
+    optimizer)`` gives, on the epoch stream of seed 4: (losses, params,
+    (params, Adam's nu) after the first step, the last step's
+    outputs)."""
     import torch
 
     from graphsage_tpu_torch.models.supervised import (
@@ -3276,7 +3294,7 @@ def eq_run(dev, data, make_run) -> tuple:
     features, adj, labels_np = data
     labels_table = torch.from_numpy(labels_table_of(labels_np,
                                                     NUM_NODES)).to(dev)
-    config = first_k(bench_config(True))
+    config = config or first_k(bench_config(True))
     ids_perm = torch.from_numpy(bench_stream(4)).to(dev)
     params = init_supervised_params(torch.Generator().manual_seed(0),
                                     config, device=dev)
@@ -3287,7 +3305,7 @@ def eq_run(dev, data, make_run) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(5)
     for step in range(SHARDED_EQ_STEPS):
         res = run(params, opt_state, gen, features, adj, ids_perm,
-                  labels_table, step, 1)
+                  labels_table, step, 1, drop_seed=drop_seed)
         losses.append(float(res[2]))
         if step == 0:   # copies: the step updates in place
             first = ({k: v.detach().cpu().clone().numpy()
@@ -4083,11 +4101,478 @@ def mrr_flips(got: float, want: float, batch: int = BATCH):
     return None
 
 
+# ------------------------------------- tensor parallelism (phase 5d)
+
+TP_BLOCKS = 2           # model shards of the block kernels and the spawns
+
+
+def tp_block_kernels(dev, card_line: str, data) -> dict:
+    """K1 and K2 on the column blocks of F = 602 at M = 2 (304 and 298
+    columns, ``parallel/tensor.py::column_blocks``), as a rank holds
+    them: each against its plain version on the block (K2 at the
+    block's columns of the whole rows' mask: ``col_base``,
+    ``row_width``), and against the whole table's result at those
+    columns; then timed at the hop idx beside the whole width, with
+    their bounds. Returns the numbers for the kernels line."""
+    import torch
+
+    from graphsage_tpu_torch.models.graphsage import KERNEL_DROP_TAG
+    from graphsage_tpu_torch.ops.gather import (
+        fused_gather_mean,
+        gather_mean_dropout_reference,
+        gather_mean_reference,
+    )
+    from graphsage_tpu_torch.parallel.tensor import column_blocks
+
+    features = data[0]
+    idx_sets = hop_idx_sets(dev, data, 8, seed=21)
+    idx = idx_sets[0]
+    key = dict(seed=0x0123456789ABCDEF, offset=(17, KERNEL_DROP_TAG))
+    whole = {"K1": fused_gather_mean(features, idx),
+             "K2": fused_gather_mean(features, idx, DROPOUT, **key)}
+    flat = idx.reshape(-1, 1)
+    whole_zero = fused_gather_mean(features, flat, DROPOUT, **key) == 0
+    timed = {"K1": cuda_ms(cycling(lambda i: fused_gather_mean(features, i),
+                                   idx_sets)),
+             "K2": cuda_ms(cycling(lambda i: fused_gather_mean(
+                 features, i, DROPOUT, **key), idx_sets))}
+    out = {"K1": {}, "K2": {}}
+    for lo, hi in column_blocks(FEAT_DIM, TP_BLOCKS):
+        F = hi - lo
+        block = features[:, lo:hi].contiguous()
+        blk = dict(col_base=lo, row_width=FEAT_DIM)
+        runs = {
+            "K1": (lambda i: fused_gather_mean(block, i),
+                   lambda i: gather_mean_reference(block, i)),
+            "K2": (lambda i: fused_gather_mean(block, i, DROPOUT, **key,
+                                               **blk),
+                   lambda i: gather_mean_dropout_reference(
+                       block, i, DROPOUT, key["seed"], key["offset"], lo,
+                       FEAT_DIM)),
+        }
+        zero = fused_gather_mean(block, flat, DROPOUT, **key, **blk) == 0
+        n_diff = int((zero != whole_zero[:, lo:hi]).sum())
+        check(n_diff == 0, f"K2 on columns {lo}..{hi - 1}: {n_diff} mask "
+              f"elements differ from the whole rows' mask")
+        bytes_ms = float(np.mean([gather_bytes_ms(i, F=F) for i in idx_sets]))
+        elements = HOP_ROWS * FANOUTS[0] * F
+        ops_ms = max(elements * K2_INT_OPS_PER_ELEM / INT32_OPS_PER_S,
+                     elements * K2_F32_OPS_PER_ELEM / F32_OPS_PER_S) * 1e3
+        for name, (kernel, plain) in runs.items():
+            got = kernel(idx)
+            err = float((got - plain(idx)).abs().max())
+            whole_err = float((got - whole[name][:, lo:hi]).abs().max())
+            check(err <= F32_TOL, f"{name} on columns {lo}..{hi - 1}: error "
+                  f"{err} > {F32_TOL}")
+            check(whole_err <= F32_TOL, f"{name} on columns {lo}..{hi - 1}: "
+                  f"{whole_err} off the whole table's result")
+            ms = cuda_ms(cycling(kernel, idx_sets))
+            plain_ms = cuda_ms(cycling(plain, idx_sets), iters=5, warmup=1)
+            bound = bytes_ms if name == "K1" else max(bytes_ms, ops_ms)
+            by = "bytes" if bound == bytes_ms else "operations"
+            log(f"{name} on the [{NUM_NODES + 1}, {F}] block (columns "
+                f"{lo}..{hi - 1} of {FEAT_DIM}) at idx [{HOP_ROWS},"
+                f"{FANOUTS[0]}]: max abs err {err:.3e} vs plain, "
+                f"{whole_err:.3e} vs the whole table's columns (limit "
+                f"{F32_TOL}); kernel {ms:.4f} ms (whole width, same call: "
+                f"{timed[name]:.4f}), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}), share {bound / ms:.3f} ({card_line})")
+            out[name][F] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "max_abs_err": err, "whole_ms": timed[name]}
+    return out
+
+
+def tp_seq_config():
+    """GraphSAGE-seq with ``rows_gather`` at one layer (fanout 10): the
+    seq check of the gloo ranks, cut in depth so that its all-reduce of
+    the LSTM's input projection ([5120, 512] f32) crosses the host a
+    few times a step, not ~260 MB of it."""
+    import dataclasses
+
+    from graphsage_tpu_torch.models.graphsage import LayerInfo
+
+    config = bench_config(True, aggregator="seq", rows=True)
+    return dataclasses.replace(config, sage=dataclasses.replace(
+        config.sage, layers=(LayerInfo(FANOUTS[1], DIMS[0]),)))
+
+
+def tp_gcn_config():
+    """GraphSAGE-gcn with ``dedup_gather`` (K3): gcn adds, so its layers
+    are twice as wide and nothing is concatenated, as the CLI builds
+    it."""
+    import dataclasses
+
+    from graphsage_tpu_torch.models.graphsage import LayerInfo
+
+    config = bench_config(True, dedup=True)
+    return dataclasses.replace(config, sage=dataclasses.replace(
+        config.sage, aggregator="gcn", concat=False,
+        layers=tuple(LayerInfo(s, 2 * d) for s, d in zip(FANOUTS, DIMS))))
+
+
+def one_device_chunks(dev, data, config, chunks, seed: int,
+                      drop_seed: int) -> dict:
+    """The single-device runner over ``chunks`` from weights of seed 0,
+    the sampler seeded ``seed`` and the dropout keyed ``drop_seed``, on
+    the epoch stream of seed 4: each chunk's loss and seconds, and the
+    params and sqrt of Adam's bias-corrected nu after the first
+    chunk."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    ids_perm = torch.from_numpy(bench_stream(4)).to(dev)
+    params = init_supervised_params(torch.Generator().manual_seed(0),
+                                    config, device=dev)
+    optimizer = make_optimizer(LEARNING_RATE)
+    opt_state = optimizer.init(params)
+    run = make_supervised_chunk_runner(config, optimizer, BATCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"losses": [], "seconds": []}
+    for start, n in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(params, opt_state, gen, features, adj, ids_perm,
+                  labels_table, start, n, drop_seed=drop_seed)
+        out["losses"].append(float(res[2]))
+        out["seconds"].append(time.perf_counter() - t0)
+        if "params" not in out:
+            nu = optimizer.state_dict(opt_state, params)["nu"]
+            out["params"] = {k: v.detach().cpu().numpy().copy()
+                             for k, v in params.items()}
+            out["root_nu"] = {k: (v / (1 - 0.999)).sqrt().cpu().numpy()
+                              for k, v in nu.items()}
+    return out
+
+
+def tp_one_rank(dev, card_line: str, data) -> dict:
+    """bench.py's model through the tensor-parallel runner on a
+    world-size-1 NCCL group in this process with a model group of one
+    rank (``parallel/dp.py::make_tp_supervised_chunk_runner``): mean
+    training at dropout 0.5 against the single-device runner from the
+    same seeds (equal losses, bit-equal params), three timed chunks of
+    50 steps (K2 once per step, the all-reduce calls per step), and the
+    tensor-parallel eval sweep over every node (K1 once per batch, the
+    single-device sweep's predictions bit for bit; with dedup_gather K3
+    once per batch, within 1e-5). Returns the launch counts."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import (
+        init_supervised_params,
+        make_optimizer,
+    )
+    from graphsage_tpu_torch.parallel.dp import (
+        make_supervised_chunk_runner,
+        make_tp_supervised_chunk_runner,
+    )
+    from graphsage_tpu_torch.parallel.launch import CountedAllReduce
+    from graphsage_tpu_torch.parallel.tensor import ModelShard
+    from graphsage_tpu_torch.train.supervised import (
+        _run_eval_sweep as run_eval_sweep,
+    )
+    from graphsage_tpu_torch.train.supervised import (
+        labels_table_of,
+        make_eval_sweep,
+    )
+
+    features, adj, labels_np = data
+    labels_table = torch.from_numpy(labels_table_of(labels_np,
+                                                    NUM_NODES)).to(dev)
+    config = bench_config(True, DROPOUT)
+    out = {}
+    with one_rank_group(dev) as grid:
+        # 1. the runner against the single-device runner, dropout 0.5
+        ref_losses, ref_params, _, _ = eq_run(
+            dev, data, lambda c, opt: make_supervised_chunk_runner(
+                c, opt, BATCH), config, drop_seed=7)
+        losses, params, _, _ = eq_run(
+            dev, data, lambda c, opt: make_tp_supervised_chunk_runner(
+                c, opt, grid, BATCH), config, drop_seed=7)
+        unequal = [k for k in params
+                   if not torch.equal(params[k], ref_params[k])]
+        log(f"TP M=1 vs the single-device runner, {SHARDED_EQ_STEPS} steps "
+            f"at dropout {DROPOUT}: losses {losses} vs {ref_losses}; params "
+            f"not bit-equal: {unequal or 'none'}")
+        check(losses == ref_losses, "TP M=1 and single-device losses differ")
+        check(not unequal, f"TP M=1 params differ from the single-device "
+              f"runner's in {unequal}")
+        del params, ref_params
+
+        # 2. timed training at dropout 0.5: K2 once per step
+        params = init_supervised_params(torch.Generator().manual_seed(0),
+                                        config, device=dev)
+        optimizer = make_optimizer(LEARNING_RATE)
+        opt_state = optimizer.init(params)
+        run = make_tp_supervised_chunk_runner(config, optimizer, grid, BATCH)
+        ids_perm = torch.from_numpy(bench_stream(4)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        state = {"step": 0}
+
+        def chunk(n):
+            nonlocal params, opt_state
+            params, opt_state, loss, _, _ = run(
+                params, opt_state, gen, features, adj, ids_perm,
+                labels_table, state["step"], n, drop_seed=7)
+            state["step"] += n
+            return loss
+
+        chunk(5)                               # warm-up
+        reset_counts()
+        times, losses = [], []
+        with CountedAllReduce() as counted:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(chunk(TRAIN_CHUNK)))
+                times.append(time.perf_counter() - t0)
+                check(np.isfinite(losses[-1]), f"non-finite loss {losses[-1]}")
+        counts = launch_counts()
+        check_counts(counts, "K2", 3 * TRAIN_CHUNK, "TP M=1 training")
+        per_step = counted.calls / (3 * TRAIN_CHUNK)
+        for i, (dt, lv) in enumerate(zip(times, losses)):
+            log(f"TP M=1 mean train chunk {i + 1}: {TRAIN_CHUNK} steps in "
+                f"{dt * 1e3:.2f} ms, {dt / TRAIN_CHUNK * 1e3:.4f} ms/step, "
+                f"{EDGES_PER_STEP * TRAIN_CHUNK / dt:.1f} edges/s, loss "
+                f"{lv:.5f} ({card_line})")
+        log(f"TP M=1 training: launches {counts} in {3 * TRAIN_CHUNK} steps; "
+            f"NCCL all-reduce calls {counted.calls} ({per_step:g} a step: "
+            f"the layer-0 products' and the gradient bucket's)")
+        out["K2"], out["all_reduces_per_step"] = counts["K2"], per_step
+        count_syncs("TP M=1 mean", lambda: chunk(10), 10)
+        profile_window(lambda: chunk(5), "TP M=1, 5 training steps")
+        del params, opt_state
+
+        # 3. the eval sweep against the single-device sweep
+        nodes = np.arange(NUM_NODES)
+        n_b = -(-NUM_NODES // BATCH)
+        params = init_supervised_params(torch.Generator().manual_seed(0),
+                                        bench_config(True), device=dev)
+        for _ in range(2):   # warm-up, then timed
+            single_loss, single_preds, _, single_dt = run_eval_sweep(
+                make_eval_sweep(bench_config(True), BATCH, NUM_NODES),
+                params, features, adj, nodes, labels_np, BATCH, NUM_NODES,
+                torch.Generator(device=dev).manual_seed(1))
+        for label, sweep_config, kernel in (
+                ("mean", bench_config(True), "K1"),
+                ("mean dedup_gather", bench_config(True, dedup=True), "K3")):
+            sweep = make_eval_sweep(sweep_config, BATCH, NUM_NODES,
+                                    ModelShard.of(sweep_config.sage, grid))
+            run_eval_sweep(sweep, params, features, adj, nodes[:2 * BATCH],
+                           labels_np, BATCH, NUM_NODES)   # warm-up
+            reset_counts()
+            loss, preds, _, dt = run_eval_sweep(
+                sweep, params, features, adj, nodes, labels_np, BATCH,
+                NUM_NODES, torch.Generator(device=dev).manual_seed(1))
+            counts = launch_counts()
+            check_counts(counts, kernel, n_b, f"TP M=1 {label} sweep")
+            diff = float(np.abs(preds - single_preds).max())
+            log(f"TP M=1 {label} sweep: {NUM_NODES} nodes in {n_b} batches, "
+                f"{dt * 1e3:.2f} ms, {NUM_NODES / dt:.1f} nodes/s (the "
+                f"single-device sweep: {single_dt * 1e3:.2f} ms; "
+                f"{card_line}); launches {counts}; loss {loss:.6f} vs "
+                f"{single_loss:.6f}; predictions max abs diff {diff:.3e}")
+            if kernel == "K1":
+                check(np.array_equal(preds, single_preds)
+                      and loss == single_loss, "the TP M=1 sweep is not the "
+                      "single-device sweep")
+            else:
+                check(diff <= 1e-5, f"the TP M=1 K3 sweep differs by {diff}")
+            out[kernel] = counts[kernel]
+    return out
+
+
+def tp_ranks(card_line: str, data, eq: dict, refs: dict, devices: list,
+             backend: str, grid: tuple, one_card: bool) -> dict:
+    """Tensor-parallel ranks on ``devices`` over ``backend``, spawned
+    through ``parallel/launch.py``, in a ``grid`` = (1, data_shards,
+    model_shards), each rank with its column blocks of bench.py's table:
+    mean at first_k and dropout 0 for ``SHARDED_EQ_STEPS`` steps held to
+    the single-device runner's ``eq`` (each step's loss rtol 1e-5, the
+    last ids equal, the params after the first step rtol 2e-4 / atol
+    1e-6 where Adam's sqrt(v) is 1e3 eps or more: the elements below
+    counted, not held), every rank's params the same, bit for bit; 12
+    steps timed, with the all-reduce calls a step; 4 steps at dropout
+    0.5 (the default sampler), held to the single-device runner from
+    the same seeds at one data slice (``refs["dropout"]``: a model group
+    draws as one device) and to properties at more (finite losses,
+    equal on the ranks, replicas bit-equal). With ``one_card`` (two
+    gloo ranks on the main path's card) also gcn with ``dedup_gather``
+    (K3) and seq with ``rows_gather`` at one layer (K4), 2 steps each,
+    their losses held to one device's. Each rank's gather kernels must
+    launch as the jobs say: K1 once a step at dropout 0, K2 at 0.5, K3
+    and K4 in theirs. Returns rank 0's launches by job."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from graphsage_tpu_torch.parallel import launch
+    from graphsage_tpu_torch.train.supervised import labels_table_of
+
+    features, adj, labels_np = data
+    _, D, M = grid
+    label = f"TP {D} x {M} on {len(devices)} ranks ({backend})"
+    job = dict(kind="tp_train", grid=grid, sup_config=eq["config"],
+               params=eq["init"], features=features.cpu().numpy(),
+               adj=adj.cpu().numpy(), ids_perm=eq["ids"],
+               labels_table=labels_table_of(labels_np, NUM_NODES),
+               batch_size=BATCH, lr=LEARNING_RATE, seed=5,
+               chunks=[(s, 1) for s in range(SHARDED_EQ_STEPS)], first=True)
+    drop_config = bench_config(True, DROPOUT)
+    jobs = {"eq": job,
+            "timed": dict(job, chunks=[(0, 2), (2, 10)], first=False),
+            "dropout": dict(job, sup_config=drop_config, drop_seed=7,
+                            chunks=TP_DROP_CHUNKS)}
+    want = {"eq": ("K1", SHARDED_EQ_STEPS), "timed": ("K1", 12),
+            "dropout": ("K2", 4)}
+    if one_card:
+        for name, config, kernel in (("gcn", tp_gcn_config(), "K3"),
+                                     ("seq", tp_seq_config(), "K4")):
+            jobs[name] = dict(job, sup_config=config,
+                              params=refs[name]["init"],
+                              chunks=TP_OTHER_CHUNKS, first=False)
+            want[name] = (kernel, 2)
+    scratch = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        torch.save(jobs, os.path.join(scratch, "jobs.pt"))
+        del jobs, job
+        t0 = time.perf_counter()
+        launch.spawn(launch.check_rank,
+                     (os.path.join(scratch, "jobs.pt"), scratch), devices,
+                     f"file://{scratch}/store", backend=backend,
+                     timeout_s=600)
+        log(f"{label}: {time.perf_counter() - t0:.2f} s, start-up included")
+        outs = [torch.load(os.path.join(scratch, f"rank{r}.pt"),
+                           weights_only=False) for r in range(len(devices))]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, (kernel, n) in want.items():
+        for r, o in enumerate(outs):
+            got = o[name]["launches"]
+            expect = {k: (n if k == kernel else 0) for k in got}
+            check(got == expect, f"{label} {name}, rank {r}: launches {got}, "
+                  f"expected {expect}")
+            for k, v in o[name]["params"].items():
+                check(np.array_equal(v, outs[0][name]["params"][k]),
+                      f"{label} {name}: rank {r}'s {k} differs from rank 0's")
+    eq_out = [o["eq"] for o in outs]
+    losses = [c["loss"] for c in eq_out[0]["chunks"]]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses, eq["losses"]))
+    ids = np.concatenate([eq_out[d * M]["chunks"][-1]["ids"]
+                          for d in range(D)])
+    held, loose, worst_loose, total = first_step_held(
+        eq_out[0]["first"]["params"], eq["params"], eq["root_nu"])
+    log(f"{label} vs the single-device runner, {SHARDED_EQ_STEPS} steps "
+        f"(first_k, dropout 0): losses {losses} vs {eq['losses']} (worst rel "
+        f"diff {loss_diff:.3e}, limit 1e-5); ids equal "
+        f"{np.array_equal(ids, eq['last_ids'])}; params after one step "
+        f"beyond rtol 2e-4 / atol 1e-6 where resolved: {held:.3e} (limit "
+        f"0); {loose} of {total} elements below {ADAM_FLOOR:g} eps, worst "
+        f"{worst_loose:.3e} (not held)")
+    check(loss_diff <= 1e-5, f"{label}: losses differ by {loss_diff}")
+    check(np.array_equal(ids, eq["last_ids"]), f"{label}: last ids differ")
+    check(held <= 0.0, f"{label}: params differ beyond rtol 2e-4 / atol "
+          "1e-6")
+    timed = outs[0]["timed"]["chunks"][-1]
+    calls = timed["all_reduces"] / 10
+    log(f"{label}: 10 steps in {timed['seconds'] * 1e3:.2f} ms, "
+        f"{timed['seconds'] * 100:.4f} ms/step, "
+        f"{EDGES_PER_STEP * 10 / timed['seconds']:.1f} edges/s, {calls:g} "
+        f"all-reduce calls a step ({card_line})")
+    drop = [o["dropout"] for o in outs]
+    drop_losses = [c["loss"] for c in drop[0]["chunks"]]
+    check(bool(np.all(np.isfinite(drop_losses))),
+          f"{label}: non-finite losses at dropout {DROPOUT}: {drop_losses}")
+    check(all([c["loss"] for c in o["chunks"]] == drop_losses for o in drop),
+          f"{label}: the ranks' losses differ at dropout {DROPOUT}")
+    drop_ms = drop[0]["chunks"][-1]["seconds"] / 3 * 1e3
+    one_ms = refs["dropout"]["seconds"][-1] / 3 * 1e3
+    log(f"{label}: one device takes those 3 steps at {one_ms:.4f} ms/step in "
+        f"this call (TP / one device {drop_ms / one_ms:.2f})")
+    if D == 1:
+        ref = refs["dropout"]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(drop_losses,
+                                                       ref["losses"]))
+        held, loose, worst_loose, total = first_step_held(
+            drop[0]["first"]["params"], ref["params"], ref["root_nu"])
+        log(f"{label} at dropout {DROPOUT} (shared_perm) vs one device from "
+            f"the same seeds: losses {drop_losses} vs {ref['losses']} (worst "
+            f"rel diff {diff:.3e}, limit 1e-5); params after one step beyond "
+            f"rtol 2e-4 / atol 1e-6 where resolved: {held:.3e}; {loose} of "
+            f"{total} below {ADAM_FLOOR:g} eps, worst {worst_loose:.3e} (not "
+            f"held); 3 steps at {drop_ms:.4f} ms/step ({card_line})")
+        check(diff <= 1e-5, f"{label}: dropout losses differ by {diff}")
+        check(held <= 0.0, f"{label}: dropout params differ")
+    else:
+        log(f"{label} at dropout {DROPOUT}: losses {drop_losses} (equal on "
+            f"the ranks; other draws than one device's: each data slice "
+            f"folds its seed); 3 steps at {drop_ms:.4f} ms/step ({card_line})")
+    for name in ("gcn", "seq") if one_card else ():
+        got = [c["loss"] for c in outs[0][name]["chunks"]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got,
+                                                       refs[name]["losses"]))
+        log(f"{label} {name} ({want[name][0]}): losses {got} vs one device's "
+            f"{refs[name]['losses']} (worst rel diff {diff:.3e}, limit 1e-5)")
+        check(diff <= 1e-5, f"{label} {name}: losses differ by {diff}")
+    return {name: outs[0][name]["launches"] for name in want}
+
+
+TP_DROP_CHUNKS = [(0, 1), (1, 3)]
+TP_OTHER_CHUNKS = [(0, 1), (1, 1)]
+
+
+def tp_references(dev, data, one_card: bool) -> dict:
+    """The single-device runs the tensor-parallel ranks are held to: mean
+    at dropout 0.5 from the ranks' seeds, and with ``one_card`` gcn
+    ``dedup_gather`` and the one-layer seq (their initial weights too)."""
+    import torch
+
+    from graphsage_tpu_torch.models.supervised import init_supervised_params
+
+    refs = {"dropout": one_device_chunks(dev, data, bench_config(
+        True, DROPOUT), TP_DROP_CHUNKS, 5, 7)}
+    if one_card:
+        for name, config in (("gcn", tp_gcn_config()),
+                             ("seq", tp_seq_config())):
+            refs[name] = one_device_chunks(dev, data, config,
+                                           TP_OTHER_CHUNKS, 5, 7)
+            refs[name]["init"] = {
+                k: v.numpy() for k, v in init_supervised_params(
+                    torch.Generator().manual_seed(0), config).items()}
+    return refs
+
+
+def first_step_held(got: dict, want: dict, root_nu: dict) -> tuple:
+    """(the largest excess over rtol 2e-4 / atol 1e-6 where Adam's sqrt(v)
+    >= 1e3 eps, the elements below that, their worst difference, all
+    elements) of params after one step."""
+    held, worst_loose, loose, total = -1.0, 0.0, 0, 0
+    for k, w in want.items():
+        g = got[k]
+        resolved = root_nu[k] >= ADAM_FLOOR * 1e-8
+        excess = np.abs(g - w) - (1e-6 + 2e-4 * np.abs(w))
+        held = max(held, float(excess[resolved].max(initial=-1.0)))
+        worst_loose = max(worst_loose, float(
+            np.abs(g - w)[~resolved].max(initial=0.0)))
+        loose += int((~resolved).sum())
+        total += g.size
+    return held, loose, worst_loose, total
+
+
 def sharded_cli_refusal(dev) -> None:
-    """``python -m graphsage_tpu_torch supervised --graph_shards 2`` and
-    ``unsupervised --graph_shards 2`` on this one-card machine, started
-    together: each must fail, naming the two devices it needs, and must
-    write no logs (nor train on the CPU)."""
+    """``python -m graphsage_tpu_torch supervised --graph_shards 2``,
+    ``unsupervised --graph_shards 2`` and ``supervised --n_model_shards
+    2`` on this one-card machine, started together: each must fail,
+    naming the two devices it needs, and must write no logs (nor train
+    on the CPU)."""
     from graphsage_tpu_torch.data.synthetic import (
         make_synthetic_graph,
         write_dataset,
@@ -4099,27 +4584,27 @@ def sharded_cli_refusal(dev) -> None:
                                            feat_dim=8, seed=3), prefix)
         procs = {}
         try:
-            for command in ("supervised", "unsupervised"):
+            for command, flag in (("supervised", "--graph_shards"),
+                                  ("unsupervised", "--graph_shards"),
+                                  ("supervised", "--n_model_shards")):
+                name = f"{command} {flag} 2"
                 pairs = (["--no-random_context"] if command == "unsupervised"
                          else [])
-                procs[command] = subprocess.Popen(
+                procs[name] = subprocess.Popen(
                     [sys.executable, "-m", "graphsage_tpu_torch", command,
-                     "--train_prefix", prefix, "--graph_shards", "2",
-                     "--base_log_dir", os.path.join(tmp, f"log_{command}"),
+                     "--train_prefix", prefix, flag, "2",
+                     "--base_log_dir", os.path.join(tmp, f"log_{len(procs)}"),
                      "--device", str(dev.type)] + pairs, cwd=ROOT,
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for command, proc in procs.items():
+            for i, (name, proc) in enumerate(procs.items()):
                 _, stderr = proc.communicate(timeout=300)
                 last = (stderr.strip().splitlines() or [""])[-1]
-                log(f"{command} --graph_shards 2 on one card: exit "
-                    f"{proc.returncode}, {last}")
-                check(proc.returncode != 0,
-                      f"{command} --graph_shards 2 ran on one card")
+                log(f"{name} on one card: exit {proc.returncode}, {last}")
+                check(proc.returncode != 0, f"{name} ran on one card")
                 check("needs 2 CUDA devices" in stderr,
-                      f"{command}: the refusal does not name the two devices")
-                check(not os.path.exists(os.path.join(tmp,
-                                                      f"log_{command}")),
-                      f"the refused {command} run wrote logs")
+                      f"{name}: the refusal does not name the two devices")
+                check(not os.path.exists(os.path.join(tmp, f"log_{i}")),
+                      f"the refused {name} run wrote logs")
         finally:
             for proc in procs.values():
                 if proc.poll() is None:
@@ -4239,6 +4724,14 @@ def main() -> int:
         phase(f"unsupervised sharded {n} x 1 and {n // 2} x 2 on {n} cards "
               f"(nccl)", sharded_unsup_ranks, card_line, data, ref, devices,
               "nccl", ((n, 1), (n // 2, 2)))
+        del ref
+        eq = phase("the single-device runner", single_device_reference,
+                   dev, data)
+        refs = phase("the single-device references of the TP ranks",
+                     tp_references, dev, data, False)
+        for grid in ((1, 1, n), (1, n // 2, 2)):
+            phase(f"TP {grid[1]} x {grid[2]} on {n} cards (nccl)", tp_ranks,
+                  card_line, data, eq, refs, devices, "nccl", grid, False)
         return 0
     if sys.argv[1:] == ["--loads"]:
         phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
@@ -4317,8 +4810,29 @@ def main() -> int:
           sharded_unsup_ranks, card_line, data, ref, [dev, dev], "gloo",
           ((1, 2), (2, 1)))
     del ref, unsup_sharded
-    phase("CLI: supervised and unsupervised --graph_shards 2 on one card",
-          sharded_cli_refusal, dev)
+    blocks = phase("K1 and K2 on the column blocks of M = 2",
+                   tp_block_kernels, dev, card_line, data)
+    for key, entry in (("K1", k1), ("K2", k2)):
+        for F, nums in blocks[key].items():
+            for field, value in nums.items():
+                entry[f"{field}_block_{F}"] = value
+    tp = phase("TP M=1 (nccl)", tp_one_rank, dev, card_line, data)
+    k2["launches_tp_train"] = tp["K2"]
+    k1["launches_tp_sweep"] = tp["K1"]
+    k3["launches_tp_sweep"] = tp["K3"]
+    eq = phase("the single-device runner", single_device_reference, dev,
+               data)
+    refs = phase("the single-device references of the TP ranks",
+                 tp_references, dev, data, True)
+    tp_launches = phase(f"TP 1 x {TP_BLOCKS} on one card (gloo)", tp_ranks,
+                        card_line, data, eq, refs, [dev] * TP_BLOCKS, "gloo",
+                        (1, 1, TP_BLOCKS), True)
+    for key, entry, job in (("K1", k1, "eq"), ("K2", k2, "dropout"),
+                            ("K3", k3, "gcn"), ("K4", k4, "seq")):
+        entry["launches_tp_1x2_rank0"] = tp_launches[job][key]
+    del eq, refs
+    phase("CLI: supervised and unsupervised --graph_shards 2, supervised "
+          "--n_model_shards 2 on one card", sharded_cli_refusal, dev)
     graph = phase("native host builder on bench.py's graph", native_walks,
                   data)
     target = phase("node2vec at full width", train_node2vec, dev, graph)

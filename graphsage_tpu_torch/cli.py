@@ -8,7 +8,9 @@ max_degree 100, print_every 50), plus ``--device`` (default ``cuda``).
 ``supervised``, ``predict``, ``unsupervised`` and ``embed`` run on
 several devices with ``--graph_shards N`` (row-sharded tables, the
 all-to-all exchange) and ``--data_shards M`` (data parallelism; both:
-an M x N grid), one process per device (``parallel/launch.py``): on one
+an M x N grid), and ``supervised`` with ``--n_model_shards K``
+(feature-dim tensor parallelism; with ``--data_shards M``: an M x K
+grid), one process per device (``parallel/launch.py``): on one
 host this command starts the ranks itself (``cuda:0 ..``, or gloo ranks
 with ``--device cpu``); ``torchrun --nproc_per_node N -m
 graphsage_tpu_torch ...`` runs one rank per process; across hosts each
@@ -16,8 +18,9 @@ host runs this command with ``--coordinator_address host:port
 --num_processes P --process_id i``. ``predict`` and ``embed`` run
 ``--data_shards`` alone on one device, and ``unsupervised --model n2v``
 trains on one device whatever the shard flags say, as in the JAX
-package. Still refused, naming its ROADMAP.md item: ``--n_model_shards``
-above 1 (A.9c).
+package. ``--n_model_shards`` is read by ``supervised`` alone (the other
+subcommands ignore it, as the JAX package's do), which refuses it with
+``--graph_shards`` as the JAX package's trainer does.
 """
 
 from __future__ import annotations
@@ -96,8 +99,10 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
                    "spreads degree-ordered hubs; 'block' keeps contiguous "
                    "row ranges")
     p.add_argument("--n_model_shards", type=int, default=d.n_model_shards,
-                   help="feature-dim tensor parallelism: not ported yet, "
-                   "refused above 1 (ROADMAP.md A.9c)")
+                   help="supervised: feature-dim tensor parallelism over N "
+                   "devices (the feature table's columns and layer 0's "
+                   "input rows split; with --data_shards M an M x N "
+                   "grid); the other subcommands ignore it")
     p.add_argument("--coordinator_address", default=None,
                    help="multi-host: host:port of the rank-0 host's store")
     p.add_argument("--num_processes", type=int, default=None,
@@ -266,11 +271,14 @@ def main(argv=None) -> int:
         train(flags, device=args.device)
         return 0
     from graphsage_tpu_torch.parallel import launch
-    from graphsage_tpu_torch.train.config import require_ported
 
-    require_ported(flags)
     grid = (flags.graph_shards, flags.data_shards)
+    model_shards = 1
     if args.command == "supervised":
+        from graphsage_tpu_torch.train.config import check_model_shards
+
+        check_model_shards(flags)
+        model_shards = flags.n_model_shards
         fn, fn_args = launch.supervised_rank, (flags,)
     elif args.command == "unsupervised":
         fn, fn_args = launch.unsupervised_rank, (flags,)
@@ -281,9 +289,9 @@ def main(argv=None) -> int:
         fn, fn_args = launch.embed_rank, (flags, args.out_dir)
     if args.command in ("predict", "embed") and flags.graph_shards == 1:
         grid = (1, 1)   # as the JAX package's predict and embed
-    if grid[0] * grid[1] > 1 or multi_host:
+    if grid[0] * grid[1] * model_shards > 1 or multi_host:
         launch.run_command(
-            fn, fn_args, *grid, device=args.device,
+            fn, fn_args, *grid, model_shards=model_shards, device=args.device,
             coordinator_address=args.coordinator_address,
             num_processes=args.num_processes,
             process_id=args.process_id)

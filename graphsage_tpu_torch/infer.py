@@ -54,7 +54,6 @@ from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
     TrainFlags,
     feature_table,
-    require_ported,
 )
 from graphsage_tpu_torch.train.metrics import calc_f1
 from graphsage_tpu_torch.train.sharding import place_sharded_features
@@ -200,7 +199,6 @@ def predict(flags: TrainFlags, out_dir: str | None = None,
     training run. With ``--graph_shards`` above 1 this process is one
     rank of an initialised process group; rank 0 writes.
     """
-    require_ported(flags)
     device = resolve_device(device)
     if nodes not in NODE_SETS:
         raise ValueError(f"nodes must be one of {NODE_SETS}")
@@ -285,7 +283,6 @@ def export_embeddings(flags: TrainFlags, out_dir: str | None = None,
         raise ValueError(
             "n2v is embedding-table-only (transductive); its embeddings "
             "are exported by the trainer itself (val.npy / val-test.npy)")
-    require_ported(flags)
     device = resolve_device(device)
     if flags.graph_shards > 1:
         if graph is None:

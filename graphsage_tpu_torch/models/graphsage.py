@@ -15,6 +15,12 @@ Parameters are a flat dict of tensors keyed by the JAX pytree's paths:
 ``aggs.{i}.{neigh_w,self_w,w,b}``, the pooling MLP's
 ``aggs.{i}.mlp.{j}.{w,b}``, the seq aggregator's
 ``aggs.{i}.lstm.{kernel,bias}`` and ``embeds`` (see ``params.py``).
+
+Under tensor parallelism (``shard``, ``parallel/tensor.py``) the tables
+are a rank's column blocks and layer 0's contracting weights the
+matching rows: the gathers, the fused hop's kernels and the layer-0
+dropouts run on the block, and layer 0's aggregator adds its partial
+products over the model group.
 """
 
 from __future__ import annotations
@@ -150,7 +156,7 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
                       config: SAGEConfig, generator=None,
                       deterministic: bool = True,
                       last_hop_neigh_mean=None,
-                      capture: dict | None = None):
+                      capture: dict | None = None, shard=None):
     """Fold the hop pyramid; ``hidden[h]`` holds frontier h's rows.
 
     ``capture``: a dict that receives the batch's input rows
@@ -162,10 +168,12 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
     mean of the fused gather-mean, or for meanpool the [B*support, H]
     pooled MLP output of the fused gather-MLP-pool; ``hidden[-1]`` is
     then None.
+
+    ``shard``: layer 0's rows are a rank's column blocks, and its
+    aggregator reduces over the model group (the module docstring).
     """
     n_layers = len(config.layers)
     fanouts = config.fanouts
-    dims = config.dims
 
     support = [1]
     for k in range(n_layers):
@@ -177,7 +185,6 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
         layer_params = agg_params(params, layer)
         is_last = layer == n_layers - 1
         act = (lambda x: x) if is_last else torch.relu
-        dim_mult = 2 if config.concat and layer != 0 else 1
         next_hidden = []
         for hop in range(n_layers - layer):
             extra = {}
@@ -192,13 +199,14 @@ def aggregate_pyramid(params, hidden: list, batch_size: int,
                 neigh = hidden[hop + 1].reshape(
                     batch_size * support[hop],
                     fanouts[n_layers - hop - 1],
-                    dim_mult * dims[layer],
+                    hidden[hop + 1].shape[1],
                 )
             h = apply_aggregator(
                 config.aggregator, layer_params, hidden[hop], neigh,
                 act=act, concat=config.concat,
                 dropout_rate=config.dropout, generator=generator,
-                deterministic=deterministic, **extra,
+                deterministic=deterministic,
+                shard=shard if layer == 0 else None, **extra,
             )
             if capture is not None:
                 capture[f"acts/layer_{layer}/hop_{hop}"] = h
@@ -211,7 +219,7 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
                generator: torch.Generator | None = None,
                deterministic: bool = True,
                drop_key: tuple[int, int] | None = None,
-               capture: dict | None = None):
+               capture: dict | None = None, shard=None):
     """Sample -> gather -> aggregate: [B] ids -> [B, out] raw
     (un-normalized) embeddings. ``generator`` (on ``adj``'s device)
     drives the sampler and, when not ``deterministic``, dropout;
@@ -235,6 +243,13 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     Training with dropout draws the fused hop's masks from Philox
     streams: ``drop_key`` = (seed, step), host integers, with the tags
     above, so each step's masks differ and nothing is read back.
+
+    Under tensor parallelism (``shard``) ``features`` and
+    ``params["embeds"]`` are the rank's column blocks: the fused mean
+    (K1, K2, K3) and K4 run on the block, K2's and the identity
+    columns' masks are the whole rows' masks at the block's columns,
+    and meanpool takes the plain gather (or K4): its relu follows the
+    partial sum, so the fused gather-MLP-pool cannot run on a block.
     """
     samples = sample_frontier(generator, adj, ids, config.fanouts,
                               mode=config.sampler_mode)
@@ -242,7 +257,11 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     fused = (config.fused_gather and config.aggregator in ("mean", "gcn")
              and has_features)
     pool_fused = (config.fused_gather and config.aggregator == "meanpool"
-                  and has_features and config.identity_dim == 0)
+                  and has_features and config.identity_dim == 0
+                  and shard is None)
+    feat_base = id_base = 0
+    if shard is not None:
+        feat_base, id_base = shard.feat_block[0], shard.id_block[0]
     use_rows = config.rows_gather and has_features and not (
         fused or pool_fused)
     inner_fanout = config.fanouts[0]
@@ -266,15 +285,17 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     elif fused:
         last_mean = fused_gather_mean(
             features, idx2, drop_rate=inner_drop, seed=seed, offset=offset,
-            dedup=config.dedup_gather,
+            dedup=config.dedup_gather, col_base=feat_base,
+            row_width=config.feature_dim,
         )
         if config.identity_dim > 0:
             id_rows = params["embeds"].index_select(0, samples[-1])
             if inner_drop > 0.0:
                 id_rows = philox_dropout(id_rows, inner_drop, seed, step,
-                                         IDENTITY_DROP_TAG)
-            id_mean = id_rows.view(-1, inner_fanout,
-                                   config.identity_dim).mean(dim=1)
+                                         IDENTITY_DROP_TAG, id_base,
+                                         config.identity_dim)
+            id_mean = id_rows.view(idx2.shape[0], inner_fanout,
+                                   id_rows.shape[1]).mean(dim=1)
             last_mean = torch.cat([id_mean, last_mean], dim=1)
     elif use_rows:
         last_rows = fused_gather_rows(features, idx2)
@@ -293,7 +314,7 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
         params, hidden, ids.shape[0], config,
         generator=None if deterministic else generator,
         deterministic=deterministic, last_hop_neigh_mean=last_mean,
-        capture=capture,
+        capture=capture, shard=shard,
     )
 
 

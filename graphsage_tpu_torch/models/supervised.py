@@ -3,7 +3,9 @@
 Sigmoid (multilabel) or softmax loss over a mask-weighted batch mean,
 plus weight decay over the aggregator projections and the head (in the
 loss, never in the optimizer), and the optimizer: each gradient element
-clipped to +-5, then Adam.
+clipped to +-5, then Adam. ``shard`` (tensor parallelism,
+``parallel/tensor.py``) runs the model on a rank's column blocks; the
+loss is then the whole loss on every rank of the model group.
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ def init_supervised_params(generator: torch.Generator,
 
 def supervised_logits(params, features, adj, ids, config: SupervisedConfig,
                       generator=None, deterministic: bool = True,
-                      drop_key=None):
+                      drop_key=None, shard=None):
     emb = sage_embed(params, features, adj, ids, config.sage,
                      generator=generator, deterministic=deterministic,
-                     drop_key=drop_key)
+                     drop_key=drop_key, shard=shard)
     return apply_dense(
         head_params(params), l2_normalize(emb, dim=1), act=None,
         dropout_rate=config.sage.dropout, generator=generator,
@@ -69,23 +71,31 @@ def per_node_loss(logits, labels, config: SupervisedConfig):
     return _softmax_xent(logits, labels)
 
 
+def weight_decay_term(params, config: SupervisedConfig, shard=None):
+    """weight_decay * sum 0.5 |w|^2 over the aggregators' projections and
+    the head; under ``shard`` the whole term (``tensor.decay_term``)."""
+    decayed = sage_decay_weights(params, config.sage)
+    decayed += [params["head.w"], params["head.b"]]
+    if shard is not None:
+        from graphsage_tpu_torch.parallel.tensor import decay_term
+
+        return decay_term(params, decayed, config.weight_decay, shard)
+    return config.weight_decay * sum(0.5 * (w * w).sum() for w in decayed)
+
+
 def supervised_loss(params, features, adj, ids, labels, mask,
                     config: SupervisedConfig, generator=None,
-                    deterministic: bool = False, drop_key=None):
+                    deterministic: bool = False, drop_key=None, shard=None):
     """(masked mean of ``per_node_loss`` + weight decay, logits).
     ``drop_key`` = (seed, step) keys the fused hop's dropout masks."""
     logits = supervised_logits(params, features, adj, ids, config,
                                generator=generator,
                                deterministic=deterministic,
-                               drop_key=drop_key)
+                               drop_key=drop_key, shard=shard)
     per_node = per_node_loss(logits, labels, config)
     loss = (per_node * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if config.weight_decay > 0.0:
-        decayed = sage_decay_weights(params, config.sage)
-        decayed += [params["head.w"], params["head.b"]]
-        loss = loss + config.weight_decay * sum(
-            0.5 * (w * w).sum() for w in decayed
-        )
+        loss = loss + weight_decay_term(params, config, shard)
     return loss, logits
 
 

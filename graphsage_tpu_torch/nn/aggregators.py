@@ -24,6 +24,16 @@ neighbor mean, which is rounded to bf16 as ``jnp.mean`` rounds it (an
 f32 sum and division, then the cast); only the matrix product promotes
 them to f32, as ``jnp.dot(bf16, f32, preferred_element_type=f32)``
 does in the JAX package.
+
+Layer 0 under tensor parallelism takes ``shard`` (a
+``parallel/tensor.py::ModelShard``): its inputs are a rank's block of
+the raw input's columns and each weight that contracts them is the
+matching block of rows, so every such product is a partial sum, added
+over the model group before bias and activation (``shard.reduce``):
+mean's two projections (one reduce of the two, joined), gcn's one, the
+pooling MLP's first layer and the self projection, the LSTM's input
+projection and the self projection. The plain dropout of the block
+draws the whole row's mask (``shard.dropout``).
 """
 
 from __future__ import annotations
@@ -52,11 +62,13 @@ def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(w.dtype) @ w
 
 
-def _combine(from_self, from_neighs, params, act, concat):
+def _combine(from_self, from_neighs, params, act, concat, reduce=None):
     if concat:
         out = torch.cat([from_self, from_neighs], dim=1)
     else:
         out = from_self + from_neighs
+    if reduce is not None:
+        out = reduce(out)
     if "b" in params:
         out = out + params["b"]
     return act(out)
@@ -75,20 +87,29 @@ def init_mean(generator, input_dim, output_dim, model_size="small",
     return p
 
 
+def _drop_and_reduce(shard):
+    """(dropout, reduce) of layer 0's block under ``shard``, else the
+    plain dropout and no reduce."""
+    if shard is None:
+        return dropout, None
+    return shard.dropout, shard.reduce
+
+
 def apply_mean(params, self_vecs, neigh_vecs, *, act, concat,
-               dropout_rate=0.0, generator=None, deterministic=True):
+               dropout_rate=0.0, generator=None, deterministic=True,
+               shard=None):
     """``neigh_vecs`` is [n, S, d], or the pre-reduced [n, d] mean."""
+    drop, reduce = _drop_and_reduce(shard)
     if neigh_vecs.dim() != 2:
-        neigh_vecs = dropout(generator, neigh_vecs, dropout_rate,
-                             deterministic)
-    self_vecs = dropout(generator, self_vecs, dropout_rate, deterministic)
+        neigh_vecs = drop(generator, neigh_vecs, dropout_rate, deterministic)
+    self_vecs = drop(generator, self_vecs, dropout_rate, deterministic)
     if neigh_vecs.dim() == 2:
         neigh_means = neigh_vecs
     else:
         neigh_means = _mean(neigh_vecs, 1)
     from_neighs = _dot(neigh_means, params["neigh_w"])
     from_self = _dot(self_vecs, params["self_w"])
-    return _combine(from_self, from_neighs, params, act, concat)
+    return _combine(from_self, from_neighs, params, act, concat, reduce)
 
 
 # ----------------------------------------------------------------- gcn
@@ -103,15 +124,15 @@ def init_gcn(generator, input_dim, output_dim, model_size="small",
 
 def apply_gcn(params, self_vecs, neigh_vecs, *, act, concat,
               dropout_rate=0.0, generator=None, deterministic=True,
-              n_samples=None):
+              n_samples=None, shard=None):
     """gcn never concatenates. A pre-reduced [n, d] neighbor mean over
     ``n_samples`` neighbors recombines with self as
     (S*mean + self)/(S+1)."""
     del concat
+    drop, reduce = _drop_and_reduce(shard)
     if neigh_vecs.dim() != 2:
-        neigh_vecs = dropout(generator, neigh_vecs, dropout_rate,
-                             deterministic)
-    self_vecs = dropout(generator, self_vecs, dropout_rate, deterministic)
+        neigh_vecs = drop(generator, neigh_vecs, dropout_rate, deterministic)
+    self_vecs = drop(generator, self_vecs, dropout_rate, deterministic)
     if neigh_vecs.dim() == 2:
         means = (n_samples * neigh_vecs + self_vecs) * (
             1.0 / (n_samples + 1)
@@ -120,6 +141,8 @@ def apply_gcn(params, self_vecs, neigh_vecs, *, act, concat,
         means = _mean(torch.cat([neigh_vecs, self_vecs[:, None, :]], dim=1),
                       1)
     out = _dot(means, params["w"])
+    if reduce is not None:
+        out = reduce(out)
     if "b" in params:
         out = out + params["b"]
     return act(out)
@@ -158,21 +181,27 @@ def _mean_pool(h: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_pool(params, self_vecs, neigh_vecs, reduce_fn, *, act, concat,
-                dropout_rate, generator, deterministic, pre_pooled=False):
+                dropout_rate, generator, deterministic, pre_pooled=False,
+                shard=None):
     """``neigh_vecs`` is [n, S, d]: the per-neighbor MLP, then the reduce
-    over S; or, with ``pre_pooled``, the reduced [n, H] MLP output."""
+    over S; or, with ``pre_pooled``, the reduced [n, H] MLP output.
+    Under ``shard`` only the MLP's first layer and the self projection
+    contract the input block; the pooled rows are whole."""
     if pre_pooled:
         h = neigh_vecs
     else:
         n, s, d = neigh_vecs.shape
         h = neigh_vecs.reshape(n * s, d)
-        for layer in mlp_layers(params):
+        for j, layer in enumerate(mlp_layers(params)):
             h = apply_dense(layer, h, act=torch.relu,
                             dropout_rate=dropout_rate, generator=generator,
-                            deterministic=deterministic)
+                            deterministic=deterministic,
+                            shard=shard if j == 0 else None)
         h = reduce_fn(h.view(n, s, -1))
     from_neighs = _dot(h, params["neigh_w"])
     from_self = _dot(self_vecs, params["self_w"])
+    if shard is not None:
+        from_self = shard.reduce(from_self)
     return _combine(from_self, from_neighs, params, act, concat)
 
 
@@ -184,11 +213,11 @@ def init_maxpool(generator, input_dim, output_dim, model_size="small",
 
 def apply_maxpool(params, self_vecs, neigh_vecs, *, act, concat,
                   dropout_rate=0.0, generator=None, deterministic=True,
-                  pre_pooled=False):
+                  pre_pooled=False, shard=None):
     return _apply_pool(params, self_vecs, neigh_vecs, _max_pool, act=act,
                        concat=concat, dropout_rate=dropout_rate,
                        generator=generator, deterministic=deterministic,
-                       pre_pooled=pre_pooled)
+                       pre_pooled=pre_pooled, shard=shard)
 
 
 init_meanpool = init_maxpool
@@ -196,11 +225,11 @@ init_meanpool = init_maxpool
 
 def apply_meanpool(params, self_vecs, neigh_vecs, *, act, concat,
                    dropout_rate=0.0, generator=None, deterministic=True,
-                   pre_pooled=False):
+                   pre_pooled=False, shard=None):
     return _apply_pool(params, self_vecs, neigh_vecs, _mean_pool, act=act,
                        concat=concat, dropout_rate=dropout_rate,
                        generator=generator, deterministic=deterministic,
-                       pre_pooled=pre_pooled)
+                       pre_pooled=pre_pooled, shard=shard)
 
 
 def init_twomaxpool(generator, input_dim, output_dim, model_size="small",
@@ -210,10 +239,12 @@ def init_twomaxpool(generator, input_dim, output_dim, model_size="small",
 
 
 def apply_twomaxpool(params, self_vecs, neigh_vecs, *, act, concat,
-                     dropout_rate=0.0, generator=None, deterministic=True):
+                     dropout_rate=0.0, generator=None, deterministic=True,
+                     shard=None):
     return _apply_pool(params, self_vecs, neigh_vecs, _max_pool, act=act,
                        concat=concat, dropout_rate=dropout_rate,
-                       generator=generator, deterministic=deterministic)
+                       generator=generator, deterministic=deterministic,
+                       shard=shard)
 
 
 # ----------------------------------------------------------------- seq
@@ -231,14 +262,20 @@ def init_seq(generator, input_dim, output_dim, model_size="small",
 
 
 def apply_seq(params, self_vecs, neigh_vecs, *, act, concat,
-              dropout_rate=0.0, generator=None, deterministic=True):
+              dropout_rate=0.0, generator=None, deterministic=True,
+              shard=None):
     """``neigh_vecs`` [n, S, d]: the LSTM's output at each sequence's
     last non-zero row, then the neighbor projection."""
     del dropout_rate, generator, deterministic
+    _, reduce = _drop_and_reduce(shard)
     lstm = {"kernel": params["lstm.kernel"], "bias": params["lstm.bias"]}
-    neigh_h = lstm_last_output(lstm, neigh_vecs, neighbor_lengths(neigh_vecs))
+    neigh_h = lstm_last_output(lstm, neigh_vecs,
+                               neighbor_lengths(neigh_vecs, shard),
+                               reduce=reduce)
     from_neighs = _dot(neigh_h, params["neigh_w"])
     from_self = _dot(self_vecs, params["self_w"])
+    if reduce is not None:
+        from_self = reduce(from_self)
     return _combine(from_self, from_neighs, params, act, concat)
 
 

@@ -3,7 +3,12 @@ glorot-uniform weights and a zero bias.
 
 A bf16 input is dropped out in bf16 and promoted to the weight's f32
 for the product, as ``jnp.dot(x, w, preferred_element_type=f32)``
-promotes it in the JAX package."""
+promotes it in the JAX package.
+
+``shard`` (a ``parallel/tensor.py::ModelShard``): ``x`` is a rank's
+block of the raw input's columns and ``w`` the matching rows, under
+tensor parallelism; the block's mask is the whole row's, and the
+partial product is summed over the model group before the bias."""
 
 from __future__ import annotations
 
@@ -28,9 +33,13 @@ def apply_dense(
     dropout_rate: float = 0.0,
     generator: torch.Generator | None = None,
     deterministic: bool = True,
+    shard=None,
 ) -> torch.Tensor:
-    x = dropout(generator, x, dropout_rate, deterministic)
+    drop = dropout if shard is None else shard.dropout
+    x = drop(generator, x, dropout_rate, deterministic)
     out = x.to(params["w"].dtype) @ params["w"]
+    if shard is not None:
+        out = shard.reduce(out)
     if "b" in params:
         out = out + params["b"]
     if act is not None:

@@ -16,6 +16,12 @@ sums and adds ``forget_bias`` before the recurrent term, which round
 differently in the last bits (the tests hold the two to 1e-5). A bf16
 row is promoted to f32 before the product, as ``jnp.concatenate`` with
 the f32 ``h`` promotes it; state and carry are f32.
+
+Under tensor parallelism a rank holds a block of the input columns and
+the kernel's matching input rows, with the recurrent rows whole
+(``parallel/tensor.py``): the hoisted product is then a partial sum,
+added over the model group (``reduce``) before the bias, and the
+lengths count a row as used where any rank's block of it is non-zero.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ def init_lstm(generator: torch.Generator, input_dim: int, hidden_dim: int,
 
 
 def lstm_last_output(params: dict, seq: torch.Tensor, lengths: torch.Tensor,
-                     forget_bias: float = 1.0) -> torch.Tensor:
+                     forget_bias: float = 1.0, reduce=None) -> torch.Tensor:
     """Run the cell over ``seq`` [n, S, d]; return the f32 h [n, hidden]
     at step ``lengths - 1`` (``lengths`` [n] int32 in [1, S]).
 
@@ -46,14 +52,19 @@ def lstm_last_output(params: dict, seq: torch.Tensor, lengths: torch.Tensor,
     unused). The steps run unmasked and each row's h is picked at
     ``length - 1`` at the end: the state there depends on no later step,
     so this equals freezing the state once ``t >= length``, values and
-    gradients alike, with no mask in the loop."""
+    gradients alike, with no mask in the loop. ``reduce`` sums the input
+    projection of a column block over the model group."""
     n, s, d = seq.shape
     kernel, bias = params["kernel"], params["bias"]
     hidden = kernel.shape[1] // 4
     shift = torch.zeros_like(bias)
     shift[2 * hidden:3 * hidden] = forget_bias
-    x_proj = torch.addmm(bias + shift, seq.reshape(n * s, d).to(kernel.dtype),
-                         kernel[:d]).view(n, s, 4 * hidden)
+    x = seq.reshape(n * s, d).to(kernel.dtype)
+    if reduce is None:
+        x_proj = torch.addmm(bias + shift, x, kernel[:d])
+    else:
+        x_proj = reduce(x @ kernel[:d]) + (bias + shift)
+    x_proj = x_proj.view(n, s, 4 * hidden)
     w_h = kernel[d:]
     h = torch.zeros((n, hidden), dtype=torch.float32, device=seq.device)
     c = torch.zeros_like(h)
@@ -72,8 +83,14 @@ def lstm_last_output(params: dict, seq: torch.Tensor, lengths: torch.Tensor,
     return torch.stack(hs, dim=1)[rows, lengths.long() - 1]
 
 
-def neighbor_lengths(neigh_vecs: torch.Tensor) -> torch.Tensor:
+def neighbor_lengths(neigh_vecs: torch.Tensor, shard=None) -> torch.Tensor:
     """[n] int32: the non-zero rows of each [S, d] sequence, at least 1.
-    (The max-abs reduction writes no [n, S, d] temporary.)"""
-    used = torch.linalg.vector_norm(neigh_vecs, ord=float("inf"), dim=2) > 0
+    (The max-abs reduction writes no [n, S, d] temporary.) With
+    ``shard``, ``neigh_vecs`` is a column block, and a row counts where
+    it is non-zero in any rank's block."""
+    if shard is not None:
+        used = shard.row_max_abs(neigh_vecs) > 0
+    else:
+        used = torch.linalg.vector_norm(neigh_vecs, ord=float("inf"),
+                                        dim=2) > 0
     return used.sum(dim=1).clamp(min=1).to(torch.int32)

@@ -62,6 +62,16 @@
 //   row r = b*S + s, group g = r*ceil(F/4) + f/4, word f%4 of
 //   philox(g lo, g hi, step, tag; seed lo, seed hi); kept iff word < t.
 // Seed, step and tag arrive by value, so nothing is read back per step.
+// A table that is a column block (a rank's columns col_base .. of rows
+// row_width wide, under tensor parallelism) takes its element (r, f) as
+// (r, col_base + f) of the whole row: g = r*row_groups + (col_base+f)/4
+// with row_groups = ceil(row_width/4) and col_base a multiple of 4, so
+// the block's mask is the matching columns of the whole row's; a table
+// that is the whole row passes col_base 0 and row_groups ceil(F/4).
+// The two cases are two instances (kBlock): the whole row's computes its
+// group count from F, as before blocks existed, and keeps that speed
+// (the block form, with both values from the arguments, measured 1-2%
+// slower at the hop on the H100).
 //
 // What bounds K2: operations, not bytes. Its bytes are K1's, but one
 // Philox call per four elements costs 10 rounds of two 32x32->64
@@ -102,12 +112,12 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kBlock>
 __global__ void gather_mean_dropout_kernel(
     const T* __restrict__ feat, const int32_t* __restrict__ idx,
     float* __restrict__ out, int64_t n_rows, int S, int F, float inv_s,
     uint32_t seed_lo, uint32_t seed_hi, uint32_t step, uint32_t tag,
-    uint32_t threshold, float scale) {
+    uint32_t threshold, float scale, int col_base, int64_t row_groups) {
   constexpr int W = VEC > 4 ? VEC : 4;  // columns per chunk: whole groups
   extern __shared__ int64_t row_off[];
   const int64_t b = blockIdx.x;
@@ -119,15 +129,16 @@ __global__ void gather_mean_dropout_kernel(
   __syncthreads();
 
   const int n_chunks = (F + W - 1) / W;
-  const int64_t groups_per_row = (F + 3) / 4;
+  const int64_t groups_per_row = kBlock ? row_groups : (F + 3) / 4;
   float* out_row = out + b * F;
   for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
     const int col0 = c * W;
+    const int first_col = kBlock ? col_base + col0 : col0;
     float acc[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) acc[k] = 0.f;
     for (int s = 0; s < S; ++s) {
-      const int64_t g0 = (b * S + s) * groups_per_row + col0 / 4;
+      const int64_t g0 = (b * S + s) * groups_per_row + first_col / 4;
       uint32_t bits[W];
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
@@ -175,16 +186,18 @@ int launch_dropout(const void* feat, const void* idx, void* out,
                    long long n_rows, int B, int S, int F,
                    unsigned long long seed, unsigned int step,
                    unsigned int tag, unsigned int threshold, float scale,
-                   void* stream) {
+                   int col_base, long long row_groups, void* stream) {
   constexpr int W = VEC > 4 ? VEC : 4;
   const size_t smem = static_cast<size_t>(S) * sizeof(int64_t);
-  gather_mean_dropout_kernel<T, VEC>
-      <<<B, block_threads((F + W - 1) / W), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
-          static_cast<float*>(out), n_rows, S, F, 1.0f / S,
-          static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-          step, tag, threshold, scale);
+  const bool block = col_base != 0 || row_groups != (F + 3) / 4;
+  auto kernel = block ? gather_mean_dropout_kernel<T, VEC, true>
+                      : gather_mean_dropout_kernel<T, VEC, false>;
+  kernel<<<B, block_threads((F + W - 1) / W), smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
+      static_cast<float*>(out), n_rows, S, F, 1.0f / S,
+      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32), step,
+      tag, threshold, scale, col_base, row_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,15 +389,18 @@ int graphsage_gather_mean_dedup_bf16(GRAPHSAGE_MEAN_PARAMS) {
 #undef GRAPHSAGE_MEAN_PARAMS
 
 // K2: feat, idx, out, n_rows, B, S, F and vec as above, plus the
-// generator's seed, the (step, tag) counter words, the keep threshold
-// and the 1/keep scale.
+// generator's seed, the (step, tag) counter words, the keep threshold,
+// the 1/keep scale, and the block's first column and its whole row's
+// Philox groups (0 and ceil(F/4) for a whole table).
 #define GRAPHSAGE_DROPOUT_ARGS                                              \
-  feat, idx, out, n_rows, B, S, F, seed, step, tag, threshold, scale, stream
+  feat, idx, out, n_rows, B, S, F, seed, step, tag, threshold, scale,       \
+      col_base, row_groups, stream
 
 int graphsage_gather_mean_dropout_f32(
     const void* feat, const void* idx, void* out, long long n_rows, int B,
     int S, int F, int vec, unsigned long long seed, unsigned int step,
-    unsigned int tag, unsigned int threshold, float scale, void* stream) {
+    unsigned int tag, unsigned int threshold, float scale, int col_base,
+    long long row_groups, void* stream) {
   switch (vec) {
     case 1: return launch_dropout<float, 1>(GRAPHSAGE_DROPOUT_ARGS);
     case 2: return launch_dropout<float, 2>(GRAPHSAGE_DROPOUT_ARGS);
@@ -396,7 +412,8 @@ int graphsage_gather_mean_dropout_f32(
 int graphsage_gather_mean_dropout_bf16(
     const void* feat, const void* idx, void* out, long long n_rows, int B,
     int S, int F, int vec, unsigned long long seed, unsigned int step,
-    unsigned int tag, unsigned int threshold, float scale, void* stream) {
+    unsigned int tag, unsigned int threshold, float scale, int col_base,
+    long long row_groups, void* stream) {
   switch (vec) {
     case 1: return launch_dropout<__nv_bfloat16, 1>(GRAPHSAGE_DROPOUT_ARGS);
     case 2: return launch_dropout<__nv_bfloat16, 2>(GRAPHSAGE_DROPOUT_ARGS);

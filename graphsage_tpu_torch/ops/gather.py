@@ -32,6 +32,7 @@ import torch
 
 from graphsage_tpu_torch.ops import build
 from graphsage_tpu_torch.ops.philox import (
+    check_block,
     check_stream,
     dropout_keep_mask,
     dropout_scale,
@@ -67,15 +68,20 @@ def gather_mean_reference(features: torch.Tensor,
 
 def gather_mean_dropout_reference(features: torch.Tensor, idx: torch.Tensor,
                                   drop_rate: float, seed: int,
-                                  offset: tuple[int, int]) -> torch.Tensor:
+                                  offset: tuple[int, int], col_base: int = 0,
+                                  row_width: int | None = None
+                                  ) -> torch.Tensor:
     """Plain version of K2: the f32 gathered rows, dropped per element by
     the Philox mask of ``ops/philox.py`` (counter words ``offset`` =
-    (step, tag)) and scaled by 1/keep, then their mean over S."""
+    (step, tag); a table that holds columns ``col_base ..`` of rows
+    ``row_width`` wide takes those columns of the whole rows' mask) and
+    scaled by 1/keep, then their mean over S."""
     B, S = idx.shape
     F = features.shape[1]
     rows = features.index_select(0, idx.reshape(-1)).float()
     keep = dropout_keep_mask(B * S, F, drop_rate, seed, *offset,
-                             device=features.device)
+                             device=features.device, col_base=col_base,
+                             row_width=row_width)
     rows = torch.where(keep, rows * dropout_scale(drop_rate),
                        torch.zeros_like(rows))
     return rows.view(B, S, F).mean(dim=1)
@@ -190,7 +196,8 @@ _COMMON_ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 ]
 _DROPOUT_ARGS = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
-                 ctypes.c_uint32, ctypes.c_float]
+                 ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_longlong]
 _ROWS_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -230,7 +237,8 @@ def _raise_on_error(err: int, source: str) -> None:
 def fused_gather_mean(features: torch.Tensor, idx: torch.Tensor,
                       drop_rate: float = 0.0, seed: int | None = None,
                       offset: tuple[int, int] | None = None,
-                      dedup: bool = False) -> torch.Tensor:
+                      dedup: bool = False, col_base: int = 0,
+                      row_width: int | None = None) -> torch.Tensor:
     """[B, F] float32 = mean_s features[idx[b, s]], dropped out per
     element first when ``drop_rate > 0``.
 
@@ -249,6 +257,12 @@ def fused_gather_mean(features: torch.Tensor, idx: torch.Tensor,
     ``fused_gather_mean.dropout_launches``) or K3 (dedup;
     ``fused_gather_mean.dedup_launches``), one launch over all B, or
     raises; a CPU tensor goes through the plain version.
+
+    A table that is a column block, columns ``col_base ..`` of rows
+    ``row_width`` wide (a rank's block under tensor parallelism,
+    ``parallel/tensor.py``), gives the matching columns of the whole
+    table's result: the mean is per column, and K2 draws each element's
+    bits at its column in the whole row (``ops/philox.py``).
     """
     dropout = drop_rate > 0.0
     variant = "dropout" if dropout else ("dedup" if dedup else "mean")
@@ -260,10 +274,12 @@ def fused_gather_mean(features: torch.Tensor, idx: torch.Tensor,
         if seed is None or offset is None:
             raise ValueError("drop_rate > 0 requires seed and offset")
         check_stream(seed, *offset)
+    row_width = check_block(features.shape[1], col_base, row_width)
     if features.device.type == "cpu":
         if dropout:
             return gather_mean_dropout_reference(features, idx, drop_rate,
-                                                 seed, offset)
+                                                 seed, offset, col_base,
+                                                 row_width)
         if dedup:
             return gather_mean_dedup_reference(features, idx)
         return gather_mean_reference(features, idx)
@@ -279,7 +295,7 @@ def fused_gather_mean(features: torch.Tensor, idx: torch.Tensor,
             vec]
     if dropout:
         args += [seed, offset[0], offset[1], dropout_threshold(drop_rate),
-                 dropout_scale(drop_rate)]
+                 dropout_scale(drop_rate), col_base, -(-row_width // 4)]
     with torch.cuda.device(features.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, "gather_mean")

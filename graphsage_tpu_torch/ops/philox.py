@@ -19,6 +19,16 @@ and the kernel follows it:
 ``step`` is the training step (each step draws its own mask) and
 ``tag`` names the call site, so that two masks of one step never share
 a stream.
+
+A column block: rows [R, F_m] that hold columns ``col_base ..
+col_base + F_m - 1`` of rows ``row_width`` wide (``col_base`` a multiple
+of 4, so that no group straddles two blocks) take element (r, f) as
+(r, col_base + f) of the whole row: the group is
+r * ceil(row_width / 4) + (col_base + f) // 4 and the word f % 4. A
+block's mask is then the matching columns of the whole rows' mask, so
+ranks that each hold a block of the feature columns
+(``parallel/tensor.py``) drop what one device drops. ``col_base`` 0 and
+``row_width`` F give the bits above.
 """
 
 from __future__ import annotations
@@ -78,13 +88,29 @@ def check_stream(seed: int, step: int, tag: int) -> None:
         )
 
 
+def check_block(F: int, col_base: int, row_width: int | None) -> int:
+    """The whole row's width of a block of ``F`` columns at ``col_base``
+    (``row_width`` None: the block is the whole row), checked."""
+    row_width = F if row_width is None else row_width
+    if (F and col_base % 4) or col_base < 0 or col_base + F > row_width:
+        raise ValueError(
+            f"a block of {F} columns at {col_base} does not lie on 4-column "
+            f"groups of a row {row_width} wide")
+    return row_width
+
+
 def dropout_bits(n_rows: int, F: int, seed: int, step: int, tag: int,
-                 device="cpu") -> torch.Tensor:
+                 device="cpu", col_base: int = 0,
+                 row_width: int | None = None) -> torch.Tensor:
     """[n_rows, F] int64 tensor of the uint32 random words of each
-    element of [n_rows, F] gathered rows."""
+    element of [n_rows, F] gathered rows: columns ``col_base ..`` of
+    rows ``row_width`` wide (the module docstring)."""
     check_stream(seed, step, tag)
+    row_groups = -(-check_block(F, col_base, row_width) // 4)
     G = -(-F // 4)
-    g = torch.arange(n_rows * G, dtype=torch.int64, device=device)
+    g = (torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+         * row_groups + col_base // 4
+         + torch.arange(G, dtype=torch.int64, device=device)).reshape(-1)
     words = philox4x32(
         (g & MASK32, g >> 32, torch.full_like(g, step),
          torch.full_like(g, tag)),
@@ -94,18 +120,22 @@ def dropout_bits(n_rows: int, F: int, seed: int, step: int, tag: int,
 
 
 def dropout_keep_mask(n_rows: int, F: int, rate: float, seed: int,
-                      step: int, tag: int, device="cpu") -> torch.Tensor:
+                      step: int, tag: int, device="cpu", col_base: int = 0,
+                      row_width: int | None = None) -> torch.Tensor:
     """[n_rows, F] bool: True where the element is kept."""
-    bits = dropout_bits(n_rows, F, seed, step, tag, device)
+    bits = dropout_bits(n_rows, F, seed, step, tag, device, col_base,
+                        row_width)
     return bits < dropout_threshold(rate)
 
 
 def philox_dropout(x: torch.Tensor, rate: float, seed: int, step: int,
-                   tag: int) -> torch.Tensor:
+                   tag: int, col_base: int = 0,
+                   row_width: int | None = None) -> torch.Tensor:
     """Dropout of a 2-D [R, F] tensor by the mask above, in ``x``'s
-    dtype: zero where dropped, ``x * scale`` where kept."""
+    dtype: zero where dropped, ``x * scale`` where kept. ``x`` may be a
+    column block of wider rows (``col_base``, ``row_width``)."""
     if rate == 0.0:
         return x
     keep = dropout_keep_mask(x.shape[0], x.shape[1], rate, seed, step, tag,
-                             x.device)
+                             x.device, col_base, row_width)
     return torch.where(keep, x * dropout_scale(rate), torch.zeros_like(x))

@@ -1,6 +1,7 @@
-"""The training steps and chunk runners: on one device, and the pure
+"""The training steps and chunk runners: on one device, the pure
 data-parallel supervised and unsupervised runners (P1,
-``--data_shards``).
+``--data_shards``) and the tensor-parallel supervised runner
+(``--n_model_shards``, with ``--data_shards``: a data x model grid).
 
 The JAX package jits one function per step (forward, backward, the
 clipped Adam update) and runs a chunk of steps in one ``fori_loop``
@@ -18,6 +19,12 @@ ranks by hand (``distributed.all_reduce_grads``), after each rank's loss
 was normalised by the world's mask sum. DDP would average the gradients
 instead, which equals that sum only when every rank holds as many real
 rows, and a dummy-padded tail batch breaks that.
+
+Under ``--n_model_shards M`` each data slice's M ranks hold column
+blocks of the tables and the layer-0 weights' matching rows
+(``tensor.py``) and take the same rows of each batch; the layer-0
+products are summed over the model group inside the model, and the
+gradients over the data group.
 """
 
 from __future__ import annotations
@@ -306,6 +313,71 @@ def make_dp_supervised_chunk_runner(sup_config: SupervisedConfig, optimizer,
         loss = loss.detach()
         dist.all_reduce(loss)   # the last step's, read by the caller
         return params, opt_state, loss, logits.detach(), ids
+
+    return runner
+
+
+def make_tp_supervised_chunk_runner(sup_config: SupervisedConfig, optimizer,
+                                    grid, batch_size: int):
+    """--n_model_shards M (x --data_shards D): the chunk runner of
+    ``make_supervised_chunk_runner`` (the same call and return layout)
+    over a grid of D data slices of M model ranks, the JAX package's
+    GSPMD runner over its ("data", "model") mesh. Each rank holds its
+    model shard's column blocks of ``features`` and of the identity
+    table and the matching rows of layer 0's contracting weights
+    (``tensor.py``); rank (d, m) takes rows ``d*B/D .. (d+1)*B/D`` of
+    each step's batch. Its masked loss sum is normalised by the data
+    group's mask sum, the decay term (whole on every rank: a shard's
+    squares are summed over the model group) is divided by D, and the
+    gradients and the last step's loss are summed over the data group.
+    The sampler and the dropouts draw alike on a model group's ranks:
+    ``generator`` and the inner hop's dropout seed are folded with the
+    data index only (``tensor.tp_seed``). ``last_logits`` and
+    ``last_ids`` are this data slice's rows."""
+    from graphsage_tpu_torch.models.supervised import weight_decay_term
+    from graphsage_tpu_torch.parallel.tensor import ModelShard, tp_seed
+
+    config = sup_config.sage
+    num_nodes = config.num_nodes
+    _require_num_nodes(num_nodes, "id stream")
+    D = grid.data_size
+    if batch_size % D:
+        raise ValueError(f"batch_size {batch_size} must be divisible by "
+                         f"--data_shards {D}")
+    local_b = batch_size // D
+    shard = ModelShard.of(config, grid)
+
+    def data_sum(t):
+        if D > 1:
+            dist.all_reduce(t, group=grid.data_group)
+        return t
+
+    def runner(params, opt_state, generator, features, adj, ids_perm,
+               labels_table, start_step: int, n_steps: int,
+               drop_seed: int = 0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        seed = tp_seed(drop_seed, grid)
+        for i in range(start_step, start_step + n_steps):
+            lo = i * batch_size + grid.data_rank * local_b
+            ids = ids_perm[lo:lo + local_b]
+            labels = labels_table.index_select(0, ids)
+            mask = (ids != num_nodes).float()
+            mask_sum = data_sum(mask.sum())
+            opt_state.zero_grad(set_to_none=True)
+            logits = supervised_logits(
+                params, features, adj, ids, sup_config, generator=generator,
+                deterministic=False, drop_key=(seed, i), shard=shard)
+            per_node = per_node_loss(logits, labels, sup_config)
+            loss = (per_node * mask).sum() / torch.clamp(mask_sum, min=1.0)
+            if sup_config.weight_decay > 0.0:
+                loss = loss + weight_decay_term(params, sup_config,
+                                                shard) / D
+            loss.backward()
+            all_reduce_grads(params, grid)
+            optimizer.update(opt_state, params)
+        return (params, opt_state, data_sum(loss.detach()), logits.detach(),
+                ids)
 
     return runner
 

@@ -7,9 +7,9 @@ CLI calls for a sharded ``supervised``, ``predict``, ``unsupervised`` or
 - under ``torchrun`` (``WORLD_SIZE`` set) this process is one rank and
   joins the group from the environment (``env://``);
 - with ``--coordinator_address host:port --num_processes P
-  --process_id i`` it starts this host's ``graph_shards x data_shards /
-  P`` ranks, global rank ``i * local + local_rank``, around a TCP store
-  at the coordinator (rank 0's host);
+  --process_id i`` it starts this host's ``graph_shards x data_shards x
+  n_model_shards / P`` ranks, global rank ``i * local + local_rank``,
+  around a TCP store at the coordinator (rank 0's host);
 - otherwise it starts every rank on this host, around a ``file://``
   store in a temporary directory: one command for N devices, as the JAX
   package's.
@@ -103,13 +103,17 @@ def spawn(fn, args: tuple, devices: list, init_method: str,
 
 
 def run_command(fn, args: tuple, graph_shards: int, data_shards: int,
-                device="cuda", coordinator_address: str | None = None,
+                model_shards: int = 1, device="cuda",
+                coordinator_address: str | None = None,
                 num_processes: int | None = None,
                 process_id: int | None = None) -> None:
     """Run ``fn(device, *args)`` on every rank of a ``graph_shards x
-    data_shards`` run, started as the module docstring says."""
-    total = graph_shards * data_shards
+    data_shards x model_shards`` run, started as the module docstring
+    says."""
+    total = graph_shards * data_shards * model_shards
     what = f"--graph_shards {graph_shards} x --data_shards {data_shards}"
+    if model_shards > 1:
+        what += f" x --n_model_shards {model_shards}"
     if "WORLD_SIZE" in os.environ:
         local_rank = int(os.environ.get("LOCAL_RANK", 0))
         n_local = int(os.environ.get("LOCAL_WORLD_SIZE", local_rank + 1))
@@ -514,16 +518,187 @@ def _check_masked_mrr(job, grid, device) -> dict:
     return float(_global_masked_mrr(sums, grid.graph_group))
 
 
+def _tp_setup(job, grid, device):
+    """(shard, this rank's params, its feature block, the adjacency) of
+    a tensor-parallel job: the whole params cut to the rank's model
+    shard through the bridge."""
+    from graphsage_tpu_torch.params import params_to_model_shard
+    from graphsage_tpu_torch.parallel.tensor import ModelShard
+
+    sage = job["sup_config"].sage
+    shard = ModelShard.of(sage, grid)
+    params = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+              for k, v in params_to_model_shard(
+                  job["params"], sage, grid.model_size,
+                  grid.model_rank).items()}
+    lo, hi = shard.feat_block
+    feat = torch.from_numpy(np.ascontiguousarray(
+        job["features"][:, lo:hi])).to(device)
+    adj = torch.from_numpy(np.array(job["adj"], copy=True)).to(device)
+    return shard, params, feat, adj
+
+
+def gather_launches() -> dict:
+    """The gather kernels' launch counts in this process (K1-K4)."""
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
+    from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
+
+    return {"K1": gm.launches, "K2": gm.dropout_launches,
+            "K3": gm.dedup_launches, "K4": gr.launches}
+
+
+class CountedAllReduce:
+    """Within the block, ``torch.distributed.all_reduce`` counts its
+    calls in ``calls`` (the modules call it through the
+    ``torch.distributed`` module, so all of theirs are counted)."""
+
+    def __enter__(self):
+        self.calls, self._real = 0, dist.all_reduce
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._real(*args, **kwargs)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_reduce = self._real
+
+
+def _check_tp_train(job, grid, device) -> dict:
+    """The tensor-parallel runner over ``chunks``: each chunk's loss,
+    preds, ids, seconds and all-reduce calls; this rank's params
+    (``local``), the whole params and Adam moments gathered over the
+    model group (``params``, ``mu``, ``nu``) after the first chunk
+    (``first``) and at the end, and the gather kernels' launches in the
+    chunks (``launches``)."""
+    from graphsage_tpu_torch.models.supervised import (
+        make_optimizer,
+        supervised_predict,
+    )
+    from graphsage_tpu_torch.parallel.dp import (
+        make_tp_supervised_chunk_runner,
+    )
+    from graphsage_tpu_torch.parallel.tensor import tp_seed
+    from graphsage_tpu_torch.train.sharding import model_whole_state
+
+    sup = job["sup_config"]
+    shard, params, feat, adj = _tp_setup(job, grid, device)
+    optimizer = make_optimizer(job["lr"])
+    opt_state = optimizer.init(params)
+    run = make_tp_supervised_chunk_runner(sup, optimizer, grid,
+                                          job["batch_size"])
+    ids_perm = torch.from_numpy(job["ids_perm"]).to(device)
+    labels_table = torch.from_numpy(job["labels_table"]).to(device)
+    gen = torch.Generator(device=device).manual_seed(
+        tp_seed(job.get("seed", 0), grid))
+
+    def state():
+        whole, opt = model_whole_state(
+            params, optimizer.state_dict(opt_state, params), shard)
+        def host(tree):   # copies: the steps update in place
+            return {k: v.detach().cpu().numpy().copy()
+                    for k, v in tree.items()}
+
+        return {"params": host(whole), "mu": host(opt["mu"]),
+                "nu": host(opt["nu"]), "count": opt["count"]}
+
+    chunks, result = [], {}
+    launches = {k: -n for k, n in gather_launches().items()}
+    for start, n in job["chunks"]:
+        _sync(device)
+        t0 = time.perf_counter()
+        with CountedAllReduce() as counted:
+            out = run(params, opt_state, gen, feat, adj, ids_perm,
+                      labels_table, start, n,
+                      drop_seed=job.get("drop_seed", 0))
+        loss = float(out[2])
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        params, opt_state = out[0], out[1]
+        chunks.append({"loss": loss,
+                       "preds": supervised_predict(out[3], sup).cpu().numpy(),
+                       "ids": out[4].cpu().numpy(), "seconds": seconds,
+                       "all_reduces": counted.calls})
+        if job.get("first") and len(chunks) == 1:
+            result["first"] = state()
+    launches = {k: n + launches[k] for k, n in gather_launches().items()}
+    result.update(state(), chunks=chunks, launches=launches,
+                  local={k: v.detach().cpu().numpy()
+                         for k, v in params.items()})
+    return result
+
+
+def _check_tp_eval(job, grid, device) -> dict:
+    """The tensor-parallel eval of one batch (``batch`` = (ids, labels,
+    mask)) and the eval sweep over ``nodes``, every rank of the model
+    group on its blocks."""
+    from graphsage_tpu_torch.train.supervised import (
+        _run_eval_sweep,
+        make_eval_step,
+        make_eval_sweep,
+    )
+
+    sup = job["sup_config"]
+    shard, params, feat, adj = _tp_setup(job, grid, device)
+    B, N = job["batch_size"], sup.sage.num_nodes
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(job.get("seed", 0))
+
+    batch = [torch.from_numpy(x).to(device) for x in job["batch"]]
+    loss, preds = make_eval_step(sup, shard)(params, feat, adj, *batch,
+                                             gen())
+    sweep_loss, sweep_preds, _, seconds = _run_eval_sweep(
+        make_eval_sweep(sup, B, N, shard), params, feat, adj, job["nodes"],
+        job["labels"], B, N, gen())
+    return {"eval": (float(loss), preds.cpu().numpy()),
+            "sweep": (sweep_loss, sweep_preds), "sweep_seconds": seconds}
+
+
+def _check_tp_reduce(job, grid, device) -> dict:
+    """``reduce_from_model`` of this rank's block product ``x @ w`` (rows
+    ``input_rows`` of the job's whole ``x`` columns and ``w`` rows)
+    under a loss of the sum against ``weights``: the forward and the
+    gradient of the rank's ``w`` rows, beside the gradient that
+    ``torch.distributed.nn.functional.all_reduce`` gives."""
+    import torch.distributed.nn.functional as dist_fn
+
+    from graphsage_tpu_torch.parallel.tensor import (
+        input_rows,
+        reduce_from_model,
+    )
+
+    rows = input_rows(job["sup_config"].sage, grid.model_size,
+                      grid.model_rank)
+    x = torch.from_numpy(job["x"][:, rows]).to(device)
+    weights = torch.from_numpy(job["weights"]).to(device)
+    out = {}
+    for name, fn in (("ours", lambda t: reduce_from_model(
+            t, grid.model_group)), ("dist_nn", lambda t: dist_fn.all_reduce(
+                t, group=grid.model_group))):
+        w = torch.from_numpy(job["w"][rows]).to(device).requires_grad_(True)
+        y = fn(x @ w)
+        (y * weights).sum().backward()
+        out[name] = {"y": y.detach().cpu().numpy(),
+                     "grad": w.grad.cpu().numpy()}
+    return out
+
+
 CHECKS = {"exchange": _check_exchange, "embed": _check_embed,
           "split_mean": _check_split_mean, "train": _check_train,
           "sweep": _check_sweep, "unsup_train": _check_unsup_train,
-          "unsup_eval": _check_unsup_eval, "masked_mrr": _check_masked_mrr}
+          "unsup_eval": _check_unsup_eval, "masked_mrr": _check_masked_mrr,
+          "tp_train": _check_tp_train, "tp_eval": _check_tp_eval,
+          "tp_reduce": _check_tp_reduce}
 
 
 def check_rank(device, job_path: str, out_dir: str) -> None:
     """Run the jobs of ``job_path`` (a ``torch.save``d dict name -> job,
-    each with its ``kind`` and ``grid`` = (graph_shards, data_shards),
-    written by the caller) and save this rank's outputs to
+    each with its ``kind`` and ``grid`` = (graph_shards, data_shards)
+    or, tensor-parallel, (1, data_shards, n_model_shards), written by
+    the caller) and save this rank's outputs to
     ``out_dir/rank<r>.pt``."""
     jobs = torch.load(job_path, weights_only=False)
     grids, results = {}, {}

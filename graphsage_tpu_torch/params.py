@@ -15,6 +15,13 @@ the bridge finds the Adam node by its fields and carries count, mu and
 nu to the port's form ``{"count": int, "mu": {key: tensor}, "nu":
 {key: tensor}}`` (``models/supervised.py::ClippedAdam``) and back,
 without importing optax.
+
+Under tensor parallelism (``--n_model_shards``, ``parallel/tensor.py``)
+a rank holds a shard of some parameters: ``params_to_model_shard``
+cuts the logical (whole) params, the JAX package's ``jax.device_get``
+of its GSPMD-placed tree, into rank m's shard, and
+``params_from_model_shards`` puts the ranks' shards back together. The
+same two serve Adam's moments, keyed as the params.
 """
 
 from __future__ import annotations
@@ -110,3 +117,54 @@ def opt_state_to_jax(state: dict, like):
     if _find_adam_state(like) is None:
         raise ValueError("no Adam state (count, mu, nu) in ``like``")
     return rebuild(like)
+
+
+def params_to_model_shard(flat: dict, sage_config, n_model: int,
+                          index: int) -> dict:
+    """Rank ``index``'s shard of whole params ``flat`` (tensors or NumPy
+    arrays) under ``n_model``-way tensor parallelism; the parameters
+    that are not split are passed as they are."""
+    from graphsage_tpu_torch.parallel.tensor import shard_index, split_params
+
+    out = dict(flat)
+    for k, (dim, kind) in split_params(sage_config).items():
+        if k not in flat:
+            continue
+        v = flat[k]
+        idx = shard_index(sage_config, kind, v.shape[dim], n_model, index)
+        if isinstance(v, torch.Tensor):
+            out[k] = v.index_select(dim, torch.from_numpy(idx).to(v.device))
+        else:
+            out[k] = np.take(v, idx, axis=dim)
+    return out
+
+
+def params_from_model_shards(shards: list, sage_config) -> dict:
+    """The whole params from every rank's shard (tensors), in model-rank
+    order: the inverse of ``params_to_model_shard``."""
+    from graphsage_tpu_torch.parallel.tensor import (
+        input_rows,
+        shard_index,
+        split_params,
+    )
+
+    n = len(shards)
+    out = dict(shards[0])
+    for k, (dim, kind) in split_params(sage_config).items():
+        if k not in out:
+            continue
+        parts = [s[k] for s in shards]
+        if kind == "lstm":   # the recurrent rows follow the input rows
+            whole_len = (sage_config.input_dim + parts[0].shape[0]
+                         - len(input_rows(sage_config, n, 0)))
+        else:
+            whole_len = sum(p.shape[dim] for p in parts)
+        shape = list(parts[0].shape)
+        shape[dim] = whole_len
+        whole = parts[0].new_empty(shape)
+        for m, part in enumerate(parts):
+            idx = shard_index(sage_config, kind, whole_len, n, m)
+            whole.index_copy_(dim, torch.from_numpy(idx).to(part.device),
+                              part)
+        out[k] = whole
+    return out

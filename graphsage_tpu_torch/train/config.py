@@ -1,8 +1,8 @@
 """Typed configuration mirroring the reference flag surface.
 
 The fields are those the port's serving, supervised and unsupervised
-paths read, with the JAX package's defaults. ``require_ported`` refuses
-what the port does not run yet: ``n_model_shards`` above 1.
+paths read, with the JAX package's defaults. ``check_model_shards``
+refuses the supervised flag combinations the JAX package refuses.
 ``feature_table`` places the feature table the flags select, for both
 trainers and serving.
 """
@@ -66,7 +66,7 @@ class TrainFlags:
     data_shards: int = 1        # pure data parallelism over N ranks (P1)
     capacity_factor: float = 0.0  # the exchange's budget; 0 = auto-size
     shard_layout: str = "strided"  # row ownership: "strided" or "block"
-    n_model_shards: int = 1     # > 1 is refused (ROADMAP.md A.9c)
+    n_model_shards: int = 1     # feature-dim TP (supervised only)
     defer_features: bool = False  # read the feature table at training
                                   # time (node2vec never reads it)
     degree_relabel: bool = False  # internal ids by descending degree;
@@ -100,13 +100,22 @@ class TrainFlags:
         return d
 
 
-def require_ported(flags: TrainFlags) -> None:
-    """Refuse what the port does not run yet, naming the ROADMAP.md item
-    that brings it: feature-dim tensor parallelism (A.9c)."""
-    if flags.n_model_shards > 1:
-        raise NotImplementedError(
-            f"--n_model_shards {flags.n_model_shards}: feature-dim tensor "
-            "parallelism is not ported yet (ROADMAP.md A.9c)")
+def check_model_shards(flags: TrainFlags) -> None:
+    """The supervised trainer's refusals of ``--n_model_shards``: below
+    1, and above 1 together with ``--graph_shards``, which the JAX
+    package's trainer refuses in these words
+    (``graphsage_tpu/train/supervised.py:147-155``). The other
+    subcommands ignore the flag, as the JAX package's do."""
+    if flags.n_model_shards < 1:
+        raise ValueError(
+            f"--n_model_shards must be >= 1, got {flags.n_model_shards}")
+    if flags.graph_shards > 1 and flags.n_model_shards > 1:
+        raise ValueError(
+            "--n_model_shards (feature-dim TP over a pjit mesh) does "
+            "not compose with --graph_shards (shard_map halo "
+            "exchange); combine --graph_shards with --data_shards "
+            "instead (2-D data x graph mesh)"
+        )
 
 
 def build_layer_infos(flags: TrainFlags, supervised: bool):

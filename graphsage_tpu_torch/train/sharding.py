@@ -1,11 +1,15 @@
 """What the supervised and the unsupervised trainers share on several
 devices: a rank's shard of the feature table, its params with the
 identity table row-sharded, the checkpoint's whole, canonical state and
-back, the restore of ``--resume``, and the dropped-request warnings.
+back, the restore of ``--resume``, and the dropped-request warnings;
+and under tensor parallelism (``--n_model_shards``), a rank's column
+block of the feature table and its model shard of the params and Adam
+moments, and the whole state of a checkpoint.
 
 A checkpoint keeps the identity table (``embeds``) and its Adam moments
-whole, in canonical id order, so a run resumes under any shard count or
-``--shard_layout``, or on one device.
+whole, in canonical id order, and the tensor-parallel shards whole, so
+a run resumes under any shard count or ``--shard_layout``, or on one
+device.
 """
 
 from __future__ import annotations
@@ -14,11 +18,13 @@ import numpy as np
 import torch
 
 from graphsage_tpu_torch.data.io import feature_stats, load_feature_rows
+from graphsage_tpu_torch.params import params_to_model_shard
 from graphsage_tpu_torch.parallel.graph_sharded import (
     device_rows_to_node_ids,
     gather_canonical,
     local_shard,
 )
+from graphsage_tpu_torch.parallel.tensor import gather_whole
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import FEATURE_DTYPES
 
@@ -51,6 +57,46 @@ def place_sharded_features(graph, n_shards: int, index: int,
     else:
         return None
     return torch.from_numpy(rows).to(device=device, dtype=dtype)
+
+
+def place_column_block(graph, feature_dtype: str, shard, device):
+    """The rank's block of the dummy-padded feature table's columns
+    (``shard.feat_block``) on ``device``, in ``feature_dtype`` (None in
+    featureless mode); the other columns never reach the device."""
+    if feature_dtype not in FEATURE_DTYPES:
+        raise ValueError(
+            f"feature_dtype must be one of {tuple(FEATURE_DTYPES)}")
+    feats_np = graph.padded_features()
+    if feats_np is None:
+        return None
+    lo, hi = shard.feat_block
+    return torch.from_numpy(np.ascontiguousarray(feats_np[:, lo:hi])).to(
+        device=device, dtype=FEATURE_DTYPES[feature_dtype])
+
+
+def model_shard_params(whole: dict, shard, device):
+    """(this rank's params on ``device``, the checkpoint's shapes) from
+    the whole initial params: the split ones cut to the rank's model
+    shard (``params.py::params_to_model_shard``)."""
+    params = params_to_model_shard(whole, shard.sage_config, shard.size,
+                                   shard.rank)
+    return ({k: v.to(device) for k, v in params.items()},
+            {k: torch.empty(v.shape, device="meta")
+             for k, v in whole.items()})
+
+
+def model_whole_state(params: dict, opt_state: dict, shard):
+    """A checkpoint's (params, Adam state) with every model shard and
+    its moments whole (collective over the model group)."""
+    opt_state = dict(opt_state, mu=gather_whole(opt_state["mu"], shard),
+                     nu=gather_whole(opt_state["nu"], shard))
+    return gather_whole(params, shard), opt_state
+
+
+def model_local_state(tree: dict, shard) -> dict:
+    """This rank's model shard of a whole tree (params, or a moment)."""
+    return params_to_model_shard(tree, shard.sage_config, shard.size,
+                                 shard.rank)
 
 
 def canonical_state(params: dict, opt_state: dict, grid, layout: str,

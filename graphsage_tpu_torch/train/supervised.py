@@ -26,9 +26,15 @@ every rank holding the whole tables (``_replicated_pieces``);
 ``--graph_shards N`` (with ``--data_shards M``: an M x N grid) the
 tables row-sharded across each graph group, with the sharded runner,
 evaluations and checkpoint transforms (``_sharded_pieces``,
-``parallel/graph_sharded.py``). Rank 0 prints and writes the logs,
-stats and checkpoints; a checkpoint keeps the identity table in
-canonical id order, so a run resumes under any shard count or layout.
+``parallel/graph_sharded.py``); ``--n_model_shards M`` (with
+``--data_shards D``: a D x M grid) the feature and identity tables split
+on their columns and layer 0's contracting weights on their rows over
+each model group, with the tensor-parallel runner, evaluations and
+checkpoint transforms (``_tensor_pieces``, ``parallel/tensor.py``).
+Rank 0 prints and writes the logs, stats and checkpoints; a checkpoint
+keeps the identity table in canonical id order and every model shard
+whole, so a run resumes under any shard count or layout, or on one
+device.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from graphsage_tpu_torch.parallel.distributed import (
 from graphsage_tpu_torch.parallel.dp import (
     make_dp_supervised_chunk_runner,
     make_supervised_chunk_runner,
+    make_tp_supervised_chunk_runner,
 )
 from graphsage_tpu_torch.parallel.graph_sharded import (
     local_shard,
@@ -68,18 +75,23 @@ from graphsage_tpu_torch.parallel.graph_sharded import (
     reassemble_sharded_rows,
     suggest_capacity_factor,
 )
+from graphsage_tpu_torch.parallel.tensor import ModelShard, tp_seed
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
     TrainFlags,
     build_layer_infos,
+    check_model_shards,
     feature_table,
-    require_ported,
 )
 from graphsage_tpu_torch.train.metrics import calc_f1
 from graphsage_tpu_torch.train.sharding import (
     DroppedRequests,
     canonical_state,
     local_state,
+    model_local_state,
+    model_shard_params,
+    model_whole_state,
+    place_column_block,
     place_sharded_features,
     quiet,
     restore,
@@ -122,15 +134,17 @@ def build_supervised_config(flags: TrainFlags, graph) -> SupervisedConfig:
     )
 
 
-def make_eval_step(config: SupervisedConfig):
+def make_eval_step(config: SupervisedConfig, shard=None):
     """eval_step(params, features, adj, ids, labels, mask, generator) ->
-    (loss, preds) on one batch, no dropout, results on the device."""
+    (loss, preds) on one batch, no dropout, results on the device. Under
+    tensor parallelism (``shard``) every rank of the model group
+    evaluates the whole batch on its blocks, and gets the whole result."""
 
     @torch.inference_mode()
     def eval_step(params, features, adj, ids, labels, mask, generator=None):
         loss, logits = supervised_loss(
             params, features, adj, ids, labels, mask, config,
-            generator=generator, deterministic=True,
+            generator=generator, deterministic=True, shard=shard,
         )
         return loss, supervised_predict(logits, config)
 
@@ -138,15 +152,16 @@ def make_eval_step(config: SupervisedConfig):
 
 
 def make_eval_sweep(config: SupervisedConfig, batch_size: int,
-                    num_nodes: int):
+                    num_nodes: int, shard=None):
     """sweep(params, features, adj, ids_all, labels_table, generator) ->
     (per-batch losses [n_b], flat preds [n_b*B, C]), both on the device.
 
     ``ids_all`` is a dummy-padded id stream of n_b*B ids and
     ``labels_table`` has N+1 rows (the dummy's row is never scored: the
-    mask is ``ids != N``). Nothing is copied to the host.
+    mask is ``ids != N``). Nothing is copied to the host. ``shard``: as
+    ``make_eval_step``'s.
     """
-    eval_step = make_eval_step(config)
+    eval_step = make_eval_step(config, shard)
 
     @torch.inference_mode()
     def sweep(params, features, adj, ids_all, labels_table, generator=None):
@@ -206,14 +221,19 @@ def _write_stats(path: str, loss, f1_mic, f1_mac, duration=None) -> None:
 def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     """Train on ``device`` (``cuda`` unless the caller asks for ``cpu``);
     returns the params and the final val/test metrics. With
-    ``--graph_shards`` or ``--data_shards`` above 1 this process is one
-    rank of an initialised process group (``parallel/launch.py``), on
-    its own device; the metrics are rank 0's."""
-    require_ported(flags)
+    ``--graph_shards``, ``--data_shards`` or ``--n_model_shards`` above
+    1 this process is one rank of an initialised process group
+    (``parallel/launch.py``), on its own device; the metrics are rank
+    0's."""
+    check_model_shards(flags)
     device = resolve_device(device)
     sharded = flags.graph_shards > 1
-    grid = (make_grid(flags.graph_shards, flags.data_shards)
-            if sharded or flags.data_shards > 1 else None)
+    tp = flags.n_model_shards > 1
+    if tp:
+        grid = make_grid(1, flags.data_shards, flags.n_model_shards)
+    else:
+        grid = (make_grid(flags.graph_shards, flags.data_shards)
+                if sharded or flags.data_shards > 1 else None)
     chief = grid is None or grid.is_chief
     say = print if chief else quiet
     if graph is None:
@@ -236,7 +256,8 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     labels_table = labels_table_of(graph.labels, dummy)
     labels_table_dev = torch.from_numpy(labels_table).to(device)
     optimizer = make_optimizer(flags.learning_rate)
-    make_pieces = _sharded_pieces if sharded else _replicated_pieces
+    make_pieces = (_sharded_pieces if sharded else
+                   _tensor_pieces if tp else _replicated_pieces)
     pc = make_pieces(flags, graph, config, optimizer, grid, train_adj_np,
                      full_adj_np, labels_table_dev, device, say)
     params = pc.params
@@ -270,9 +291,15 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     log_dir = flags.log_dir("supervised") if chief else None
     logger = ScalarLogger(log_dir) if chief else None
     probe = (histogram_probe(config.sage, graph, B, flags.seed + 1, device)
-             if flags.log_histograms and chief and not sharded else None)
+             if flags.log_histograms and chief and not pc.collective
+             else None)
+    if grid is None:
+        sampler_seed = flags.seed
+    else:
+        sampler_seed = (tp_seed(flags.seed, grid) if tp
+                        else fold_seed(flags.seed, grid.me))
     sampler_generator = torch.Generator(device=device).manual_seed(
-        flags.seed if grid is None else fold_seed(flags.seed, grid.me))
+        sampler_seed)
     host_rng = np.random.default_rng(flags.seed)
     avg_time = 0.0
     timed_steps = 0   # steps timed in this process (not resumed ones)
@@ -443,7 +470,8 @@ class _Pieces:
       checkpoint's whole, canonical state from this rank's and back
       (``saved_like`` gives the checkpoint's shapes);
     - ``collective``: every rank takes part in the evaluations and the
-      saves (the tables are sharded); else rank 0 runs them alone.
+      saves (the tables are sharded, or split on their columns); else
+      rank 0 runs them alone.
     """
 
     features: object
@@ -559,3 +587,49 @@ def _sharded_pieces(flags, graph, config, optimizer, grid, train_adj_np,
         to_local=lambda tree: local_state(tree, grid, layout),
         saved_like=saved_like, collective=True, val_multiple=D,
         capacity_factor=cap_factor)
+
+
+def _tensor_pieces(flags, graph, config, optimizer, grid, train_adj_np,
+                   full_adj_np, labels_table_dev, device, say):
+    """--n_model_shards M (x --data_shards D): each rank holds its model
+    shard's column blocks of the feature and identity tables and the
+    matching rows of layer 0's contracting weights, the rest whole
+    (``parallel/tensor.py``); each step's batch splits over the data
+    slices, and every rank evaluates the whole val batch or sweep, as
+    the JAX package's GSPMD sweep does."""
+    B, dummy = flags.batch_size, graph.num_nodes
+    shard = ModelShard.of(config.sage, grid)
+    lo, hi = shard.feat_block
+    say(f"n_model_shards={grid.model_size} data_shards={grid.data_size}: "
+        f"feature columns {lo}..{hi - 1} of {config.sage.feature_dim} on "
+        f"rank 0")
+    features = place_column_block(graph, flags.feature_dtype, shard, device)
+    full_adj = torch.from_numpy(full_adj_np).to(device)
+    params, saved_like = model_shard_params(init_supervised_params(
+        torch.Generator().manual_seed(flags.seed), config), shard, device)
+    eval_step = make_eval_step(config, shard)
+    eval_sweep = make_eval_sweep(config, B, dummy, shard)
+
+    def eval_batch(params, vb, generator):
+        loss, preds = eval_step(
+            params, features, full_adj, torch.from_numpy(vb.ids).to(device),
+            torch.from_numpy(vb.labels).to(device),
+            torch.from_numpy(vb.mask).to(device), generator)
+        return float(loss), preds.cpu().numpy(), 0
+
+    def sweep(params, nodes, generator):
+        loss, preds, _, _ = _run_eval_sweep(
+            eval_sweep, params, features, full_adj, nodes, graph.labels, B,
+            dummy, generator)
+        return loss, preds, 0
+
+    return _Pieces(
+        features=features,
+        train_adj=torch.from_numpy(train_adj_np).to(device), params=params,
+        run_chunk=make_tp_supervised_chunk_runner(config, optimizer, grid,
+                                                  B),
+        eval_batch=eval_batch, sweep=sweep,
+        rows=lambda t: host_array(t, grid.data_group),
+        to_saved=lambda params, opt: model_whole_state(params, opt, shard),
+        to_local=lambda tree: model_local_state(tree, shard),
+        saved_like=saved_like, collective=True)

@@ -98,7 +98,6 @@ from graphsage_tpu_torch.train.config import (
     TrainFlags,
     build_layer_infos,
     feature_table,
-    require_ported,
 )
 from graphsage_tpu_torch.train.sharding import (
     DroppedRequests,
@@ -282,8 +281,6 @@ def train(flags: TrainFlags, graph=None, device="cuda") -> dict:
     node2vec does."""
     device = resolve_device(device)
     n2v_model = flags.model == "n2v"
-    if not n2v_model:
-        require_ported(flags)
     sharded = not n2v_model and flags.graph_shards > 1
     grid = (make_grid(flags.graph_shards, flags.data_shards)
             if not n2v_model and (sharded or flags.data_shards > 1)

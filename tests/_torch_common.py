@@ -17,11 +17,21 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def port_params(jax_params) -> dict:
-    """JAX pytree -> the port's flat dict, through the weight bridge."""
-    from graphsage_tpu_torch.params import params_from_jax
+def port_params(jax_params, model_shard=None) -> dict:
+    """JAX pytree -> the port's flat dict, through the weight bridge;
+    with ``model_shard`` = (sage_config, n_model, index), rank index's
+    shard of the logical params (``params_to_model_shard``), as a
+    tensor-parallel rank holds them. ``jax.device_get`` of a tree that
+    GSPMD placed split gives its logical, whole arrays."""
+    from graphsage_tpu_torch.params import (
+        params_from_jax,
+        params_to_model_shard,
+    )
 
-    return params_from_jax(jax.device_get(jax_params))
+    flat = params_from_jax(jax.device_get(jax_params))
+    if model_shard is None:
+        return flat
+    return params_to_model_shard(flat, *model_shard)
 
 
 def run_rank_checks(jobs: dict, n_ranks: int, tmp_dir) -> list:

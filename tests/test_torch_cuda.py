@@ -129,6 +129,36 @@ def test_dropout_kernel_matches_plain(cuda, dtype, B, S, F):
     assert torch.equal(got == 0, want == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,n_blocks", [(602, 2), (602, 4), (13, 2),
+                                        (10, 3)])
+def test_dropout_kernel_on_column_blocks(cuda, dtype, F, n_blocks):
+    """K2 on a rank's column block under tensor parallelism
+    (``parallel/tensor.py::column_blocks``: 304 + 298 columns of 602 at
+    M = 2, a last block 5 or 2 wide): the plain version's mask at the
+    block's columns (``col_base``, ``row_width``), which is the whole
+    rows' mask there, bit for bit; the means within f32 rounding."""
+    from graphsage_tpu_torch.parallel.tensor import column_blocks
+
+    gen = torch.Generator(device=cuda).manual_seed(F * 10 + n_blocks)
+    table = (torch.rand(51, F, generator=gen, device=cuda) + 0.5).to(dtype)
+    idx = torch.randint(0, 51, (40, 9), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    flat = idx.reshape(-1, 1).contiguous()
+    key = dict(seed=2**63 + 12345, offset=(7, 0x5EED))
+    whole = fused_gather_mean(table, flat, 0.5, **key) == 0
+    for lo, hi in column_blocks(F, n_blocks):
+        block = table[:, lo:hi].contiguous()
+        blk = dict(col_base=lo, row_width=F)
+        out = fused_gather_mean(block, idx, 0.5, **key, **blk)
+        torch.testing.assert_close(
+            out, gather_mean_dropout_reference(block, idx, 0.5, key["seed"],
+                                               key["offset"], lo, F),
+            rtol=1e-5, atol=1e-6)
+        got = fused_gather_mean(block, flat, 0.5, **key, **blk) == 0
+        assert torch.equal(got, whole[:, lo:hi])
+
+
 def test_dropout_kernel_statistics(cuda):
     """Zero fraction, exact 1/keep scale, determinism, a new mask per
     step, and different masks for identical rows far apart."""

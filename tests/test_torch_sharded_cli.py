@@ -273,21 +273,26 @@ def test_validate_batch_size_below_one_samples_one_row(prefix, tmp_path):
     ("predict", ["--n_model_shards", "2", "--graph_shards", "2"], "A.9c"),
 ])
 def test_still_refused(prefix, tmp_path, monkeypatch, command, argv, match):
-    """``--n_model_shards`` is still refused (A.9c). The sharded
-    unsupervised commands no longer are: ``unsupervised --graph_shards
-    2`` starts its two ranks (recorded here instead of started; the runs
-    are tests/test_torch_unsup_sharded_cli.py's), and ``embed
-    --data_shards 2`` runs on one device, as the JAX package's, and so
-    asks for its checkpoint."""
+    """What these commands once refused now starts. The sharded
+    unsupervised commands: ``unsupervised --graph_shards 2`` starts its
+    two ranks (recorded here instead of started; the runs are
+    tests/test_torch_unsup_sharded_cli.py's), and ``embed --data_shards
+    2`` runs on one device, as the JAX package's, and so asks for its
+    checkpoint. The cases that asserted the refusal of
+    ``--n_model_shards`` (ROADMAP.md A.9c, now ported): ``supervised
+    --n_model_shards 2`` starts its two model ranks (the runs are
+    tests/test_torch_tensor_parallel_cli.py's), and ``predict`` ignores
+    the flag, as the JAX package's, and starts its two graph ranks."""
     started = []
     monkeypatch.setattr(launch, "spawn", lambda fn, args, devices, *a, **k:
                         started.append((fn, len(devices))))
     argv = [command, "--train_prefix", prefix, "--checkpoint_dir",
             str(tmp_path / "ck"), "--device", "cpu"] + argv
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            cli.main(argv)
-    elif command == "unsupervised":
+    if match == "A.9c":
+        assert cli.main(argv) == 0
+        assert started == [(getattr(launch, f"{command}_rank"), 2)]
+        return
+    if command == "unsupervised":
         assert cli.main(argv + ["--no-random_context"]) == 0
         assert started == [(launch.unsupervised_rank, 2)]
     else:

@@ -387,8 +387,12 @@ def test_unsupervised_cli_defaults_match_jax():
       "--process_id", "0"], None),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
-    """Every subcommand refuses ``--n_model_shards`` (A.9c), naming its
-    ROADMAP.md item, and runs the other multi-device options: shards
+    """Every subcommand takes ``--n_model_shards`` (the case that
+    asserted its refusal, ROADMAP.md A.9c, now ported): ``supervised``
+    starts its two model ranks, and ``unsupervised``, ``embed`` and
+    ``predict`` ignore the flag, as the JAX package's do, and run on
+    one device (their rank programs recorded here instead of run). Each
+    runs the other multi-device options: shards
     start their ranks (recorded here instead of started: the sharded
     runs are tests/test_torch_sharded_cli.py's and
     tests/test_torch_unsup_sharded_cli.py's), ``predict`` and ``embed``
@@ -404,6 +408,12 @@ def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
     g = make_synthetic_graph(num_nodes=40, num_classes=3, feat_dim=8, seed=1)
     prefix = str(tmp_path / "toy" / "toy")
     write_dataset(g, prefix)
+    ran = []
+    if match == "A.9c":
+        for name in ("unsupervised", "embed", "supervised", "predict"):
+            monkeypatch.setattr(launch, f"{name}_rank",
+                                lambda device, *a, _name=name:
+                                    ran.append(_name))
     rank_fns = {"unsupervised": launch.unsupervised_rank,
                 "embed": launch.embed_rank,
                 "supervised": launch.supervised_rank,
@@ -413,9 +423,12 @@ def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
                 str(tmp_path / "none"), "--device", "cpu"] + argv
         if command == "unsupervised":
             args.append("--no-random_context")
-        if match is not None:
-            with pytest.raises(NotImplementedError, match=match):
-                cli.main(args)
+        if match == "A.9c":
+            assert cli.main(args) == 0
+            if command == "supervised":
+                assert started.pop() == (rank_fn, 2)
+            else:
+                assert ran.pop() == command
         elif "--num_processes" in argv:
             with pytest.raises(ValueError, match="--num_processes 2"):
                 cli.main(args)
@@ -425,7 +438,7 @@ def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
         else:
             assert cli.main(args) == 0
             assert started.pop() == (rank_fn, 2)
-    assert started == []
+    assert started == [] and ran == []
 
 
 def test_random_context_needs_walks(tmp_path):
