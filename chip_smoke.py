@@ -15,8 +15,9 @@ Phases; any failure exits non-zero without the final ok line:
   2. build the CUDA kernels from the checkout's sources (one nvcc per
      source, all started together); cuobjdump's instruction counts,
      where the toolkit has it: K5/K6's instances at the hop must issue
-     tensor-core instructions (HGMMA), K7's bulk copies (UBLKCP) and
-     HMMA
+     tensor-core instructions (HGMMA); K7a bulk copies (UBLKCP); K7b and
+     K7c HGMMA and TMA loads (UTMALDG, not in K7b's stage route), K7c no
+     bulk copy
   3. each kernel against its plain PyTorch version on the card, at the
      hop's shapes (f32 and bf16) and ragged ones; kernel, plain and
      library-route times beside the kernel's bound. K1 is the
@@ -36,10 +37,11 @@ Phases; any failure exits non-zero without the final ok line:
      beside them as an informational floor. K7, the gather-mean probe's
      kernels (gather_probe.cu: K7a's bulk-copy ring with per-sample,
      per-row and per-tile waits, its hot and compacted modes, K7b's
-     counts @ bf16 hot block, K7c's 2xTF32 counts @ hot rows with the
-     cold ring), at the probe's shape (N 100k, F 640, B 1024, S 25),
-     zipf and uniform ids, K 1024 and 4096, timed beside K1,
-     index_select + mean and embedding_bag. K1 and K3 also at the
+     counts @ bf16 hot block and K7c's 2xTF32 counts @ hot rows plus the
+     cold rows, both wgmma on TMA rings), at the probe's shape (N 100k,
+     F 640, B 1024, S 25), zipf and uniform ids, K 1024 and 4096, timed
+     beside K1, index_select + mean, embedding_bag and the first port's
+     times (K7c at each of its tiles). K1 and K3 also at the
      unsupervised model's hop, idx [10440, 25] from the sampler over
      the three towers' ids (2 x 512 pairs' ends and 20 negatives), K2
      there too (rate 0.5, masks identical)
@@ -225,6 +227,10 @@ POOL_HIDDEN = 512                      # nn/aggregators.py, "small"
 # values in f32, in other orders; K7c's hot rows in 2xTF32 (~2^-22
 # relative); K7b and its plain version multiply the same bf16 block
 PROBE_TOL = 1e-5
+# the first port's K7b and K7c at the probe's shape, ms (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md §6): K7c's kernel beside its torch compaction
+FIRST_PORT_MS = {("K7b", 1024): "0.0446", ("K7b", 4096): "0.1359",
+          ("K7c", 1024): "0.1616 + 0.0594", ("K7c", 4096): "0.4898 + 0.0594"}
 DROPOUT = 0.5             # agg_sweep.py's "mean_drop", "meanpool_fused_drop"
 LEARNING_RATE = 1e-2
 EDGES_PER_STEP = BATCH * (FANOUTS[1] + FANOUTS[1] * FANOUTS[0])  # 133120
@@ -1348,12 +1354,12 @@ def check_probe(dev, card_line: str) -> list:
                 hot_ref = ops.hotcount_reference(idx, t16[:K])
                 hold("K7b", hot, hot_ref)
                 hold("hc", cold + hot, cold_ref + hot_ref)
-                stable = ops.cold_first_stable(idx, K, N)
-                hold("K7c", ops.probe_hotmx(table, idx, *stable, K),
-                     ops.hotmx_reference(table, idx, *stable, K))
+                ref = ops.hotmx_reference(table, idx, K)
+                for tile_b in ops.MX_TILES:
+                    hold("K7c", ops.probe_hotmx(table, idx, K, tile_b), ref)
     torch.cuda.synchronize()
     log("K7 vs plain, max abs err over zipf and uniform ids, K 1024 and "
-        "4096 (f32 and bf16 tables for the waits): "
+        "4096 (f32 and bf16 tables for the waits, K7c at each tile): "
         + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
         + f" (limit {PROBE_TOL})")
     for key, e in err.items():
@@ -1407,11 +1413,12 @@ def check_probe(dev, card_line: str) -> list:
         record("K7a.hot", timed(
             lambda idx, k=K: ops.probe_gather_hot(table, idx, k)), plain,
             library, "hot", K)
-        # the compactions run in torch before the kernels, as the JAX
-        # probe runs them in XLA: timed on their own lines
+        # the top_k compaction runs in torch before K7a compacted, as the
+        # JAX probe runs it in XLA: timed on its own line; K7c needs none
+        # (the first port's K7c needed the stable one)
         log(f"id compactions, K {K}: top_k (coldsw, hc) "
             f"{timed(lambda idx, k=K: ops.cold_first_topk(idx, k, N)):.4f}"
-            f" ms, stable (hotmx) "
+            f" ms, stable (the first port's hotmx) "
             f"{timed(lambda idx, k=K: ops.cold_first_stable(idx, k, N)):.4f}"
             " ms a call, in no kernel's time below")
         preps = [ops.cold_first_topk(idx, K, N) for idx in sets]
@@ -1430,12 +1437,25 @@ def check_probe(dev, card_line: str) -> list:
                timed(lambda idx: ops.hotcount_reference(idx, hot)),
                timed(lambda b, k=K: fnn.embedding_bag(
                    b[0], table[:k], per_sample_weights=b[1], mode="sum"),
-                   hot_bags), "hotcount", K)
-        stables = [(idx, *ops.cold_first_stable(idx, K, N)) for idx in sets]
-        record("K7c", timed(lambda p, k=K: ops.probe_hotmx(table, *p, k),
-                            stables),
-               timed(lambda p, k=K: ops.hotmx_reference(table, *p, k),
-                     stables), library, "hotmx", K)
+                   hot_bags), "hotcount", K,
+                   f" (first port: {FIRST_PORT_MS['K7b', K]})")
+        tiles = {tb: timed(lambda idx, k=K, tb=tb: ops.probe_hotmx(
+            table, idx, k, tb)) for tb in ops.MX_TILES}
+        log(f"K7c at each tile, K {K}: " + ", ".join(
+            f"{tb} rows {ms:.4f} ms" for tb, ms in tiles.items()))
+        record("K7c", tiles[ops.MX_TILE_B],
+               timed(lambda idx, k=K: ops.hotmx_reference(table, idx, k)),
+               library, "hotmx", K,
+               f" (the whole function; first port: "
+               f"{FIRST_PORT_MS['K7c', K]})")
+    # at K 0 nothing is hot: K7b's time is its fixed part (ids, sort,
+    # epilogue), K7c's its cold half over every sample, a gather-mean
+    cold_only = {tb: timed(lambda idx, tb=tb: ops.probe_hotmx(
+        table, idx, 0, tb)) for tb in ops.MX_TILES}
+    log("at K 0: K7b "
+        f"{timed(lambda idx: ops.probe_hotcount(idx, t16[:0])):.4f} ms, "
+        "K7c " + ", ".join(f"{tb} rows {ms:.4f}"
+                           for tb, ms in cold_only.items()) + " ms")
     return [entries[key] for key, _, _ in K7_INSTANCES]
 
 
@@ -1500,8 +1520,9 @@ def sass_summary() -> None:
     instance's tensor-core (HGMMA, HMMA) and f32 FMA instructions. The
     instances the hop runs (f32 table, mean: K5 without dropout, K6 with
     dropout and the residual) must issue HGMMA. Each K7 instance's bulk
-    copies (UBLKCP) and HMMA: K7a and K7c must issue bulk copies, K7b and
-    K7c HMMA."""
+    copies (UBLKCP), TMA loads (UTMALDG) and tensor-core instructions:
+    K7a must issue bulk copies, K7b and K7c HGMMA, K7c and K7b's TMA
+    instance TMA loads, K7c no bulk copy."""
     for name, counts in sass_ops("libgather_mean.so").items():
         if "gather_mean_dropout_kernelIfLi2E" in name:
             top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
@@ -1531,8 +1552,10 @@ def sass_summary() -> None:
             seen.add(tag)
     if seen:
         check(seen == set(hop.values()), f"hop instances missing: {seen}")
-    # K7: every instance's bulk copies (UBLKCP) and tensor-core (HMMA)
-    # instructions; K7a and K7c must issue bulk copies, K7b and K7c HMMA
+    # K7: every instance's bulk copies (UBLKCP), TMA loads (UTMALDG) and
+    # tensor-core instructions (HGMMA): K7a must issue bulk copies; K7b
+    # and K7c HGMMA and, where a tensor map feeds them (K7c, K7b<true>),
+    # TMA loads; K7c no bulk copy
     for name, counts in sass_ops("libgather_probe.so").items():
         kernel = next((k for k in ("probe_gather_kernel",
                                    "probe_hotcount_kernel",
@@ -1541,15 +1564,22 @@ def sass_summary() -> None:
             continue
         label = kernel + name.split(kernel, 1)[1].split("EEv")[0]
         bulk = sum(n for op, n in counts.items() if op.startswith("UBLKCP"))
+        tma = sum(n for op, n in counts.items() if op.startswith("UTMALDG"))
         mma = {op: n for op, n in counts.items()
-               if op.split(".")[0] == "HMMA"}
+               if op.split(".")[0] in ("HGMMA", "HMMA")}
         log(f"SASS of {label}: {sum(counts.values())} instructions; bulk "
-            f"copies {bulk}; tensor-core {sum(mma.values())} "
+            f"copies {bulk}; TMA loads {tma}; tensor-core "
+            f"{sum(mma.values())} "
             f"({', '.join(f'{k} {v}' for k, v in sorted(mma.items()))})")
-        if kernel != "probe_hotcount_kernel":
+        hgmma = sum(n for op, n in mma.items() if op.startswith("HGMMA"))
+        if kernel == "probe_gather_kernel":
             check(bulk > 0, f"{label} issues no bulk copy (UBLKCP)")
-        if kernel != "probe_gather_kernel":
-            check(sum(mma.values()) > 0, f"{label} issues no HMMA")
+            continue
+        check(hgmma > 0, f"{label} issues no HGMMA")
+        if kernel == "probe_hotmx_kernel" or "ILb1E" in name:
+            check(tma > 0, f"{label} issues no TMA load (UTMALDG)")
+        if kernel == "probe_hotmx_kernel":
+            check(bulk == 0, f"{label} issues bulk copies (UBLKCP)")
 
 
 # ------------------------------------------------------------ phase 4

@@ -16,7 +16,7 @@ Variants (ops/gather_probe.py holds the kernels):
   plain_t<r>b<n>     — plain with tiles of r rows and n ring slots
   hot<K>             — K7a: ids < K read from the table (L2 evict-last)
   hotmx<K>[t<r>]     — K7c: counts @ hot rows (2xTF32 tensor cores) + the
-                       compacted cold rows; tiles of r rows (16)
+                       cold rows, from the raw ids; tiles of r rows (80)
   coldsw<K>          — K7a: the compacted cold rows only (timing only)
   hotcount<K>        — K7b: counts @ the bf16 hot block only (timing only)
   hc<K>              — coldsw + hotcount, summed outside
@@ -29,9 +29,9 @@ with the calls queued behind a spin kernel that outlasts their queueing
 plain versions) by the host clock. Each line gives ms per gather,
 Mrow/s (B x S sampled rows a gather) and, on a card, the share of the
 least time the card needs for the same work (``bound_ms``). The kinds
-that compact their ids (hotmx, coldsw, hc) are timed with the
-compaction, as the JAX probe times them. Exits non-zero if any variant
-failed.
+that compact their ids (coldsw, hc) are timed with the compaction, as
+the JAX probe times them; hotmx needs none. Exits non-zero if any
+variant failed.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ import torch
 from graphsage_tpu_torch.device import resolve_device
 from graphsage_tpu_torch.ops.gather import fused_gather_mean
 from graphsage_tpu_torch.ops.gather_probe import (
-    MMA_ROWS,
-    cold_first_stable,
+    MX_TILE_B,
     cold_first_topk,
     probe_coldsw,
     probe_gather,
@@ -97,10 +96,14 @@ def xla_gather_mean(features: torch.Tensor, idx: torch.Tensor):
 
 
 def build_call(kind: str, dt: torch.dtype, n_buf: int = 2,
-               tile_b: int = TILE_B, K: int = 1024):
+               tile_b: int | None = None, K: int = 1024):
     """fn(idx, table[, hot block]) of one probe kind on a table of ``dt``,
     as the JAX ``build_call``; the hot kinds read their hot rows from the
-    table itself, and hotcount/hc take the bf16 hot block."""
+    table itself, and hotcount/hc take the bf16 hot block. tile_b
+    defaults to the JAX probe's 8 rows, hotmx's to ``MX_TILE_B``."""
+    if tile_b is None:
+        tile_b = MX_TILE_B if kind == "hotmx" else TILE_B
+
     def table_of(table):
         if table.dtype != dt:
             raise TypeError(f"{kind} built for {dt}, given {table.dtype}")
@@ -114,12 +117,8 @@ def build_call(kind: str, dt: torch.dtype, n_buf: int = 2,
         return lambda idx, table: probe_gather_hot(table_of(table), idx, K,
                                                    tile_b, n_buf)
     if kind == "hotmx":
-        def hotmx(idx, table):
-            table = table_of(table)
-            idx_dma, nb = cold_first_stable(idx, K, table.shape[0] - 1)
-            return probe_hotmx(table, idx, idx_dma, nb, K, tile_b, n_buf)
-
-        return hotmx
+        return lambda idx, table: probe_hotmx(table_of(table), idx, K,
+                                              tile_b)
     if kind in ("coldsw", "hc"):
         def cold(idx, table):
             table = table_of(table)
@@ -257,7 +256,7 @@ def parse_variant(v: str, tables: dict, hot_bf16: torch.Tensor):
     if v.startswith("hotmx"):
         parts = v[5:].split("t")
         K = int(parts[0])
-        tb = int(parts[1]) if len(parts) > 1 else MMA_ROWS
+        tb = int(parts[1]) if len(parts) > 1 else MX_TILE_B
         return (build_call("hotmx", dt, K=K, tile_b=tb), on_table, False,
                 "hotmx", K)
     if v.startswith("hot"):

@@ -12,29 +12,36 @@ JAX package's ``benchmarks/gather_probe.py``.
 - ``probe_coldsw`` (K7a, compacted): the sum of a row's first 4 x nb
   compacted cold ids over S (``_coldsw_kernel``).
 - ``probe_hotcount`` (K7b): counts of the ids below K @ a bf16 hot block,
-  over S, on the tensor cores (``_hotcount_kernel``).
-- ``probe_hotmx`` (K7c): counts @ the table's first K rows in 2xTF32 on
-  the tensor cores plus the compacted cold rows, over S
-  (``_hotmx_kernel``).
+  over S, on the tensor cores (``_hotcount_kernel``): tiles of 64 rows x
+  64 columns, each row's hot ids sorted once and written into a window
+  of counts by the thread that owns the row, the hot block staged by TMA
+  into a ring and read by ``wgmma`` as it landed.
+- ``probe_hotmx`` (K7c): the whole mean, counts @ the table's first K
+  rows in 2xTF32 on the tensor cores (``wgmma``, the hot rows by TMA)
+  plus the row's cold samples (id >= K) summed by other warps straight
+  from the table, over S (``_hotmx_kernel`` with the stable cold-first
+  compaction the JAX probe runs before it: the kernel reads the raw ids
+  and needs no compaction).
 
-The id compactions that the JAX probe runs in XLA outside its kernels
-(``cold_first_stable`` for hotmx, ``cold_first_topk`` for coldsw/hc) are
-plain torch here too, and the caller passes their result to the kernel.
+The top_k compaction that the JAX probe runs in XLA before coldsw/hc
+(``cold_first_topk``) is plain torch here too, and the caller passes its
+result to the kernel; ``cold_first_stable`` restates the one before the
+JAX hotmx kernel.
 
 The wrappers pick each launch's column slice and size its shared memory
-(``ring_bytes``, ``hotmx_bytes``); the launch refuses a size that is not
-``csrc/gather_probe.cu``'s layout, so the two cannot drift apart
-unnoticed.
+(``ring_bytes``, ``hotcount_bytes``, ``hotmx_bytes``); the launch refuses
+a size that is not ``csrc/gather_probe.cu``'s layout, so the two cannot
+drift apart unnoticed.
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/gather_probe.cu`` (it never falls back) and counts the launch; on
 a CPU tensor it runs the plain version below, which the tests and
 ``chip_smoke.py`` hold the kernels against. Shapes the kernels do not
 take (a row pitch that is not a multiple of 16 bytes, a ring that fits
-no column slice, B not a multiple of 128 for the counts kernel, a tile
-that is not a multiple of the MMA's 16 rows) raise on either device. No
-path of the package calls these: their entry point is
-``graphsage_tpu_torch.benchmarks.gather_probe``.
+no column slice, B not a multiple of 128 for the counts kernel, a hotmx
+tile other than 32, 64, 80 or 128 rows, ids that overflow shared memory)
+raise on either device. No path of the package calls these:
+their entry point is ``graphsage_tpu_torch.benchmarks.gather_probe``.
 """
 
 from __future__ import annotations
@@ -58,11 +65,22 @@ _WAIT_CODE = {"sample": 0, "row": 1, "tile": 2}
 _MODE_CODE = {"plain": 0, "hot": 1, "compacted": 2}
 TILE_B = 8                  # the JAX probe's rows a tile
 SMEM_BYTES = 232_448        # a block's shared memory on the H100 (opt-in)
-HOT_TILE = 128              # K7b's rows a block, the JAX HOT_TILE
-MMA_ROWS = 16               # K7c's tile is a multiple of the MMA's M
+HOT_TILE = 128              # K7b's B multiple, the JAX HOT_TILE
 MAX_COUNT = 256             # counts stay exact in bf16 up to S = 256
-WARPS = 8                   # csrc/gather_probe.cu: 256 threads a block
-MX_KC = 256                 # K7c's hot ids per warp and round
+# csrc/gather_probe.cu's K7b/K7c layout: a ring of hot stages, a window
+# of counts
+HOT_STAGES = 4
+TILE_COLS = 64              # output columns a block
+SWIZZLE_ROW = 128           # bytes a hot stage row (128-byte swizzle)
+COUNT_ROWS = 64             # K7b's rows a block
+COUNT_KC = 64               # K7b's hot ids a stage
+COUNT_WINDOW = 512          # K7b's ids a count window (bf16)
+MX_KC = 32                  # K7c's hot ids a stage
+MX_WINDOW = 128             # K7c's ids a count window (f32)
+MX_TILES = (32, 64, 80, 128)   # K7c's rows a block (wgmma's N)
+# K7c's default: at the probe's B 1024 and F 640 its 130 blocks fill
+# the H100's 132 SMs (the fastest tile there, chip_smoke.py's K7c line)
+MX_TILE_B = 80
 
 
 # ------------------------------------------------- the id compactions
@@ -149,13 +167,15 @@ def hotcount_reference(idx: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
 
 
 def hotmx_reference(features: torch.Tensor, idx: torch.Tensor,
-                    idx_dma: torch.Tensor, nb: torch.Tensor,
                     K: int) -> torch.Tensor:
-    """Plain version of K7c: (1/S) * (C @ features[:K] + the live slots
-    of idx_dma, the stable cold-first compaction), in f32."""
-    S = idx.shape[1]
+    """Plain version of K7c: (1/S) * (C @ features[:K] + the sum of the
+    row's cold samples, id >= K), in f32."""
+    B, S = idx.shape
     hot = hot_counts(idx, K) @ features[:K].float()
-    return (hot + coldsw_reference(features, idx_dma, nb, 1)) * (1.0 / S)
+    rows = features.index_select(0, idx.reshape(-1)).float()
+    rows = rows.view(B, S, features.shape[1])
+    cold = torch.where((idx >= K)[:, :, None], rows, torch.zeros_like(rows))
+    return (hot + cold.sum(dim=1)) * (1.0 / S)
 
 
 # ------------------------------------------------------ shapes, checks
@@ -176,31 +196,32 @@ def ring_bytes(wait: str, n_buf: int, tile_b: int, W: int,
     return -(-n // 16) * 16
 
 
-def mx_units(tile_b: int, FC: int) -> int:
-    """K7c's units of 16 rows x 8 columns in a tile's slice."""
-    return (tile_b // MMA_ROWS) * (FC // 8)
+def hotcount_bytes(S: int) -> int:
+    """K7b's shared memory: the ring of hot stages, the counts' window,
+    the mbarriers, each row's runs and hot ids, the tile's ids staged
+    and sorted, and 1024 bytes of slack for the ring's alignment
+    (``csrc/gather_probe.cu::hotcount_bytes``)."""
+    return (HOT_STAGES * COUNT_KC * SWIZZLE_ROW + COUNT_ROWS * COUNT_WINDOW * 2
+            + 16 * HOT_STAGES + 8 * COUNT_ROWS + 8 * COUNT_ROWS * S + 1024)
 
 
-def hotmx_bytes(n_buf: int, tile_b: int, W: int, FC: int, S: int) -> int:
-    """K7c's shared memory: K7a's row-wait ring, a round's counts, the
-    warps' partial sums and the tile's ids (the layout of
-    ``csrc/gather_probe.cu::probe_hotmx_kernel``)."""
-    units = mx_units(tile_b, FC)
-    parts = 1 if units >= WARPS else WARPS // units
-    return (ring_bytes("row", n_buf, tile_b, W, 4 * FC)
-            + 4 * tile_b * (parts * MX_KC + 4) + 4 * parts * tile_b * FC
-            + 4 * tile_b * S)
+def hotmx_bytes(tile_b: int, S: int) -> int:
+    """K7c's shared memory at tile_b rows a block: the ring of hot stages
+    (two 128-byte boxes a stage row), the counts' window, the cold sums
+    and the flushed f32 sums, the mbarriers, each row's runs, hot and
+    cold ids, the tile's ids staged and sorted, and 1024 bytes of slack
+    (``csrc/gather_probe.cu::hotmx_bytes``). K does not enter it."""
+    return (HOT_STAGES * (TILE_COLS * 4 // SWIZZLE_ROW) * MX_KC * SWIZZLE_ROW
+            + tile_b * MX_WINDOW * 4 + 2 * tile_b * TILE_COLS * 4
+            + 16 * HOT_STAGES + 12 * tile_b + 8 * tile_b * S + 1024)
 
 
-def column_slice(F: int, elem: int, smem, multiple: int = 1,
-                 max_units=None) -> int:
+def column_slice(F: int, elem: int, smem) -> int:
     """FC: the widest divisor of F whose slice is a multiple of 16 bytes
-    (and of ``multiple`` columns) and whose shared memory ``smem(FC)``
-    fits a block; ValueError where none does."""
+    and whose shared memory ``smem(FC)`` fits a block; ValueError where
+    none does."""
     for FC in range(F, 0, -1):
-        if F % FC or (FC * elem) % 16 or FC % multiple:
-            continue
-        if max_units is not None and max_units(FC) > WARPS:
+        if F % FC or (FC * elem) % 16:
             continue
         if smem(FC) <= SMEM_BYTES:
             return FC
@@ -216,14 +237,6 @@ def _ring_slice(F: int, elem: int, wait: str, n_buf: int, tile_b: int,
     """K7a's column slice (cached: the wrappers ask at every call)."""
     return column_slice(F, elem, lambda fc: ring_bytes(
         wait, n_buf, tile_b, W, fc * elem))
-
-
-@functools.cache
-def _hotmx_slice(F: int, n_buf: int, tile_b: int, S: int) -> int:
-    """K7c's column slice: a multiple of 8 f32 columns, at most 8 units."""
-    return column_slice(
-        F, 4, lambda fc: hotmx_bytes(n_buf, tile_b, sample_width(S), fc, S),
-        multiple=8, max_units=lambda fc: mx_units(tile_b, fc))
 
 
 def _check_table(features: torch.Tensor) -> None:
@@ -279,9 +292,10 @@ def _check_ring(tile_b: int, n_buf: int) -> None:
 
 _GATHER_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p])
-_HOTCOUNT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_HOTMX_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
+_HOTCOUNT_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong, ctypes.c_void_p])
+_HOTMX_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 @functools.cache
@@ -299,7 +313,8 @@ def _stream() -> int:
 def _check_aligned(*tensors: torch.Tensor) -> None:
     for x in tensors:
         if x.data_ptr() % 16:
-            raise ValueError("bulk copies need 16-byte aligned tensors")
+            raise ValueError("bulk copies and TMA need 16-byte aligned "
+                             "tensors")
 
 
 def _launch_ring(features, idx, nb, W, S, FC, tile_b, n_buf, K, wait, mode):
@@ -422,7 +437,7 @@ def probe_hotcount(idx: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     fn = _fn("graphsage_probe_hotcount", tuple(_HOTCOUNT_ARGS))
     with torch.cuda.device(hot.device):
         err = fn(idx.data_ptr(), hot.data_ptr(), out.data_ptr(), B, S, F, K,
-                 _stream())
+                 hotcount_bytes(S), _stream())
     _raise_on_error(err, SOURCE)
     probe_hotcount.launches += 1
     return out
@@ -431,42 +446,38 @@ def probe_hotcount(idx: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
 probe_hotcount.launches = 0
 
 
-def probe_hotmx(features: torch.Tensor, idx: torch.Tensor,
-                idx_dma: torch.Tensor, nb: torch.Tensor, K: int,
-                tile_b: int = MMA_ROWS, n_buf: int = 2) -> torch.Tensor:
-    """[B, F] f32 = (1/S) x (C @ features[:K] + the row's cold samples),
-    the hot part in 2xTF32 on the tensor cores while the cold rows
-    arrive through K7a's ring (K7c; ``probe_hotmx.launches``). idx_dma
-    and nb are ``cold_first_stable(idx, K, N)``; features f32, K <= its
-    rows, tile_b a multiple of 16."""
+def probe_hotmx(features: torch.Tensor, idx: torch.Tensor, K: int,
+                tile_b: int = MX_TILE_B) -> torch.Tensor:
+    """[B, F] f32 = (1/S) x (C @ features[:K] + the row's cold samples,
+    id >= K): the hot part in 2xTF32 on the tensor cores, the cold rows
+    summed beside it, from the raw ids (K7c, the whole function;
+    ``probe_hotmx.launches``). features f32, K <= its rows, tile_b rows
+    a block, one of ``MX_TILES``."""
     _check_table(features)
     if features.dtype != torch.float32:
         raise TypeError(f"hotmx takes an f32 table, got {features.dtype}")
     _check_ids(idx, features)
-    _check_ring(tile_b, n_buf)
-    if tile_b % MMA_ROWS:
-        raise ValueError(f"tile_b must be a multiple of {MMA_ROWS} (the "
-                         f"MMA's rows), got {tile_b}")
+    if tile_b not in MX_TILES:
+        raise ValueError(f"tile_b must be one of {MX_TILES} (wgmma's N), "
+                         f"got {tile_b}")
     if not 0 <= K <= features.shape[0]:
         raise ValueError(f"K must be in [0, {features.shape[0]}], got {K}")
     B, S = idx.shape
-    SW, F = sample_width(S), features.shape[1]
-    _check_compacted(idx_dma, nb, features)
-    if idx_dma.shape != (B, SW):
-        raise ValueError(f"idx_dma must be [{B}, {SW}] for idx [{B}, {S}], "
-                         f"got {tuple(idx_dma.shape)}")
-    FC = _hotmx_slice(F, n_buf, tile_b, S)
+    smem = hotmx_bytes(tile_b, S)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"S = {S} ids of {tile_b} rows need {smem} bytes of "
+                         f"shared memory, more than a block's {SMEM_BYTES}; "
+                         f"use a smaller tile_b")
     if features.device.type == "cpu":
-        return hotmx_reference(features, idx, idx_dma, nb, K)
+        return hotmx_reference(features, idx, K)
     _check_device(features, "probe_hotmx")
+    F = features.shape[1]
     out = torch.empty((B, F), dtype=torch.float32, device=features.device)
     _check_aligned(features, out)
     fn = _fn("graphsage_probe_hotmx", tuple(_HOTMX_ARGS))
-    smem = hotmx_bytes(n_buf, tile_b, SW, FC, S)
     with torch.cuda.device(features.device):
-        err = fn(features.data_ptr(), idx.data_ptr(), idx_dma.data_ptr(),
-                 nb.data_ptr(), out.data_ptr(), features.shape[0], B, S, SW,
-                 F, FC, tile_b, n_buf, K, smem, _stream())
+        err = fn(features.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 features.shape[0], B, S, F, K, tile_b, smem, _stream())
     _raise_on_error(err, SOURCE)
     probe_hotmx.launches += 1
     return out

@@ -29,7 +29,6 @@ from graphsage_tpu_torch.ops.gather import (
 )
 from graphsage_tpu_torch.ops import gather_probe as probe_ops
 from graphsage_tpu_torch.ops.gather_probe import (
-    cold_first_stable,
     cold_first_topk,
     coldsw_reference,
     hotcount_reference,
@@ -575,7 +574,8 @@ def test_probe_coldsw_matches_plain(cuda, dtype, K, B, S, F, tile_b, n_buf):
                                    (128, 5, 100)])
 def test_probe_hotcount_matches_plain(cuda, K, B, S, F):
     """K7b against the plain counts @ the same bf16 block, F not a
-    multiple of the column tile, K past the ids."""
+    multiple of the column tile, K past the ids; F = 100 (200-byte rows)
+    takes the stage route without TMA."""
     table, idx = _probe_operands(cuda, B, S, F, 300, seed=K + S)
     hot = table[:K].to(torch.bfloat16)
     before = probe_hotcount.launches
@@ -587,21 +587,62 @@ def test_probe_hotcount_matches_plain(cuda, K, B, S, F):
 
 
 @pytest.mark.parametrize("K", [0, 16, 100, 301])
-@pytest.mark.parametrize("B,S,F,tile_b", [(1, 1, 16, 16), (13, 5, 128, 16),
+@pytest.mark.parametrize("B,S,F,tile_b", [(1, 1, 16, 32), (13, 5, 128, 64),
                                           (40, 25, 640, 32),
-                                          (1024, 25, 640, 16)])
+                                          (1024, 25, 640, 128)])
 def test_probe_hotmx_matches_plain(cuda, K, B, S, F, tile_b):
-    """K7c: 2xTF32 counts @ hot rows + the compacted cold rows, at K = 0
-    (all cold) and K = N + 1 (all hot), B not a multiple of tile_b."""
+    """K7c: 2xTF32 counts @ hot rows + the cold rows, at K = 0 (all cold)
+    and K = N + 1 (all hot), B not a multiple of tile_b."""
     table, idx = _probe_operands(cuda, B, S, F, 300, seed=K + B)
-    idx_dma, nb = cold_first_stable(idx, K, 300)
     before = probe_hotmx.launches
-    out = probe_hotmx(table, idx, idx_dma, nb, K, tile_b)
+    out = probe_hotmx(table, idx, K, tile_b)
     torch.cuda.synchronize()
     assert probe_hotmx.launches == before + 1
     assert (out[0] == 0).all()
-    torch.testing.assert_close(
-        out, hotmx_reference(table, idx, idx_dma, nb, K), **PROBE_TOL)
+    torch.testing.assert_close(out, hotmx_reference(table, idx, K),
+                               **PROBE_TOL)
+
+
+def _probe_shape(cuda, dist):
+    """The probe's table [100001, 640] f32 (zero dummy row) and one [1024,
+    25] id set of its zipf(1.05) or uniform ids."""
+    from graphsage_tpu_torch.benchmarks import gather_probe as gp
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(gp.N + 1, gp.F, generator=gen, device=cuda)
+    table[gp.N] = 0
+    ids = gp.make_ids(dist, np.random.default_rng(1), 1)[0]
+    return table, torch.from_numpy(ids).to(cuda)
+
+
+@pytest.mark.parametrize("S", [33, 100, 256])
+def test_probe_counts_kernels_on_long_rows(cuda, S):
+    """Rows of more than 32 samples take the sort by rank instead of the
+    warp's bitonic network: K7b up to its S of 256, K7c at 64 rows a
+    tile (S = 256 there needs 32)."""
+    table, idx = _probe_operands(cuda, 128, S, 640, 300, seed=S)
+    idx[3] = 7                                      # one id S times
+    hot = table[:100].to(torch.bfloat16)
+    torch.testing.assert_close(probe_hotcount(idx, hot),
+                               hotcount_reference(idx, hot), **PROBE_TOL)
+    tile_b = 64 if S <= 100 else 32
+    torch.testing.assert_close(probe_hotmx(table, idx, 100, tile_b),
+                               hotmx_reference(table, idx, 100), **PROBE_TOL)
+
+
+@pytest.mark.parametrize("dist", ["zipf", "uniform"])
+@pytest.mark.parametrize("K", [1024, 4096])
+def test_probe_counts_kernels_at_the_probe_shape(cuda, dist, K):
+    """K7b and K7c (every tile) at the probe's shape, K 1024 and 4096:
+    512 k-steps of 8 at 4096, the accumulators' flush every 16."""
+    table, idx = _probe_shape(cuda, dist)
+    hot = table[:K].to(torch.bfloat16)
+    torch.testing.assert_close(probe_hotcount(idx, hot),
+                               hotcount_reference(idx, hot), **PROBE_TOL)
+    want = hotmx_reference(table, idx, K)
+    for tile_b in probe_ops.MX_TILES:
+        torch.testing.assert_close(probe_hotmx(table, idx, K, tile_b), want,
+                                   **PROBE_TOL)
 
 
 @pytest.mark.parametrize("kind", ["sample", "row", "tile", "hot", "coldsw",
@@ -609,13 +650,12 @@ def test_probe_hotmx_matches_plain(cuda, K, B, S, F, tile_b):
 def test_probe_kernels_repeat_bit_for_bit(cuda, kind):
     table, idx = _probe_operands(cuda, 256, 25, 640, 3000, seed=7)
     idx_dma, nb, _ = cold_first_topk(idx, 512, 3000)
-    stable = cold_first_stable(idx, 512, 3000)
     hot = table[:512].to(torch.bfloat16)
     run = {
         "hot": lambda: probe_gather_hot(table, idx, 512),
         "coldsw": lambda: probe_coldsw(table, idx_dma, nb, 25),
         "hotcount": lambda: probe_hotcount(idx, hot),
-        "hotmx": lambda: probe_hotmx(table, idx, *stable, 512),
+        "hotmx": lambda: probe_hotmx(table, idx, 512),
     }.get(kind, lambda: probe_gather(table, idx, kind))
     assert torch.equal(run(), run())
 
@@ -629,7 +669,7 @@ idx = torch.full((128, 3), 2, dtype=torch.int32, device=dev)
 idx[5, 1] = 11            # one past the table
 kind = {kind!r}
 if kind == "hotmx":
-    gp.probe_hotmx(table, idx, *gp.cold_first_stable(idx, 4, 10), 4)
+    gp.probe_hotmx(table, idx, 4)
 elif kind == "coldsw":
     gp.probe_coldsw(table, torch.full((128, 4), 11, dtype=torch.int32,
                                       device=dev),
@@ -655,21 +695,26 @@ def test_probe_out_of_range_id_traps(cuda, kind):
     assert proc.returncode != 0 and "NO TRAP" not in proc.stdout
 
 
-@pytest.mark.parametrize("kind", ["row", "hotmx"])
+@pytest.mark.parametrize("kind", ["row", "hotmx", "hotcount"])
 def test_probe_launch_refuses_another_smem_size(cuda, monkeypatch, kind):
     """The wrapper sizes shared memory and the kernel's source lays it
     out: a size that is not the layout's is refused, not launched."""
     table, idx = _probe_operands(cuda, 128, 5, 64, 50)
-    name = "hotmx_bytes" if kind == "hotmx" else "ring_bytes"
+    name = {"hotmx": "hotmx_bytes", "hotcount": "hotcount_bytes"}.get(
+        kind, "ring_bytes")
     sized = getattr(probe_ops, name)
     monkeypatch.setattr(probe_ops, name, lambda *a: sized(*a) + 16)
-    before = dict(probe_gather.launches), probe_hotmx.launches
+    before = (dict(probe_gather.launches), probe_hotmx.launches,
+              probe_hotcount.launches)
     with pytest.raises(RuntimeError, match="not the kernel's layout"):
         if kind == "hotmx":
-            probe_hotmx(table, idx, *cold_first_stable(idx, 4, 50), 4)
+            probe_hotmx(table, idx, 4)
+        elif kind == "hotcount":
+            probe_hotcount(idx, table[:8].to(torch.bfloat16))
         else:
             probe_gather(table, idx, "row")
-    assert (dict(probe_gather.launches), probe_hotmx.launches) == before
+    assert (dict(probe_gather.launches), probe_hotmx.launches,
+            probe_hotcount.launches) == before
 
 
 # ------------------------------------------- the unsupervised slice

@@ -4,9 +4,12 @@ benchmarks/gather_probe.py, whose Pallas kernels run in interpret mode on
 the CPU at a toy size (its module constants set by monkeypatch): every
 kind's plain version on the same numpy table and ids, make_ids, the id
 compactions against a numpy restatement, why K7c's hot product takes two
-TF32 passes, and the wrappers' checks and CPU routing."""
+TF32 passes, K7b's and K7c's count build (sorted ids, a cursor, a ring of
+count stages) restated in Python, their shared-memory layouts against the
+CUDA source's, and the wrappers' checks and CPU routing."""
 
 import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 import benchmarks.gather_probe as jgp
 from graphsage_tpu_torch.benchmarks import gather_probe as tgp
+from graphsage_tpu_torch.benchmarks import probe_breakdown
 from graphsage_tpu_torch.ops import build
 from graphsage_tpu_torch.ops import gather_probe as ops
 from graphsage_tpu_torch.ops.pool import tf32_split
@@ -63,8 +67,7 @@ def _jax(kind, feats, idx):
 def _port(kind, feats, idx):
     table = t(feats)
     hb16 = table.to(torch.bfloat16)[:K]
-    tile_b = ops.MMA_ROWS if kind == "hotmx" else tgp.TILE_B
-    fn = tgp.build_call(kind, torch.float32, K=K, tile_b=tile_b)
+    fn = tgp.build_call(kind, torch.float32, K=K)
     extra = {"hotcount": (hb16,), "hc": (table, hb16)}.get(kind, (table,))
     return fn(t(idx), *extra).numpy()
 
@@ -165,20 +168,172 @@ def test_hot_product_needs_two_tf32_passes():
 
 def test_column_slices():
     """The ring's column slice at the probe's shape: 128 f32 or 160 bf16
-    columns (divisors of 640) at tile_b 8, S 25, n_buf 2; K7c's at its
-    16-row tile."""
+    columns (divisors of 640) at tile_b 8, S 25, n_buf 2; K7c takes 64
+    columns a block at every tile, its layout well inside a block's
+    shared memory at S 25."""
     def slice_of(elem, wait="sample", tile_b=8, n_buf=2, W=25):
         return ops.column_slice(640, elem, lambda fc: ops.ring_bytes(
             wait, n_buf, tile_b, W, fc * elem))
 
     assert slice_of(4) == 128 and slice_of(2) == 160
     assert slice_of(4, "row", 16) == 64
-    fc = ops.column_slice(
-        640, 4, lambda fc: ops.hotmx_bytes(2, 16, 28, fc, 25), multiple=8,
-        max_units=lambda fc: ops.mx_units(16, fc))
-    assert fc == 40 and ops.hotmx_bytes(2, 16, 28, fc, 25) <= ops.SMEM_BYTES
+    assert ops.TILE_COLS == 64 and 640 % ops.TILE_COLS == 0
+    assert all(ops.hotmx_bytes(tb, 25) <= ops.SMEM_BYTES
+               for tb in ops.MX_TILES)
     with pytest.raises(ValueError, match="no column slice"):
         slice_of(4, tile_b=256, n_buf=4)
+
+
+CU_SOURCE = build.CSRC / "gather_probe.cu"
+
+
+def _cu_constants():
+    """The constexpr ints of csrc/gather_probe.cu that its K7b/K7c
+    layouts are built from."""
+    text = CU_SOURCE.read_text()
+    return {name: int(value) for name, value in re.findall(
+        r"constexpr (?:int|uint32_t|size_t) (k\w+) = (\d+);", text)}
+
+
+def test_layout_constants_mirror_the_cuda_source():
+    """ops/gather_probe.py's sizes use csrc/gather_probe.cu's numbers."""
+    c = _cu_constants()
+    assert (c["kHotStages"], c["kTileCols"], c["kSwizzleRow"],
+            c["kCountRows"], c["kCountKC"], c["kCountWindow"], c["kMxKC"],
+            c["kMxWindow"], c["kCountB"]) == (
+        ops.HOT_STAGES, ops.TILE_COLS, ops.SWIZZLE_ROW, ops.COUNT_ROWS,
+        ops.COUNT_KC, ops.COUNT_WINDOW, ops.MX_KC, ops.MX_WINDOW,
+        ops.HOT_TILE)
+    assert c["kSmemLimit"] == ops.SMEM_BYTES
+    tiles = re.findall(r"tile_b != (\d+)", CU_SOURCE.read_text())
+    assert tuple(int(x) for x in tiles) == ops.MX_TILES
+
+
+@pytest.mark.parametrize("K", [1024, 4096])
+@pytest.mark.parametrize("tile_b", [32, 64, 80, 128])
+def test_layouts_at_the_probe_shape_fit(K, tile_b):
+    """At the probe's S = 25 (B 1024, F 640): K7b's layout and K7c's at
+    each tile fit the 232,448 bytes, whatever K (the hot block streams
+    through a fixed ring, the counts through a fixed window); bytes as
+    the layouts add up: 4 ring stages of hot rows (8 KB), the counts'
+    window (K7b 64 rows x 512 bf16, K7c rows x 128 f32), K7c's cold and
+    flushed sums (rows x 256 each), the mbarriers 64, each row's run,
+    hot (and K7c's cold) counts 4 bytes each, the ids 8 x rows x S, 1 KB
+    of alignment slack."""
+    ids = 8 * 25
+    assert ops.hotcount_bytes(25) == 4 * 8192 + 64 * 1024 + 64 + 64 * 8 \
+        + 64 * ids + 1024 == 112704
+    want = 4 * 8192 + tile_b * 512 + 2 * tile_b * 256 + 64 + tile_b * 12 \
+        + tile_b * ids + 1024
+    assert ops.hotmx_bytes(tile_b, 25) == want <= ops.SMEM_BYTES
+    assert ops.hotcount_bytes(ops.MAX_COUNT) <= ops.SMEM_BYTES
+    table = torch.zeros((K + 1, 640))
+    idx = torch.full((tile_b, 25), K, dtype=torch.int32)
+    out = ops.probe_hotmx(table, idx, K, tile_b=tile_b)
+    assert out.shape == (tile_b, 640) and not out.any()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_layouts_refuse_what_does_not_fit(device):
+    """S = 200 ids of 128 rows overflow K7c's shared memory: ValueError
+    before any device work; 64 rows fit."""
+    assert ops.hotmx_bytes(128, 200) > ops.SMEM_BYTES
+    assert ops.hotmx_bytes(64, 200) <= ops.SMEM_BYTES
+    table = torch.zeros((21, 16), device=device)
+    idx = torch.zeros((128, 200), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.probe_hotmx(table, idx, 4, tile_b=128)
+
+
+def _bitonic_warp(keys):
+    """The warp-wide bitonic network of csrc/gather_probe.cu::sort_rows on
+    32 lanes (lane i holds keys[i]), as its shuffles run it."""
+    key = list(keys)
+    k = 2
+    while k <= 32:
+        j = k // 2
+        while j:
+            other = [key[lane ^ j] for lane in range(32)]
+            key = [min(key[l], other[l]) if ((l & j) == 0) == ((l & k) == 0)
+                   else max(key[l], other[l]) for l in range(32)]
+            j //= 2
+        k *= 2
+    return key
+
+
+INT32_MAX = 2**31 - 1
+
+
+def _runs_of_warp(key, nh):
+    """The runs of sorted hot ids as csrc/gather_probe.cu::sort_rows
+    finds them across a warp: a run starts at a lane whose id differs
+    from the lane before; its length runs to the next start (or nh)."""
+    starts = [lane for lane in range(nh)
+              if lane == 0 or key[lane] != key[lane - 1]]
+    return [(key[lane], (starts[j + 1] if j + 1 < len(starts) else nh) - lane)
+            for j, lane in enumerate(starts)]
+
+
+def _emulate_count_build(idx: np.ndarray, K: int, kernel: str):
+    """K7b's and K7c's count build in Python, as csrc/gather_probe.cu
+    runs it: each row's hot ids sorted by the bitonic network (S <= 32;
+    the others as INT32_MAX) into runs of equal ids, then written by the
+    row's owner into a window of counts one window at a time (K7b 512
+    ids, K7c 128): the places the window held reset to 0, each run in
+    the new window written once as its length. Each window is checked to
+    hold exactly its ids' counts when the products read it. Returns the
+    [B, K] counts the windows held."""
+    B, S = idx.shape
+    width = {"K7b": 512, "K7c": 128}[kernel]
+    counts = np.zeros((B, K), np.float32)
+    for r in range(B):
+        row = idx[r]
+        keys = [int(v) if 0 <= v < K else INT32_MAX for v in row]
+        key = _bitonic_warp(keys + [INT32_MAX] * (32 - S))
+        assert key == sorted(keys + [INT32_MAX] * (32 - S))
+        runs = _runs_of_warp(key, sum(v != INT32_MAX for v in keys))
+        window = np.zeros(width, np.float32)
+        cur = first = end = old = 0     # the window holds runs[first:end]
+        for base in range(0, K, width):
+            for i in range(first, end):
+                window[runs[i][0] - old] = 0
+            first = cur
+            while cur < len(runs) and runs[cur][0] < base + width:
+                window[runs[cur][0] - base] = runs[cur][1]
+                cur += 1
+            end, old = cur, base
+            live = row[(row >= base) & (row < min(K, base + width))] - base
+            np.testing.assert_array_equal(
+                window, np.bincount(live, minlength=width))
+            counts[r, base:base + width] = window[:K - base]
+    return counts
+
+
+@pytest.mark.parametrize("kernel", ["K7b", "K7c"])
+@pytest.mark.parametrize("case", ["zipf", "duplicates", "K0", "past_K",
+                                  "ragged_K"])
+def test_cursor_count_build_equals_hot_counts(kernel, case):
+    """The count build from sorted runs (K7b's and K7c's count windows)
+    gives hot_counts exactly: repeated ids in a row, K = 0, ids past K
+    (never counted) and a K that ends inside a window."""
+    rng = np.random.default_rng(len(case))
+    KC = 512 if kernel == "K7b" else 128
+    K = {"K0": 0, "ragged_K": 3 * KC + 5}.get(case, 4 * KC)
+    S = 25
+    idx = rng.integers(0, 6 * KC, (12, S), dtype=np.int32)
+    if case == "zipf":
+        idx = (rng.zipf(1.3, (12, S)) - 1).clip(0, 6 * KC).astype(np.int32)
+    if case == "duplicates":
+        idx[:, ::2] = idx[:, :1]           # one id in half a row's samples
+        idx[1] = KC - 1                    # a whole row of one id
+        idx[2, :5] = KC                    # a run across a stage boundary
+        idx[2, 5:10] = KC - 1
+    if case == "past_K":
+        idx[3] = K + rng.integers(0, 9, S)     # no hot id at all
+        idx[4] = K - 1                         # the last hot id only
+    got = _emulate_count_build(idx, K, kernel)
+    want = ops.hot_counts(t(idx), K).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def _toy_table(F=16, dtype=torch.float32):
@@ -190,10 +345,9 @@ def _toy_table(F=16, dtype=torch.float32):
                                      (602, torch.bfloat16)])
 def test_row_pitch_not_16_bytes_raises(F, dtype):
     table, idx = _toy_table(F, dtype)
-    stable = ops.cold_first_stable(idx, 4, 20)
     for call in (lambda: ops.probe_gather(table, idx),
                  lambda: ops.probe_gather_hot(table, idx, 4),
-                 lambda: ops.probe_hotmx(table.float(), idx, *stable, 4)):
+                 lambda: ops.probe_hotmx(table.float(), idx, 4)):
         with pytest.raises(ValueError, match="pitch"):
             call()
 
@@ -201,17 +355,17 @@ def test_row_pitch_not_16_bytes_raises(F, dtype):
 def test_unsupported_shapes_raise():
     table, idx = _toy_table()
     hot = table[:8].to(torch.bfloat16)
-    stable = ops.cold_first_stable(idx, 4, 20)
     with pytest.raises(ValueError, match="multiple of 128"):
         ops.probe_hotcount(idx[:16], hot)
     with pytest.raises(ValueError, match="multiple of 128"):
         tgp.build_call("hc", torch.float32, K=8)(idx[:16], table, hot)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ops.probe_hotmx(table, idx, *stable, 4, tile_b=8)
+    for tile_b in (8, 16, 96, 256):
+        with pytest.raises(ValueError, match="tile_b must be one of"):
+            ops.probe_hotmx(table, idx, 4, tile_b=tile_b)
     with pytest.raises(TypeError, match="f32 table"):
-        ops.probe_hotmx(table.to(torch.bfloat16), idx, *stable, 4)
-    with pytest.raises(ValueError, match="idx_dma must be"):
-        ops.probe_hotmx(table, idx, stable[0][:, :4], stable[1], 4)
+        ops.probe_hotmx(table.to(torch.bfloat16), idx, 4)
+    with pytest.raises(ValueError, match="K must be in"):
+        ops.probe_hotmx(table, idx, table.shape[0] + 1)
     with pytest.raises(ValueError, match="no column slice"):
         ops.probe_gather(table, idx, tile_b=2048, n_buf=8)
     with pytest.raises(ValueError, match="wait"):
@@ -220,7 +374,6 @@ def test_unsupported_shapes_raise():
 
 def _calls(table, idx):
     idx_dma, nb, _ = ops.cold_first_topk(idx, 4, table.shape[0] - 1)
-    stable = ops.cold_first_stable(idx, 4, table.shape[0] - 1)
     hot = table[:8].to(torch.bfloat16)
     return {
         "sample": lambda: ops.probe_gather(table, idx, "sample"),
@@ -229,7 +382,7 @@ def _calls(table, idx):
         "hot": lambda: ops.probe_gather_hot(table, idx, 4),
         "coldsw": lambda: ops.probe_coldsw(table, idx_dma, nb, 5),
         "hotcount": lambda: ops.probe_hotcount(idx, hot),
-        "hotmx": lambda: ops.probe_hotmx(table, idx, *stable, 4),
+        "hotmx": lambda: ops.probe_hotmx(table, idx, 4),
     }
 
 
@@ -277,7 +430,7 @@ def test_other_devices_raise_without_computing(monkeypatch, kind):
         "coldsw": lambda: ops.probe_coldsw(table, idx_dma, nb, 5),
         "hotcount": lambda: ops.probe_hotcount(
             idx, torch.zeros((8, 16), dtype=torch.bfloat16, device="meta")),
-        "hotmx": lambda: ops.probe_hotmx(table, idx, idx_dma, nb, 4),
+        "hotmx": lambda: ops.probe_hotmx(table, idx, 4),
     }
     with pytest.raises(ValueError, match="cuda or cpu"):
         calls[kind]()
@@ -304,6 +457,27 @@ def test_entry_point_runs_every_variant_on_the_cpu(monkeypatch, capsys):
     names = ALL_VARIANTS.split(",")
     assert [ln.split()[0] for ln in lines[1:]] == names
     assert all("ms" in ln and "Mrow/s" in ln for ln in lines[1:])
+
+
+def test_probe_hotmx_line_calls_no_compaction(monkeypatch, capsys):
+    """K7c reads the raw ids: the probe's hotmx lines (the default tile
+    and t32) run and agree with the plain mean while every id compaction
+    raises."""
+    def no_compaction(*a):
+        raise AssertionError("hotmx needs no id compaction")
+
+    _small_probe(monkeypatch)
+    for mod in (ops, tgp):
+        for name in ("cold_first_stable", "cold_first_topk"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, no_compaction)
+    table, idx = _toy_table()
+    out = tgp.build_call("hotmx", torch.float32, K=4)(idx, table)
+    torch.testing.assert_close(out, ops.gather_mean_reference(table, idx),
+                               rtol=0, atol=1e-6)
+    assert tgp.main(["--device", "cpu", "--variants", "hotmx16,hotmx16t32"]) \
+        == 0
+    assert "FAILED" not in capsys.readouterr().out
 
 
 def test_entry_point_exits_non_zero_when_a_variant_fails(monkeypatch, capsys):
@@ -347,3 +521,21 @@ def test_bounds_count_the_function_not_the_design(kind):
     assert by == "bytes"
     assert ms == pytest.approx(np.mean(n_bytes) / tgp.HBM_BYTES_PER_S * 1e3,
                                rel=1e-12)
+
+
+@pytest.mark.parametrize("name", list(probe_breakdown.VARIANTS))
+def test_breakdown_copies_find_their_text(name):
+    """Each copy of benchmarks/probe_breakdown.py switches its part off
+    where the CUDA source has it, once; "as built" is the source."""
+    text = (build.CSRC / "gather_probe.cu").read_text()
+    out = probe_breakdown.variant_source(name, text)
+    assert (out == text) == (name == "as built")
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        probe_breakdown.variant_source("no cold half", "")
+
+
+def test_breakdown_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_breakdown.main()

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "models.unsupervised", "train.unsupervised",
                  "models.node2vec", "evaluation", "data.native",
                  "nn.metrics", "data.synthetic",
-                 "benchmarks.accuracy_acceptance", "benchmarks.seed_study"):
+                 "benchmarks.accuracy_acceptance", "benchmarks.seed_study",
+                 "benchmarks.probe_breakdown"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
