@@ -24,7 +24,8 @@ Phases; any failure exits non-zero without the final ok line:
      gather-mean (at the hop through the sampler, as serving draws it,
      and on i.i.d. zipf ids), K2 the gather-mean with Philox dropout
      (identical masks, equal means, the rate's zero fraction, the
-     1/keep scale), K3 the gather-mean that loads each distinct sample
+     1/keep scale; the SASS instructions an element of its inner loop
+     beside its bound), K3 the gather-mean that loads each distinct sample
      once (at the hop through the sampler, and at S = 1, 31, 32 and
      33, all samples equal, all distinct, rows repeated down the idx,
      F = 17, B = 7 and S at its shared-memory limit), K4 the
@@ -133,8 +134,9 @@ Phases; any failure exits non-zero without the final ok line:
      ranks on this card, 1 x 2 (data-parallel, held to the single-device
      runner) and 2 x 1 (each rank its own negatives, held to a
      reference built on one device from those negatives). Feature-dim
-     tensor parallelism (``parallel/tensor.py``): K1 and K2 on the 304-
-     and 298-column blocks of F = 602 (M = 2) against their plain
+     tensor parallelism (``parallel/tensor.py``): K1 and K2 on the 304-,
+     298-, 152- and 146-column blocks of F = 602 (M = 2 and 4) against
+     their plain
      versions and the whole table's columns, timed beside the whole
      width; the tensor-parallel runner on a world-size-1 NCCL group
      (one model shard) against the single-device runner at dropout 0.5
@@ -573,6 +575,43 @@ def probe_loads(dev, card_line: str, data) -> None:
                    "k1_ms_by_ids": by_ids}, f, indent=1)
 
 
+# K2's per-sample mask check: samples a row, each its own power of 2
+MASK_BITS_S = 19
+
+
+def k2_sample_mask_diff(dev, F: int, dtype, key: dict, col_base: int = 0,
+                        row_width: int | None = None, B: int = HOP_ROWS,
+                        S: int = MASK_BITS_S) -> int:
+    """Elements of K2's mask, sample by sample, that differ from
+    ``philox.dropout_keep_mask``: row s of the table is 2**s and
+    idx[b, s] = s, so each output element, times S / scale, is the
+    integer whose bit s says whether sample s was kept (exact in f32 up
+    to S = 20). S = 19 runs K2's loop over samples four (f32 and VEC <=
+    4) or two (bf16, VEC 8) at a time, then its tail of 3 or 1."""
+    import torch
+
+    from graphsage_tpu_torch.ops.gather import fused_gather_mean
+    from graphsage_tpu_torch.ops.philox import (
+        dropout_keep_mask,
+        dropout_scale,
+    )
+
+    table = (2.0 ** torch.arange(S, dtype=torch.float64, device=dev))[
+        :, None].expand(S, F).to(dtype).contiguous()
+    idx = torch.arange(S, dtype=torch.int32, device=dev).expand(
+        B, S).contiguous()
+    blk = {} if row_width is None else dict(col_base=col_base,
+                                            row_width=row_width)
+    out = fused_gather_mean(table, idx, DROPOUT, **key, **blk)
+    sums = torch.round(out.double() * S / dropout_scale(DROPOUT)).long()
+    shifts = torch.arange(S, device=dev)[None, :, None]
+    kept = ((sums[:, None, :] >> shifts) & 1).bool()
+    want = dropout_keep_mask(B * S, F, DROPOUT, key["seed"], *key["offset"],
+                             device=dev, col_base=col_base,
+                             row_width=row_width).view(B, S, F)
+    return int((kept != want).sum()) + int(((sums >> S) != 0).sum())
+
+
 def check_gather_mean_dropout(dev, card_line: str) -> dict:
     """K2 against its plain version under the same seed, step and tag;
     its statistics at rate 0.5; its times and bounds at the hop."""
@@ -611,6 +650,16 @@ def check_gather_mean_dropout(dev, card_line: str) -> dict:
         f"({HOP_ROWS * FANOUTS[0] * FEAT_DIM} elements, f32 and bf16 "
         f"tables); max abs err f32 {err['f32']:.3e}, bf16 {err['bf16']:.3e} "
         f"(limit {F32_TOL})")
+    # the mask sample by sample, through the loop over samples (S = 1
+    # above runs only its tail): F = 640 bf16 takes VEC 8
+    for F, dt in ((FEAT_DIM, torch.float32), (FEAT_DIM, torch.bfloat16),
+                  (640, torch.bfloat16)):
+        n_diff = k2_sample_mask_diff(dev, F, dt, key)
+        check(n_diff == 0, f"K2 {dt} F={F}, S={MASK_BITS_S}: {n_diff} "
+              f"mask elements differ sample by sample")
+    log(f"K2 at idx [{HOP_ROWS},{MASK_BITS_S}], row s = 2**s: masks "
+        f"identical sample by sample to dropout_keep_mask (F {FEAT_DIM} "
+        f"f32 and bf16, F 640 bf16)")
 
     ones = torch.ones(64, FEAT_DIM, device=dev)
     s1 = torch.from_numpy(rng.integers(0, 64, (HOP_ROWS, 1),
@@ -647,14 +696,21 @@ def check_gather_mean_dropout(dev, card_line: str) -> dict:
     f32_ms = elements * K2_F32_OPS_PER_ELEM / F32_OPS_PER_S * 1e3
     ops_ms = max(int_ms, f32_ms)
     bound_ms = max(bytes_ms, ops_ms)
+    from graphsage_tpu_torch.ops import build
+
+    loop = k2_loop_per_element(build.BUILD_DIR / "libgather_mean.so")
+    sass = ("no SASS" if loop is None else
+            f"its inner loop {loop['instructions']} instructions for "
+            f"{loop['elements']} elements, {loop['per_element']:.2f} an "
+            f"element ({', '.join(f'{k} {v}' for k, v in loop['opcodes'].items())})")
     log(f"K2 at idx [{HOP_ROWS},{FANOUTS[0]}] into [{NUM_NODES + 1},"
         f"{FEAT_DIM}] f32, rate {DROPOUT}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bf16 table {bf16_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f}; int32 {int_ms:.4f} at "
         f"{K2_INT_OPS_PER_ELEM:g} per element and {INT32_OPS_PER_S:.4g}/s; "
-        f"f32 {f32_ms:.4f}); bound share {bound_ms / ms:.3f}; library: none "
-        f"(no single PyTorch call draws a per-element mask inside a "
-        f"gather-mean); on {card_line}")
+        f"f32 {f32_ms:.4f}); bound share {bound_ms / ms:.3f}; SASS: {sass}; "
+        f"library: none (no single PyTorch call draws a per-element mask "
+        f"inside a gather-mean); on {card_line}")
     return {
         "name": "gather_mean_dropout",
         "route": "cuda",
@@ -667,6 +723,7 @@ def check_gather_mean_dropout(dev, card_line: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "sass_per_element": None if loop is None else loop["per_element"],
     }
 
 
@@ -1489,34 +1546,119 @@ def drive_probe(dev, card_line: str) -> dict:
     return counts
 
 
-def sass_ops(lib: str) -> dict:
-    """{function name: {opcode: count}} of a built library's SASS, from
-    cuobjdump where the toolkit has it (else empty)."""
+def sass_text(path) -> str:
+    """cuobjdump's SASS of a built library, where the toolkit has it
+    (else empty)."""
     from graphsage_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log("cuobjdump not found: no SASS summary")
-        return {}
-    out = subprocess.run([tool, "-sass", str(build.BUILD_DIR / lib)],
-                         capture_output=True, text=True, timeout=120,
-                         check=False).stdout
+        return ""
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=False).stdout
+
+
+def sass_functions(text: str) -> dict:
+    """{function name: [(address, instruction text), ...]} of cuobjdump's
+    SASS (the text between the address and the semicolon)."""
     functions = {}
-    for block in out.split("Function : ")[1:]:
-        counts = {}
+    for block in text.split("Function : ")[1:]:
+        ins = []
         for line in block.splitlines():
-            text = line.split("*/", 1)[1] if "*/" in line else ""
-            words = text.replace(";", " ").split()
-            if line.strip().startswith("/*") and words:
-                op = words[1] if words[0].startswith("@") else words[0]
-                counts[op] = counts.get(op, 0) + 1
-        functions[block.split("\n")[0].strip()] = counts
+            head, _, rest = line.strip().partition("*/")
+            if head.startswith("/*") and ";" in rest and rest.strip():
+                try:
+                    ins.append((int(head[2:], 16), rest.split(";")[0].strip()))
+                except ValueError:
+                    continue
+        functions[block.split("\n")[0].strip()] = ins
     return functions
+
+
+def sass_opcode(text: str) -> str:
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_ops(lib: str) -> dict:
+    """{function name: {opcode: count}} of a built library's SASS, from
+    cuobjdump where the toolkit has it (else empty)."""
+    from graphsage_tpu_torch.ops import build
+
+    functions = {}
+    for name, ins in sass_functions(sass_text(build.BUILD_DIR / lib)).items():
+        counts = {}
+        for _, text in ins:
+            op = sass_opcode(text)
+            counts[op] = counts.get(op, 0) + 1
+        functions[name] = counts
+    return functions
+
+
+def sass_loops(ins: list) -> list:
+    """The loops of one function's SASS, [(first, last address, {opcode:
+    count}), ...]: each backward branch and the instructions from its
+    target to it."""
+    loops = []
+    for addr, text in ins:
+        if sass_opcode(text).split(".")[0] != "BRA":
+            continue
+        target = text.split("BRA", 1)[1].split()
+        if not target or not target[-1].startswith("0x"):
+            continue
+        first = int(target[-1], 16)
+        if first <= addr:
+            counts = {}
+            for a, t in ins:
+                if first <= a <= addr:
+                    op = sass_opcode(t)
+                    counts[op] = counts.get(op, 0) + 1
+            loops.append((first, addr, counts))
+    return loops
+
+
+# K2's instance at the hop: f32 table, 8-byte loads (F = 602), the whole
+# row (not a column block), 32-bit counters; the parent design's mangled
+# name ends before the counter flag
+K2_HOP_INSTANCE = "gather_mean_dropout_kernelIfLi2ELb0E"
+
+
+def k2_loop_per_element(path) -> dict | None:
+    """K2's inner loop at the hop from the SASS of the library at
+    ``path``: the loop that runs the Philox multiplies (IMAD.WIDE.U32 and
+    IMAD.HI.U32) and the row loads, its instructions, the elements an
+    iteration (two a LDG.E.64 of the f32 instance's 8-byte loads) and
+    their ratio, with the opcodes that make it up."""
+    for name, ins in sass_functions(sass_text(path)).items():
+        rest = name.split(K2_HOP_INSTANCE, 1)[-1]
+        if K2_HOP_INSTANCE not in name or not rest.startswith(
+                ("Lb0EEEv", "EEv")):
+            continue
+        best = None
+        for first, last, counts in sass_loops(ins):
+            wide = sum(n for op, n in counts.items()
+                       if op.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32")))
+            loads = sum(n for op, n in counts.items()
+                        if op.startswith("LDG.E.64"))
+            if wide >= 10 and loads and (best is None
+                                         or last - first < best[1] - best[0]):
+                best = (first, last, counts, loads)
+        if best is None:
+            continue
+        counts, loads = best[2], best[3]
+        total = sum(counts.values())
+        return {"instructions": total, "elements": 2 * loads,
+                "per_element": total / (2 * loads),
+                "opcodes": dict(sorted(counts.items(),
+                                       key=lambda kv: -kv[1])[:8])}
+    return None
 
 
 def sass_summary() -> None:
     """Static instruction counts from cuobjdump: K2 (f32, 2 elements per
-    load), the record behind K2_INT_OPS_PER_ELEM; and each K5/K6
+    load; its inner loop per element in check_gather_mean_dropout); and
+    each K5/K6
     instance's tensor-core (HGMMA, HMMA) and f32 FMA instructions. The
     instances the hop runs (f32 table, mean: K5 without dropout, K6 with
     dropout and the residual) must issue HGMMA. Each K7 instance's bulk
@@ -1524,9 +1666,10 @@ def sass_summary() -> None:
     K7a must issue bulk copies, K7b and K7c HGMMA, K7c and K7b's TMA
     instance TMA loads, K7c no bulk copy."""
     for name, counts in sass_ops("libgather_mean.so").items():
-        if "gather_mean_dropout_kernelIfLi2E" in name:
+        if K2_HOP_INSTANCE + "Lb0E" in name:
             top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
-            log(f"SASS of K2<float,2>: {sum(counts.values())} instructions; "
+            log(f"SASS of K2<float,2> (whole row, 32-bit counters): "
+                f"{sum(counts.values())} instructions; "
                 + ", ".join(f"{k} {v}" for k, v in top))
     hop = {"IfLb0ELb0ELb0E": "K5 hop", "IfLb0ELb1ELb1E": "K6 hop"}
     seen = set()
@@ -4137,9 +4280,9 @@ TP_BLOCKS = 2           # model shards of the block kernels and the spawns
 
 
 def tp_block_kernels(dev, card_line: str, data) -> dict:
-    """K1 and K2 on the column blocks of F = 602 at M = 2 (304 and 298
-    columns, ``parallel/tensor.py::column_blocks``), as a rank holds
-    them: each against its plain version on the block (K2 at the
+    """K1 and K2 on the column blocks of F = 602 at M = 2 and M = 4 (304
+    and 298, 152 and 146 columns, ``parallel/tensor.py::column_blocks``),
+    as a rank holds them: each against its plain version on the block (K2 at the
     block's columns of the whole rows' mask: ``col_base``,
     ``row_width``), and against the whole table's result at those
     columns; then timed at the hop idx beside the whole width, with
@@ -4167,7 +4310,11 @@ def tp_block_kernels(dev, card_line: str, data) -> dict:
              "K2": cuda_ms(cycling(lambda i: fused_gather_mean(
                  features, i, DROPOUT, **key), idx_sets))}
     out = {"K1": {}, "K2": {}}
-    for lo, hi in column_blocks(FEAT_DIM, TP_BLOCKS):
+    blocks = {}     # a block of each width: M = 2's, then M = 4's
+    for M in (TP_BLOCKS, 2 * TP_BLOCKS):
+        for lo, hi in column_blocks(FEAT_DIM, M):
+            blocks.setdefault(hi - lo, (lo, hi))
+    for lo, hi in blocks.values():
         F = hi - lo
         block = features[:, lo:hi].contiguous()
         blk = dict(col_base=lo, row_width=FEAT_DIM)
@@ -4184,6 +4331,14 @@ def tp_block_kernels(dev, card_line: str, data) -> dict:
         n_diff = int((zero != whole_zero[:, lo:hi]).sum())
         check(n_diff == 0, f"K2 on columns {lo}..{hi - 1}: {n_diff} mask "
               f"elements differ from the whole rows' mask")
+        for dt in (torch.float32, torch.bfloat16):
+            n_diff = k2_sample_mask_diff(dev, F, dt, key, lo, FEAT_DIM)
+            check(n_diff == 0, f"K2 {dt} on columns {lo}..{hi - 1}, S="
+                  f"{MASK_BITS_S}: {n_diff} mask elements differ sample by "
+                  f"sample from the whole rows' mask")
+        log(f"K2 on columns {lo}..{hi - 1}: masks identical to the whole "
+            f"rows' at those columns, and sample by sample at S = "
+            f"{MASK_BITS_S} (f32 and bf16 blocks)")
         bytes_ms = float(np.mean([gather_bytes_ms(i, F=F) for i in idx_sets]))
         elements = HOP_ROWS * FANOUTS[0] * F
         ops_ms = max(elements * K2_INT_OPS_PER_ELEM / INT32_OPS_PER_S,
@@ -4840,7 +4995,7 @@ def main() -> int:
           sharded_unsup_ranks, card_line, data, ref, [dev, dev], "gloo",
           ((1, 2), (2, 1)))
     del ref, unsup_sharded
-    blocks = phase("K1 and K2 on the column blocks of M = 2",
+    blocks = phase("K1 and K2 on the column blocks of M = 2 and 4",
                    tp_block_kernels, dev, card_line, data)
     for key, entry in (("K1", k1), ("K2", k2)):
         for F, nums in blocks[key].items():

@@ -13,7 +13,8 @@ Variants (ops/gather_probe.py holds the kernels):
   bulkwait           — K7a: one wait per output row
   tilewait           — K7a: one wait per tile
   plain_sorted       — plain on each row's ids sorted
-  plain_t<r>b<n>     — plain with tiles of r rows and n ring slots
+  <wait>_t<r>b<n>    — plain, bulkwait or tilewait with stages of r rows
+                       and n ring stages
   hot<K>             — K7a: ids < K read from the table (L2 evict-last)
   hotmx<K>[t<r>]     — K7c: counts @ hot rows (2xTF32 tensor cores) + the
                        cold rows, from the raw ids; tiles of r rows (80)
@@ -47,6 +48,7 @@ from graphsage_tpu_torch.device import resolve_device
 from graphsage_tpu_torch.ops.gather import fused_gather_mean
 from graphsage_tpu_torch.ops.gather_probe import (
     MX_TILE_B,
+    RING_STAGES,
     cold_first_topk,
     probe_coldsw,
     probe_gather,
@@ -59,7 +61,6 @@ N = 100_000
 F = 640
 B = 1024  # per-chunk rows (the production kernel chunked at 1024)
 S = 25
-TILE_B = 8
 ITERS = 5
 INNER = 20  # gathers a trial, queued back to back
 
@@ -95,14 +96,14 @@ def xla_gather_mean(features: torch.Tensor, idx: torch.Tensor):
     return rows.view(*idx.shape, features.shape[1]).float().mean(dim=1)
 
 
-def build_call(kind: str, dt: torch.dtype, n_buf: int = 2,
+def build_call(kind: str, dt: torch.dtype, n_buf: int = RING_STAGES,
                tile_b: int | None = None, K: int = 1024):
     """fn(idx, table[, hot block]) of one probe kind on a table of ``dt``,
     as the JAX ``build_call``; the hot kinds read their hot rows from the
     table itself, and hotcount/hc take the bf16 hot block. tile_b
-    defaults to the JAX probe's 8 rows, hotmx's to ``MX_TILE_B``."""
-    if tile_b is None:
-        tile_b = MX_TILE_B if kind == "hotmx" else TILE_B
+    defaults to K7a's ``ring_rows`` (None) and to hotmx's ``MX_TILE_B``."""
+    if tile_b is None and kind == "hotmx":
+        tile_b = MX_TILE_B
 
     def table_of(table):
         if table.dtype != dt:
@@ -236,10 +237,11 @@ def parse_variant(v: str, tables: dict, hot_bf16: torch.Tensor):
         base = build_call("plain", dt)
         return (lambda idx, t: base(torch.sort(idx, dim=1).values, t),
                 on_table, False, "plain", 0)
-    if v.startswith("plain_t"):  # plain_t<r>b<n>: tile rows, ring slots
-        tb, nb = v[7:].split("b")
-        return (build_call("plain", dt, tile_b=int(tb), n_buf=int(nb)),
-                on_table, False, "plain", 0)
+    if "_t" in v:  # <wait>_t<r>b<n>: stage rows, stages
+        kind, ring = v.split("_t")
+        tb, nb = ring.split("b")
+        return (build_call(kind, dt, tile_b=int(tb), n_buf=int(nb)),
+                on_table, False, kind, 0)
     if v.startswith("hc"):
         K = int(v[2:])
         return (build_call("hc", dt, K=K),

@@ -69,26 +69,52 @@
 // the block's mask is the matching columns of the whole row's; a table
 // that is the whole row passes col_base 0 and row_groups ceil(F/4).
 // The two cases are two instances (kBlock): the whole row's computes its
-// group count from F, as before blocks existed, and keeps that speed
-// (the block form, with both values from the arguments, measured 1-2%
-// slower at the hop on the H100).
+// group count from F, the block's takes both values from the arguments.
 //
-// What bounds K2: operations, not bytes. Its bytes are K1's, but one
-// Philox call per four elements costs 10 rounds of two 32x32->64
-// multiplies and two three-input XORs (the key schedule is the same
-// for every thread), about 10 integer instructions per element plus the
-// compare: at the serving hop shape (77M elements) that is of order
-// 0.05 ms at the H100's int32 rate, above the ~0.02 ms bytes bound.
-// Design (simple and correct first): one block per output row, its S
-// row offsets in shared memory as 64-bit element offsets (idx * F
-// overflows int32 beyond ~3.5M rows at F = 602); each thread owns
-// chunks of W = max(4, VEC) columns, i.e. whole Philox groups, so each
-// call's four words serve four elements; the chunk is loaded VEC
-// elements at a time (VEC, the widest load up to 16 bytes that divides
-// F and the table's alignment, so a vector is all in or all out of the
-// row; a row's last chunk may be partial), accumulated in f32 registers.
-// Left to a later PR: fewer rounds or fewer bits per element, and
-// overlapping the generator with the row loads.
+// What bounds K2: operations, not bytes. Its bytes are K1's, but every
+// element takes its own 32-bit word of a Philox call: per four elements
+// 10 rounds of two 32x32->64 multiplies (one IMAD.WIDE.U32 each) and two
+// three-input XORs (one LOP3 each: the round keys are the same for every
+// thread), plus a compare an element, about 11 integer instructions an
+// element: at the serving hop (77M elements) 0.05 ms at the H100's int32
+// rate, above the ~0.013 ms bytes bound. The mask is kept bit for bit (no
+// fewer rounds, no fewer bits, the same element-to-word map), so the
+// design cuts everything around the generator instead:
+//   * the B x ceil(F/W) items, an output row's chunk of W = max(4, VEC)
+//     columns (whole Philox groups, so each call's four words serve four
+//     elements), lie flat over blocks of 256 threads: every lane works
+//     whatever F (one block per output row left 21% of the lanes idle on
+//     the 298-column block of a tensor-parallel rank); the one or two
+//     rows a warp spans make its id loads broadcasts;
+//   * a thread walks its row's S samples U at a time: it loads the U ids
+//     (an id outside [0, N) traps) and issues the U rows' loads (VEC
+//     elements a load, the widest up to 16 bytes that divides F and the
+//     table's alignment, so a vector is all in or all out of the row),
+//     then runs the U samples' Philox calls, four independent chains
+//     whatever W, round by round so that their multiplies interleave,
+//     while the loads land (the multiplies set K2's pace: 20 a call, on
+//     the SM's one multiply pipe);
+//   * the 20 round keys are computed on the host and passed by value
+//     (__grid_constant__): each XOR takes its key from the parameter
+//     bank, with no register and no add for the key schedule;
+//   * a kept element costs a compare and a predicated add: the sum is of
+//     the raw values, and scale x 1/S multiplies it once at the end
+//     (bit-equal to scaling each value where the scale is a power of 2,
+//     as at rate 0.5);
+//   * the counter steps by the row's group count from sample to sample;
+//     where every counter of the launch fits 32 bits (B x S x row_groups
+//     below 2^32, any realistic shape: 19.3M at the hop), the counters
+//     are 32-bit and the high counter word the constant 0 (kWide false):
+//     one multiply of each of the first two rounds then takes words that
+//     are the same for every thread, which the compiler computes once,
+//     outside the loop (18 multiplies a call; 5-7% faster than the
+//     64-bit counters at the hop and on the tensor-parallel blocks, on
+//     an H100 SXM: PERF.md §6);
+//     otherwise the counters are 64-bit (kWide true);
+//   * f32 accumulators in registers, the samples added in order: no
+//     float atomics, two launches are bit-identical.
+// chip_smoke.py counts the SASS instructions per element of K2's inner
+// loop beside its bound.
 //
 // The table is f32 or bf16; the output is always f32. Plain C
 // interface for ctypes; each entry point returns cudaGetLastError()
@@ -104,106 +130,14 @@
 
 namespace {
 
-using graphsage::philox_group;
+using graphsage::philox4x32_10;
+using graphsage::PhiloxKeys;
 using graphsage::to_float;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
-
-template <typename T, int VEC, bool kBlock>
-__global__ void gather_mean_dropout_kernel(
-    const T* __restrict__ feat, const int32_t* __restrict__ idx,
-    float* __restrict__ out, int64_t n_rows, int S, int F, float inv_s,
-    uint32_t seed_lo, uint32_t seed_hi, uint32_t step, uint32_t tag,
-    uint32_t threshold, float scale, int col_base, int64_t row_groups) {
-  constexpr int W = VEC > 4 ? VEC : 4;  // columns per chunk: whole groups
-  extern __shared__ int64_t row_off[];
-  const int64_t b = blockIdx.x;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int64_t r = idx[b * S + s];
-    if (r < 0 || r >= n_rows) __trap();
-    row_off[s] = r * F;
-  }
-  __syncthreads();
-
-  const int n_chunks = (F + W - 1) / W;
-  const int64_t groups_per_row = kBlock ? row_groups : (F + 3) / 4;
-  float* out_row = out + b * F;
-  for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
-    const int col0 = c * W;
-    const int first_col = kBlock ? col_base + col0 : col0;
-    float acc[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) acc[k] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const int64_t g0 = (b * S + s) * groups_per_row + first_col / 4;
-      uint32_t bits[W];
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const uint4 r = philox_group(static_cast<uint64_t>(g0 + q), step,
-                                     tag, seed_lo, seed_hi);
-        bits[4 * q] = r.x;
-        bits[4 * q + 1] = r.y;
-        bits[4 * q + 2] = r.z;
-        bits[4 * q + 3] = r.w;
-      }
-#pragma unroll
-      for (int j = 0; j < W / VEC; ++j) {
-        const int col = col0 + j * VEC;
-        if (col < F) {
-          const Vec<T, VEC> x =
-              *reinterpret_cast<const Vec<T, VEC>*>(feat + row_off[s] + col);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float v = to_float(x.v[k]) * scale;
-            acc[j * VEC + k] += bits[j * VEC + k] < threshold ? v : 0.f;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < W / VEC; ++j) {
-      const int col = col0 + j * VEC;
-      if (col < F) {
-        Vec<float, VEC> y;
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) y.v[k] = acc[j * VEC + k] * inv_s;
-        *reinterpret_cast<Vec<float, VEC>*>(out_row + col) = y;
-      }
-    }
-  }
-}
-
-int block_threads(int work_items) {
-  int threads = (work_items + 31) / 32 * 32;
-  return threads > 1024 ? 1024 : threads;
-}
-
-template <typename T, int VEC>
-int launch_dropout(const void* feat, const void* idx, void* out,
-                   long long n_rows, int B, int S, int F,
-                   unsigned long long seed, unsigned int step,
-                   unsigned int tag, unsigned int threshold, float scale,
-                   int col_base, long long row_groups, void* stream) {
-  constexpr int W = VEC > 4 ? VEC : 4;
-  const size_t smem = static_cast<size_t>(S) * sizeof(int64_t);
-  const bool block = col_base != 0 || row_groups != (F + 3) / 4;
-  auto kernel = block ? gather_mean_dropout_kernel<T, VEC, true>
-                      : gather_mean_dropout_kernel<T, VEC, false>;
-  kernel<<<B, block_threads((F + W - 1) / W), smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
-      static_cast<float*>(out), n_rows, S, F, 1.0f / S,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32), step,
-      tag, threshold, scale, col_base, row_groups);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------------- K1 and K3
-
-constexpr int kMaxThreads = 512;  // at most 128 registers a thread
 
 // VEC elements of the table at p, through the read-only data path.
 template <typename T, int VEC>
@@ -218,6 +152,197 @@ __device__ __forceinline__ Vec<T, VEC> ldg_vec(const T* p) {
   *reinterpret_cast<Raw*>(&x) = __ldg(reinterpret_cast<const Raw*>(p));
   return x;
 }
+
+int block_threads(int work_items) {
+  int threads = (work_items + 31) / 32 * 32;
+  return threads > 1024 ? 1024 : threads;
+}
+
+// ------------------------------------------------------------------ K2
+
+constexpr int kDropThreads = 256;  // K2's threads a block, items laid flat
+
+// K2's NS samples from ids on (their counters from g on, groups apart),
+// added into acc where kept: the NS ids loaded and checked together,
+// then the rows' loads issued, then the samples' Philox calls. Only the
+// item's first n_cols columns lie in the row (fewer than W in a row's
+// last chunk only: a predicate that the thread computes once).
+template <typename T, int VEC, int NS, typename Ctr>
+__device__ __forceinline__ void k2_samples(
+    float* acc, const int32_t* ids, const char* base, uint32_t row_bytes,
+    int n_cols, uint32_t n_ids, Ctr g, Ctr groups, uint32_t step,
+    uint32_t tag, const PhiloxKeys& keys, uint32_t threshold) {
+  constexpr int W = VEC > 4 ? VEC : 4;
+  constexpr int Q = W / 4;
+  constexpr int NV = W / VEC;
+  uint32_t r[NS];
+  bool bad = false;
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    r[u] = static_cast<uint32_t>(__ldg(ids + u));
+    bad |= r[u] >= n_ids;
+  }
+  if (bad) __trap();
+  Vec<T, VEC> x[NS][NV];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    const T* p = reinterpret_cast<const T*>(
+        base + static_cast<uint64_t>(r[u]) * row_bytes);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (j * VEC < n_cols) x[u][j] = ldg_vec<T, VEC>(p + j * VEC);
+    }
+  }
+  uint4 c[NS * Q];   // the counters, then the words
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const Ctr gq = g + static_cast<Ctr>(u) * groups + static_cast<Ctr>(q);
+      uint32_t hi = 0u;
+      if constexpr (sizeof(Ctr) == 8) hi = static_cast<uint32_t>(gq >> 32);
+      c[u * Q + q] = make_uint4(static_cast<uint32_t>(gq), hi, step, tag);
+    }
+  }
+  philox4x32_10(c, keys);
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const uint32_t bits[4] = {c[u * Q + q].x, c[u * Q + q].y,
+                                c[u * Q + q].z, c[u * Q + q].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 4 * q + k;
+        if ((e / VEC) * VEC < n_cols && bits[k] < threshold) {
+          acc[e] += to_float(x[u][e / VEC].v[e % VEC]);
+        }
+      }
+    }
+  }
+}
+
+// K2's item over the row's S samples: U at a time (four Philox chains),
+// then the S % U left over at once.
+template <typename T, int VEC, typename Ctr>
+__device__ __forceinline__ void k2_row(
+    float* acc, const int32_t* ids, const char* base, uint32_t row_bytes,
+    int n_cols, uint32_t n_ids, int S, Ctr g, Ctr groups, uint32_t step,
+    uint32_t tag, const PhiloxKeys& keys, uint32_t threshold) {
+  constexpr int U = 4 / ((VEC > 4 ? VEC : 4) / 4);  // four chains
+  int s = 0;
+  for (; s + U <= S; s += U, g += U * groups) {
+    k2_samples<T, VEC, U>(acc, ids + s, base, row_bytes, n_cols,
+                                 n_ids, g, groups, step, tag, keys,
+                                 threshold);
+  }
+#define K2_TAIL(NS)                                                         \
+  k2_samples<T, VEC, NS>(acc, ids + s, base, row_bytes, n_cols,             \
+                                n_ids, g, groups, step, tag, keys,          \
+                                threshold)
+  if constexpr (U == 4) {
+    switch (S - s) {
+      case 3: K2_TAIL(3); break;
+      case 2: K2_TAIL(2); break;
+      case 1: K2_TAIL(1); break;
+      default: break;
+    }
+  } else {
+    if (S - s == 1) K2_TAIL(1);
+  }
+#undef K2_TAIL
+}
+
+// K2: one thread per item (output row b, chunk of W columns at col0).
+// n_ids: ids at or past it trap (min(N, 2^31)); out_scale: scale / S.
+template <typename T, int VEC, bool kBlock, bool kWide>
+__global__ void __launch_bounds__(kDropThreads)
+    gather_mean_dropout_kernel(const T* __restrict__ feat,
+                               const int32_t* __restrict__ idx,
+                               float* __restrict__ out, uint32_t n_ids,
+                               int B, int S, int F, int n_chunks,
+                               float out_scale,
+                               const __grid_constant__ PhiloxKeys keys,
+                               uint32_t step, uint32_t tag,
+                               uint32_t threshold, int col_base,
+                               int64_t row_groups) {
+  constexpr int W = VEC > 4 ? VEC : 4;  // columns an item: whole groups
+  constexpr int NV = W / VEC;           // loads a sample
+  using Ctr = std::conditional_t<kWide, uint64_t, uint32_t>;
+  const Ctr n_chunk = static_cast<Ctr>(n_chunks);
+  const Ctr item = static_cast<Ctr>(blockIdx.x) * kDropThreads + threadIdx.x;
+  if (item >= static_cast<Ctr>(B) * n_chunk) return;
+  const Ctr b = item / n_chunk;
+  const int col0 = static_cast<int>(item - b * n_chunk) * W;
+  const int n_cols = F - col0;
+  const Ctr groups = kBlock ? static_cast<Ctr>(row_groups)
+                            : static_cast<Ctr>((F + 3) / 4);
+  // the group of the item's first column in the row's first sample
+  Ctr g = b * static_cast<Ctr>(S) * groups
+          + static_cast<Ctr>(((kBlock ? col_base : 0) + col0) / 4);
+  const int32_t* ids = idx + static_cast<int64_t>(b) * S;
+  const char* base = reinterpret_cast<const char*>(feat + col0);
+  const uint32_t row_bytes = static_cast<uint32_t>(F * sizeof(T));
+
+  float acc[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc[e] = 0.f;
+  k2_row<T, VEC>(acc, ids, base, row_bytes, n_cols, n_ids, S, g, groups,
+                 step, tag, keys, threshold);
+  float* o = out + static_cast<int64_t>(b) * F + col0;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (j * VEC < n_cols) {
+      Vec<float, VEC> y;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) y.v[k] = acc[j * VEC + k] * out_scale;
+      *reinterpret_cast<Vec<float, VEC>*>(o + j * VEC) = y;
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_dropout(const void* feat, const void* idx, void* out,
+                   long long n_rows, int B, int S, int F,
+                   unsigned long long seed, unsigned int step,
+                   unsigned int tag, unsigned int threshold, float scale,
+                   int col_base, long long row_groups, void* stream) {
+  constexpr int W = VEC > 4 ? VEC : 4;
+  const int n_chunks = (F + W - 1) / W;
+  const long long blocks =
+      (static_cast<long long>(B) * n_chunks + kDropThreads - 1)
+      / kDropThreads;
+  if (B <= 0 || S <= 0 || F <= 0 || row_groups < (F + 3) / 4
+      || blocks > 0x7fffffffLL
+      || static_cast<unsigned long long>(F) * sizeof(T) > 0xffffffffULL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool block = col_base != 0 || row_groups != (F + 3) / 4;
+  // every counter below B*S*row_groups, every item below blocks*256
+  const unsigned long long top =
+      static_cast<unsigned long long>(B) * S * row_groups + kDropThreads;
+  const bool wide = top > 0xffffffffULL;
+  auto kernel =
+      block ? (wide ? gather_mean_dropout_kernel<T, VEC, true, true>
+                    : gather_mean_dropout_kernel<T, VEC, true, false>)
+            : (wide ? gather_mean_dropout_kernel<T, VEC, false, true>
+                    : gather_mean_dropout_kernel<T, VEC, false, false>);
+  const uint32_t n_ids = static_cast<uint32_t>(
+      n_rows < (1LL << 31) ? n_rows : (1LL << 31));
+  const float out_scale = scale * (1.0f / static_cast<float>(S));
+  kernel<<<static_cast<unsigned int>(blocks), kDropThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
+      static_cast<float*>(out), n_ids, B, S, F, n_chunks, out_scale,
+      graphsage::philox_keys(static_cast<uint32_t>(seed),
+                             static_cast<uint32_t>(seed >> 32)),
+      step, tag, threshold, col_base, row_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------- K1 and K3
+
+constexpr int kMaxThreads = 512;  // at most 128 registers a thread
 
 // Shared memory bytes: K1 keeps the samples' row offsets; K3 the
 // distinct rows' offsets, and the samples, a flag at each first

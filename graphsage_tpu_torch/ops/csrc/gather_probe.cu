@@ -6,7 +6,8 @@
 // computed another way. Row N of the table is the dummy (zero) row.
 //
 //   K7a probe_gather_kernel<T, WAIT, MODE>: a ring of 1-D bulk copies
-//       (cp.async.bulk, one per sample row) completing on mbarriers.
+//       (cp.async.bulk, one per sample row) that producer warps issue and
+//       consumer warps sum, on full and empty mbarriers.
 //       MODE kPlain with WAIT kSample, kRow or kTile replaces
 //       _plain_kernel (:65), _bulkwait_kernel (:111) and
 //       _tilewait_kernel (:161); MODE kHot (per-sample waits) replaces
@@ -33,37 +34,63 @@
 // for K7c (21.7 us at K = 4096), the floor of these designs.
 //
 // Design, and what became of the TPU's:
-//   * the TPU keeps a ring of n_buf x tile_b x S whole rows in VMEM (1 MB
-//     at the probe's shape); a block has 227 KB of shared memory. So a
-//     block takes one column slice of FC columns: a slot holds tile_b x
-//     W slices (W = S, or SW compacted slots), FC the widest divisor of
-//     F whose ring fits (the wrapper picks it; 128 f32 columns at the
-//     probe's tile_b 8, n_buf 2). Blocks walk a run of tiles of their
-//     slice and keep n_buf - 1 tiles in flight, as the TPU's sequential
-//     grid does;
-//   * make_async_copy(...).start() is one cp.async.bulk of the sample's
-//     slice (no tensor map: it is a 1-D copy of FC x elem bytes, which
-//     must be a multiple of 16, from a 16-byte aligned address: the row
-//     pitch F x elem must be a multiple of 16, which the wrapper checks);
+//   * K7a: the TPU keeps a ring of n_buf x tile_b x S whole rows in VMEM
+//     (1 MB at the probe's shape) and runs its grid in order. What a ring
+//     of bulk copies can do on Hopper that K1's plain loads cannot: a copy
+//     moves a row's slice with one instruction and no registers, and a
+//     block can keep most of its 227 KB of shared memory in flight, where
+//     K1's threads hold five 16-byte loads each. K7a is built on both,
+//     warp-specialised on full and empty mbarriers in place of
+//     __syncthreads: kRingProducers producer warps fill a ring of n_buf
+//     stages, kRingConsumers consumer warps sum them. A stage holds tile_b
+//     output rows x W slots (W = S, or SW compacted slots) of one column
+//     slice of FC columns. The wrapper's default is 3 stages of whole rows
+//     of about 64 KB (tile_b 1 for the probe's f32 rows, 2 for bf16): an
+//     id is loaded and checked once and a copy moves a whole row (2,560
+//     or 1,280 bytes); narrower slices multiply the ids, copies and
+//     stages for the same bytes;
+//   * a persistent grid: as many blocks as the SMs hold, each walking a run
+//     of items (a tile x a slice), slice-major, within one of each other;
+//   * the producers, a thread a slot (slot j to lane j / P of warp j % P,
+//     so that the two warps' copies go out side by side): a thread holds
+//     the ids of its first slot kAhead items ahead in registers, waits for
+//     the stage to be free, checks each id and issues one cp.async.bulk of
+//     the slot's slice (make_async_copy(...).start(); a 1-D copy of FC x
+//     elem bytes, a multiple of 16, from a 16-byte aligned address: the
+//     row pitch F x elem must be a multiple of 16, which the wrapper
+//     checks); each copy is issued through the uniform datapath one at a
+//     time, so one warp alone could not keep the ring full;
 //   * the TPU's semaphore counts bytes of completed copies; an mbarrier
 //     counts arrivals and transaction bytes. The three wait variants
-//     differ only in which mbarrier a copy completes on: one per sample
-//     slot (kSample, expecting one slice), one per output row (kRow, S
-//     slices), one per ring slot (kTile, tile_b x S slices). Every slot
-//     of a tile arrives on its mbarrier every round (with its bytes, or
-//     without for a hot sample, an unused compacted slot or a row past
+//     differ only in which mbarrier a copy completes on and the consumers
+//     wait on: one per slot (kSample, one slice), one per output row
+//     (kRow, W slices), one per stage (kTile, tile_b x W slices). Every
+//     slot of a stage arrives on its mbarrier every round (with its bytes,
+//     or without for a hot sample, an unused compacted slot or a row past
 //     B), so that every mbarrier's phase advances once a round and one
-//     parity per round serves all;
+//     parity a round serves all;
+//   * the consumers, in kConsumerGroups groups that take the items in
+//     turn (two items' loads in flight at once), a thread a 16-byte
+//     vector of a row's slice: they sum the row's slots from shared memory
+//     16 at a time (their loads issued before any is summed; a warp's 32
+//     16-byte loads on 512 contiguous bytes) and store the mean; per-sample
+//     waits test a group's mbarriers together (mbarrier.test_wait) and
+//     wait one by one only where a copy has not landed. Then each warp of
+//     the group arrives on the stage's empty mbarrier, which the
+//     producers wait on before they refill the stage;
 //   * kHot: the TPU's VMEM-resident hot block (2.6 MB at K = 1024) does
 //     not fit a block. Samples with id < K are read straight from the
-//     table with 16-byte loads under an L2::evict_last policy, issued 8
-//     samples at a time before they are summed; the cold ones come by
-//     bulk copy with an L2::evict_first hint. Waits stay per sample,
-//     taken for the cold samples only, as at :240-254;
+//     table by the consumers with 16-byte loads under an L2::evict_last
+//     policy, a whole row's (up to 32 samples) issued before any is
+//     summed: those loads wait on the L2 far longer than the cold slots
+//     wait in shared memory. The cold ones come by bulk copy with an
+//     L2::evict_first hint, waited for per sample; the producers write
+//     the stage's ids for the consumers;
 //   * kCompacted: the wrapper compacts each row's cold ids to the left
-//     (tail = dummy row N) and counts buckets of 4, nb [B]; the block
-//     copies 4 x nb slots of a row and waits once per row. Slots from
-//     4 x nb on are stale and are never read (the TPU selects them away);
+//     (tail = dummy row N) and counts buckets of 4, nb [B]; the producers
+//     copy 4 x nb slots of a row and write nb for the consumers, which
+//     wait once per row. Slots from 4 x nb on are stale and are never
+//     read (the TPU selects them away);
 //   * the reduction sums in f32 over the slots in order and scales by
 //     1/S, as at :107-108. Row offsets are 64-bit; an out-of-range id
 //     traps, as in K1;
@@ -144,7 +171,6 @@ namespace {
 
 using graphsage::to_float;
 
-constexpr int kThreads = 256;
 // a block's shared memory on the H100 (opt-in maximum)
 constexpr size_t kSmemLimit = 232448;
 // returned when the shared memory the wrapper sized (ops/gather_probe.py
@@ -157,8 +183,29 @@ constexpr int kErrTensorMap = 100001;
 enum Wait { kSample = 0, kRow = 1, kTile = 2 };
 enum Mode { kPlain = 0, kHot = 1, kCompacted = 2 };
 
-// K7a hot: the table loads a thread issues before it sums them
-constexpr int kHotLoads = 8;
+// K7a: the samples whose loads a consumer issues before it sums them:
+// from shared memory, and in kHot from the table, whose loads wait on the
+// L2 far longer (a whole row of the probe's 25 samples in one group)
+constexpr int kGroup = 16;
+constexpr int kHotGroup = 32;
+// K7a: the items ahead whose first ids a producer thread holds
+constexpr int kAhead = 4;
+
+#ifdef GRAPHSAGE_RING_STAMPS
+// K7a's timeline, in a build with GRAPHSAGE_RING_STAMPS defined
+// (benchmarks/ring_timeline.py; the default build has none): clock64()
+// at each step of block 0's first kStampItems items, from the first
+// producer thread and each consumer group's first thread
+constexpr int kStampItems = 32;
+enum Stamp { kFillStart, kStageFree, kIssued, kTakeStart, kIdsReady,
+             kDataReady, kSummed, kStamps };
+__device__ long long ring_stamps[kStampItems][kStamps];
+#define RING_STAMP(k, event, who)                                      \
+  if ((who) && blockIdx.x == 0 && (k) < kStampItems)                   \
+  ring_stamps[k][event] = clock64()
+#else
+#define RING_STAMP(k, event, who)
+#endif
 
 struct Args {
   const void* feat;         // [n_rows, F]
@@ -167,7 +214,8 @@ struct Args {
   float* out;               // [B, F]
   int64_t n_rows;
   int B, W, S, F, FC, tile_b, n_buf, K;
-  int n_tiles, tiles_per_block;
+  int n_tiles, n_slices;     // the launch's: items n_tiles x n_slices,
+  int per_block;             // a run of per_block of them a block
   float inv_s;
 };
 
@@ -195,6 +243,19 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
   asm volatile("{\n.reg .b64 state;\n"
                "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;"
                "\n}\n" :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// whether the phase of the given parity has completed, without waiting
+// for it (a group of these can be in flight at once)
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -252,6 +313,13 @@ __device__ __forceinline__ uint4 ld_hint(const void* src, uint64_t policy) {
   return v;
 }
 
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
 // acc[k] += the k-th element of 16 bytes of T
 template <typename T>
 __device__ __forceinline__ void add16(float* acc, const uint4& raw) {
@@ -270,220 +338,268 @@ __device__ __forceinline__ float tf32_rna(float v) {
 
 // ------------------------------------------------------------ the ring
 
-// Shared memory of the ring, in this order: n_buf slots of tile_b x W
-// slices of FC elements; the mbarriers; each slot's ids [tile_b x W] and
-// live buckets [tile_b]; rounded up to 16 bytes for what follows.
-// ops/gather_probe.py::ring_bytes sizes it to pick the column slice and
-// passes its size to the launch, which refuses one that differs.
-struct Ring {
-  unsigned char* slots;
-  uint32_t slots_addr;
-  uint32_t bars_addr;
-  int32_t* ids;
-  int32_t* nbs;
-  int bars_per_slot;
-  size_t end;   // bytes used
-};
+// K7a's block: the producer warps, then the consumer warps
+constexpr int kRingProducers = 2;
+constexpr int kRingConsumers = 10;
+// the consumer warps form groups that take the items in turn, so that
+// two items' loads are in flight at once
+constexpr int kConsumerGroups = 2;
+constexpr int kGroupWarps = kRingConsumers / kConsumerGroups;
+constexpr int kRingThreads = 32 * (kRingProducers + kRingConsumers);
 
+// A stage's full mbarriers: one per slot (kSample, a copy each), per
+// output row (kRow, W arrivals) or one (kTile, tile_b x W arrivals).
+// Each stage also has an empty mbarrier (kGroupWarps arrivals: the
+// warps of the consumer group that took the stage are done with it) and an ids mbarrier (an arrival from
+// each producer thread: it has written its ids and issued its copies;
+// every consumer warp waits for it before it frees the stage, so that no
+// arrival on the empty mbarrier can count towards the round before).
 template <int WAIT>
-__host__ __device__ int bars_per_slot(int tile_b, int W) {
+__host__ __device__ int full_bars(int tile_b, int W) {
   return WAIT == kSample ? tile_b * W : (WAIT == kRow ? tile_b : 1);
 }
 
+// Shared memory of the ring, in this order: n_buf stages of tile_b x W
+// slots of FC elements; each stage's mbarriers (its full ones, its empty
+// one, its ids one); each stage's ids [tile_b x W] and live buckets
+// [tile_b]; rounded up to 16 bytes. ops/gather_probe.py::ring_bytes
+// sizes it to pick the column slice and the depth and passes its size to
+// the launch, which refuses one that differs.
 template <int WAIT>
 __host__ __device__ size_t ring_bytes(int n_buf, int tile_b, int W,
                                       size_t slice_bytes) {
-  const size_t slot_rows = static_cast<size_t>(tile_b) * W;
+  const size_t slots = static_cast<size_t>(tile_b) * W;
   const size_t bytes =
-      n_buf * slot_rows * slice_bytes
-      + 8 * static_cast<size_t>(n_buf) * bars_per_slot<WAIT>(tile_b, W)
-      + 4 * n_buf * slot_rows + 4 * static_cast<size_t>(n_buf) * tile_b;
+      n_buf * slots * slice_bytes
+      + 8 * static_cast<size_t>(n_buf) * (full_bars<WAIT>(tile_b, W) + 2)
+      + 4 * n_buf * slots + 4 * static_cast<size_t>(n_buf) * tile_b;
   return (bytes + 15) & ~static_cast<size_t>(15);
-}
-
-template <int WAIT>
-__device__ Ring make_ring(unsigned char* smem, const Args& a,
-                          uint32_t slice_bytes) {
-  Ring r;
-  const int slot_rows = a.tile_b * a.W;
-  r.bars_per_slot = bars_per_slot<WAIT>(a.tile_b, a.W);
-  r.slots = smem;
-  r.slots_addr = smem_addr(smem);
-  size_t off = static_cast<size_t>(a.n_buf) * slot_rows * slice_bytes;
-  r.bars_addr = r.slots_addr + static_cast<uint32_t>(off);
-  off += 8 * static_cast<size_t>(a.n_buf) * r.bars_per_slot;
-  r.ids = reinterpret_cast<int32_t*>(smem + off);
-  off += 4 * static_cast<size_t>(a.n_buf) * slot_rows;
-  r.nbs = reinterpret_cast<int32_t*>(smem + off);
-  off += 4 * static_cast<size_t>(a.n_buf) * a.tile_b;
-  r.end = (off + 15) & ~static_cast<size_t>(15);
-  const uint32_t count = WAIT == kSample ? 1u
-                         : (WAIT == kRow ? static_cast<uint32_t>(a.W)
-                                         : static_cast<uint32_t>(slot_rows));
-  for (int i = threadIdx.x; i < a.n_buf * r.bars_per_slot; i += blockDim.x) {
-    mbar_init(r.bars_addr + 8 * i, count);
-  }
-  fence_barrier_init();
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ uint32_t bar_of(const Ring& r, int slot, int i) {
-  return r.bars_addr + 8 * (slot * r.bars_per_slot + i);
-}
-
-// make_async_copy(...).start() for every slot of tile `tile` into ring
-// slot `slot`: each thread takes slots j of the tile, loads the id,
-// records it, and either arrives with the copy's bytes and issues the
-// copy or arrives without bytes
-template <typename T, int WAIT, int MODE>
-__device__ void issue_tile(const Args& a, const Ring& r, int tile, int slot,
-                           int col0, uint32_t slice_bytes,
-                           uint64_t cold_policy) {
-  const T* feat = static_cast<const T*>(a.feat);
-  const int slot_rows = a.tile_b * a.W;
-  const int64_t row0 = static_cast<int64_t>(tile) * a.tile_b;
-  fence_proxy_async();
-  for (int j = threadIdx.x; j < slot_rows; j += blockDim.x) {
-    const int rr = j / a.W, s = j - rr * a.W;
-    const int64_t b = row0 + rr;
-    int32_t id = 0;
-    bool copy = false;
-    if (b < a.B) {
-      id = a.idx[b * a.W + s];
-      if (id < 0 || id >= a.n_rows) __trap();
-      if (MODE == kHot) {
-        copy = id >= a.K;
-      } else if (MODE == kCompacted) {
-        const int nb = a.nb[b];
-        if (nb < 0 || 4 * nb > a.W) __trap();
-        copy = s < 4 * nb;
-        if (s == 0) r.nbs[slot * a.tile_b + rr] = nb;
-      } else {
-        copy = true;
-      }
-    } else if (MODE == kCompacted && s == 0) {
-      r.nbs[slot * a.tile_b + rr] = 0;
-    }
-    r.ids[slot * slot_rows + j] = id;
-    const uint32_t bar =
-        bar_of(r, slot, WAIT == kSample ? j : (WAIT == kRow ? rr : 0));
-    if (copy) {
-      mbar_arrive_expect_tx(bar, slice_bytes);
-      const uint32_t dst =
-          r.slots_addr + static_cast<uint32_t>(slot * slot_rows + j)
-                             * slice_bytes;
-      const T* src = feat + static_cast<int64_t>(id) * a.F + col0;
-      if (MODE == kHot) {
-        bulk_copy_hint(dst, src, slice_bytes, bar, cold_policy);
-      } else {
-        bulk_copy(dst, src, slice_bytes, bar);
-      }
-    } else {
-      mbar_arrive(bar);
-    }
-  }
-}
-
-// the block's run of tiles: [tile0, tile0 + n_my)
-__device__ __forceinline__ void block_tiles(const Args& a, int& tile0,
-                                            int& n_my) {
-  tile0 = blockIdx.y * a.tiles_per_block;
-  n_my = min(a.tiles_per_block, a.n_tiles - tile0);
 }
 
 // ---------------------------------------------------------------- K7a
 
+// The block walks its run of items, an item a tile of tile_b output rows
+// x one column slice of FC columns, the k-th into stage k % n_buf in round
+// k / n_buf. The producer warps fill stages (a thread a slot: its id, then
+// one bulk copy of the slot's slice), the consumer groups sum them from
+// shared memory in turn (a thread a 16-byte vector of a row's slice) and
+// free them.
 template <typename T, int WAIT, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRingThreads)
 probe_gather_kernel(const Args a) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t slice_bytes = a.FC * sizeof(T);
-  const Ring r = make_ring<WAIT>(smem, a, slice_bytes);
-  const int col0 = blockIdx.x * a.FC;
-  int tile0, n_my;
-  block_tiles(a, tile0, n_my);
-  const T* feat = static_cast<const T*>(a.feat);
-  const int slot_rows = a.tile_b * a.W;
-  const int vpr = a.FC / VEC;   // 16-byte vectors in a row's slice
-  const uint64_t cold_policy = MODE == kHot ? policy_evict_first() : 0;
-  const uint64_t hot_policy = MODE == kHot ? policy_evict_last() : 0;
-
-  for (int k = 0; k < a.n_buf - 1 && k < n_my; ++k) {
-    issue_tile<T, WAIT, MODE>(a, r, tile0 + k, k, col0, slice_bytes,
-                              cold_policy);
+  const int slots = a.tile_b * a.W;
+  const int full = full_bars<WAIT>(a.tile_b, a.W);
+  const int nbar = full + 2;          // then empty, then ids
+  const size_t stage_bytes = static_cast<size_t>(slots) * slice_bytes;
+  const uint32_t slots_addr = smem_addr(smem);
+  size_t off = a.n_buf * stage_bytes;
+  const uint32_t bars = slots_addr + static_cast<uint32_t>(off);
+  off += 8 * static_cast<size_t>(a.n_buf) * nbar;
+  int32_t* const ids = reinterpret_cast<int32_t*>(smem + off);
+  off += 4 * static_cast<size_t>(a.n_buf) * slots;
+  int32_t* const nbs = reinterpret_cast<int32_t*>(smem + off);
+  const uint32_t full_count = WAIT == kSample ? 1u
+                              : (WAIT == kRow ? static_cast<uint32_t>(a.W)
+                                              : static_cast<uint32_t>(slots));
+  for (int i = threadIdx.x; i < a.n_buf * nbar; i += blockDim.x) {
+    const int k = i % nbar;
+    mbar_init(bars + 8 * i, k < full ? full_count
+                            : (k == full ? kGroupWarps
+                                         : 32u * kRingProducers));
   }
-  for (int i = 0; i < n_my; ++i) {
-    const int ahead = i + a.n_buf - 1;
-    if (ahead < n_my) {
-      issue_tile<T, WAIT, MODE>(a, r, tile0 + ahead, ahead % a.n_buf, col0,
-                                slice_bytes, cold_policy);
+  fence_barrier_init();
+  __syncthreads();
+
+  // the block's run of items, slice-major: a block keeps to one column
+  // slice over consecutive tiles, as the TPU's sequential grid does
+  const int i0 = blockIdx.x * a.per_block;
+  const int i1 = min(a.n_tiles * a.n_slices, i0 + a.per_block);
+  const int lane = threadIdx.x % 32;
+  const T* feat = static_cast<const T*>(a.feat);
+  if (threadIdx.x < 32 * kRingProducers) {
+    // the producers: a thread a slot, slot j to lane j / P of warp j % P
+    const int pt = lane * kRingProducers + threadIdx.x / 32;
+    const uint64_t cold_policy = MODE == kHot ? policy_evict_first() : 0;
+    // the id (and the row's live buckets) of the thread's first slot in an
+    // item: loaded kAhead items before the item is filled
+    auto first_of = [&](int item, int32_t& id, int32_t& nb) {
+      const int64_t b =
+          static_cast<int64_t>(item % a.n_tiles) * a.tile_b + pt / a.W;
+      if (item < i1 && pt < slots && b < a.B) {
+        id = a.idx[b * a.W + pt % a.W];
+        if (MODE == kCompacted) nb = a.nb[b];
+      }
+    };
+    // fill the k-th item's stage, its first slot's id and buckets given
+    auto fill = [&](int item, int k, int32_t first, int32_t first_nb) {
+      const int stage = k % a.n_buf, round = k / a.n_buf;
+      const int tile = item % a.n_tiles;
+      const int col0 = (item / a.n_tiles) * a.FC;
+      const int64_t row0 = static_cast<int64_t>(tile) * a.tile_b;
+      const uint32_t sbar = bars + 8 * stage * nbar;
+      int32_t* const sids = ids + stage * slots;
+      int32_t* const snbs = nbs + stage * a.tile_b;
+      const uint32_t sdst =
+          slots_addr + static_cast<uint32_t>(stage * stage_bytes);
+      RING_STAMP(k, kFillStart, pt == 0);
+      if (round > 0) mbar_wait(sbar + 8 * full, (round - 1) & 1);
+      RING_STAMP(k, kStageFree, pt == 0);
+      fence_proxy_async();
+      for (int j = pt; j < slots; j += 32 * kRingProducers) {
+        const int rr = j / a.W, s = j - rr * a.W;
+        const int64_t b = row0 + rr;
+        int32_t id = 0;
+        bool copy = false;
+        if (b < a.B) {
+          id = j == pt ? first : a.idx[b * a.W + s];
+          if (id < 0 || id >= a.n_rows) __trap();
+          if (MODE == kHot) {
+            copy = id >= a.K;
+          } else if (MODE == kCompacted) {
+            const int nb = j == pt ? first_nb : a.nb[b];
+            if (nb < 0 || 4 * nb > a.W) __trap();
+            copy = s < 4 * nb;
+            if (s == 0) snbs[rr] = nb;
+          } else {
+            copy = true;
+          }
+        } else if (MODE == kCompacted && s == 0) {
+          snbs[rr] = 0;
+        }
+        if (MODE == kHot) sids[j] = id;
+        const uint32_t bar =
+            sbar + 8 * (WAIT == kSample ? j : (WAIT == kRow ? rr : 0));
+        if (copy) {
+          mbar_arrive_expect_tx(bar, slice_bytes);
+          const uint32_t dst = sdst + static_cast<uint32_t>(j) * slice_bytes;
+          const T* src = feat + static_cast<int64_t>(id) * a.F + col0;
+          if (MODE == kHot) {
+            bulk_copy_hint(dst, src, slice_bytes, bar, cold_policy);
+          } else {
+            bulk_copy(dst, src, slice_bytes, bar);
+          }
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+      RING_STAMP(k, kIssued, pt == 0);
+      mbar_arrive(sbar + 8 * (full + 1));   // this thread's slots are done
+    };
+    int32_t first[kAhead], first_nb[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      first[u] = first_nb[u] = 0;
+      first_of(i0 + u, first[u], first_nb[u]);
     }
-    __syncthreads();   // the slot's ids and buckets are written
-    const int slot = i % a.n_buf;
-    const uint32_t parity = (i / a.n_buf) & 1;
-    const int64_t row0 = static_cast<int64_t>(tile0 + i) * a.tile_b;
-    if (WAIT == kTile) mbar_wait(bar_of(r, slot, 0), parity);
-    for (int p = threadIdx.x; p < a.tile_b * vpr; p += blockDim.x) {
+    // unrolled kAhead times, so that each item's prefetched values stay in
+    // registers of their own until they are used
+    for (int k = 0, item = i0; item < i1;) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u, ++k, ++item) {
+        if (item < i1) {
+          fill(item, k, first[u], first_nb[u]);
+          first_of(item + kAhead, first[u], first_nb[u]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers, in groups that take the items in turn: a thread a
+  // 16-byte vector of a row's slice. No more groups than stages: a group
+  // waits for an item's round of a stage only once it has taken an item
+  // at least as late as the stage's round before, so that the parity it
+  // waits on cannot be the round before's
+  const int cw = threadIdx.x / 32 - kRingProducers;
+  const int group = cw / kGroupWarps;
+  const int n_groups = min(kConsumerGroups, a.n_buf);
+  if (group >= n_groups) return;
+  const int ct = threadIdx.x - 32 * (kRingProducers + group * kGroupWarps);
+  const int vpr = a.FC / VEC;   // vectors in a row's slice
+  const uint64_t hot_policy = MODE == kHot ? policy_evict_last() : 0;
+  for (int k = group, item = i0 + group; item < i1;
+       k += n_groups, item += n_groups) {
+    const int stage = k % a.n_buf;
+    const uint32_t parity = (k / a.n_buf) & 1;
+    const int tile = item % a.n_tiles;
+    const int col0 = (item / a.n_tiles) * a.FC;
+    const int64_t row0 = static_cast<int64_t>(tile) * a.tile_b;
+    const uint32_t sbar = bars + 8 * stage * nbar;
+    const uint32_t sslots =
+        slots_addr + static_cast<uint32_t>(stage * stage_bytes);
+    RING_STAMP(k, kTakeStart, ct == 0);
+    mbar_wait(sbar + 8 * (full + 1), parity);   // the stage's round began
+    RING_STAMP(k, kIdsReady, ct == 0);
+    if (WAIT == kTile) mbar_wait(sbar, parity);
+    for (int p = ct; p < a.tile_b * vpr; p += 32 * kGroupWarps) {
       const int rr = p / vpr, v = p - rr * vpr;
       const int64_t b = row0 + rr;
-      if (b >= a.B) continue;
-      if (WAIT == kRow) mbar_wait(bar_of(r, slot, rr), parity);
+      if (b >= a.B) break;   // later p are later rows
+      if (WAIT == kRow) mbar_wait(sbar + 8 * rr, parity);
       float acc[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
       const int n_live =
-          MODE == kCompacted ? 4 * r.nbs[slot * a.tile_b + rr] : a.W;
-      if constexpr (MODE == kHot) {
-        // groups of kHotLoads samples: the group's hot loads are issued
-        // before any is summed, the cold ones wait for their copies
-        const int32_t* ids = r.ids + slot * slot_rows + rr * a.W;
-        for (int s0 = 0; s0 < n_live; s0 += kHotLoads) {
-          uint4 hv[kHotLoads];
+          MODE == kCompacted ? 4 * nbs[stage * a.tile_b + rr] : a.W;
+      const uint32_t row = sslots + rr * a.W * slice_bytes + 16 * v;
+      const uint32_t row_bars = sbar + 8 * rr * a.W;   // kSample's
+      constexpr int G = MODE == kHot ? kHotGroup : kGroup;
+      // groups of G slots: the group's loads are issued before any is
+      // summed; per-sample waits test the group's mbarriers together and
+      // wait one by one only where a copy has not landed
+      const int32_t* rid = ids + stage * slots + rr * a.W;
+      for (int s0 = 0; s0 < n_live; s0 += G) {
+        const int n = min(G, n_live - s0);
+        uint4 raw[G];
+        if (MODE == kHot) {
 #pragma unroll
-          for (int u = 0; u < kHotLoads; ++u) {
-            const int s = s0 + u;
-            if (s < n_live && ids[s] < a.K) {
-              hv[u] = ld_hint(feat + static_cast<int64_t>(ids[s]) * a.F
-                                  + col0 + v * VEC, hot_policy);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kHotLoads; ++u) {
-            const int j = rr * a.W + s0 + u;
-            if (s0 + u >= n_live) break;
-            if (ids[s0 + u] < a.K) {
-              add16<T>(acc, hv[u]);
-            } else {
-              mbar_wait(bar_of(r, slot, j), parity);
-              add16<T>(acc, *reinterpret_cast<const uint4*>(
-                  r.slots + static_cast<size_t>(slot * slot_rows + j)
-                                * slice_bytes + 16 * v));
+          for (int u = 0; u < G; ++u) {
+            if (u < n && rid[s0 + u] < a.K) {
+              raw[u] = ld_hint(feat + static_cast<int64_t>(rid[s0 + u]) * a.F
+                                   + col0 + v * VEC, hot_policy);
             }
           }
         }
-      } else {
-        // (one loop for the other modes: it measured faster than the
-        // grouped one for them)
-        for (int s = 0; s < n_live; ++s) {
-          const int j = rr * a.W + s;
-          if (WAIT == kSample) mbar_wait(bar_of(r, slot, j), parity);
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              r.slots + static_cast<size_t>(slot * slot_rows + j)
-                            * slice_bytes + 16 * v);
-          add16<T>(acc, raw);
+        if (WAIT == kSample) {
+          bool landed = true;
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            if (u < n && (MODE != kHot || rid[s0 + u] >= a.K)) {
+              landed &= mbar_test(row_bars + 8 * (s0 + u), parity);
+            }
+          }
+          if (!landed) {
+            for (int u = 0; u < n; ++u) {
+              mbar_wait(row_bars + 8 * (s0 + u), parity);
+            }
+          }
+        }
+        RING_STAMP(k, kDataReady, ct == 0 && p == 0 && s0 == 0);
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          if (u < n && (MODE != kHot || rid[s0 + u] >= a.K)) {
+            raw[u] = ld_shared_v4(row + (s0 + u) * slice_bytes);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          if (u < n) add16<T>(acc, raw[u]);
         }
       }
       float* o = a.out + b * a.F + col0 + v * VEC;
 #pragma unroll
-      for (int k = 0; k < VEC; k += 4) {
-        *reinterpret_cast<float4*>(o + k) =
-            make_float4(acc[k] * a.inv_s, acc[k + 1] * a.inv_s,
-                        acc[k + 2] * a.inv_s, acc[k + 3] * a.inv_s);
+      for (int e = 0; e < VEC; e += 4) {
+        *reinterpret_cast<float4*>(o + e) =
+            make_float4(acc[e] * a.inv_s, acc[e + 1] * a.inv_s,
+                        acc[e + 2] * a.inv_s, acc[e + 3] * a.inv_s);
       }
     }
-    __syncthreads();   // the slot is free for the copies of tile i + n_buf
+    RING_STAMP(k, kSummed, ct == 0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sbar + 8 * full);   // the stage is free
   }
 }
 
@@ -1379,8 +1495,9 @@ probe_hotmx_kernel(const HotmxArgs a,
 
 // ------------------------------------------------------------- launches
 
-// fills the grid: blocks of one column slice walk runs of tiles, as many
-// runs as keep every SM busy at the kernel's occupancy
+// a persistent grid: as many blocks as the SMs hold at the ring's
+// shared memory, each walking a run of items (tile x slice), the runs
+// within one item of each other
 template <typename Kernel>
 int launch_ring(Kernel kernel, Args a, size_t smem, void* stream) {
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
@@ -1392,17 +1509,18 @@ int launch_ring(Kernel kernel, Args a, size_t smem, void* stream) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                      kRingThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_slices = a.F / a.FC;
+  a.n_slices = a.F / a.FC;
   a.n_tiles = (a.B + a.tile_b - 1) / a.tile_b;
-  const int want = (n_sm * occ + n_slices - 1) / n_slices;
-  const int runs = max(1, min(a.n_tiles, want));
-  a.tiles_per_block = (a.n_tiles + runs - 1) / runs;
-  const int groups = (a.n_tiles + a.tiles_per_block - 1) / a.tiles_per_block;
-  kernel<<<dim3(n_slices, groups), kThreads, smem,
+  const long long items = static_cast<long long>(a.n_tiles) * a.n_slices;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long fill = static_cast<long long>(n_sm) * occ;
+  a.per_block = static_cast<int>((items + fill - 1) / fill);
+  const long long grid = (items + a.per_block - 1) / a.per_block;
+  kernel<<<static_cast<unsigned int>(grid), kRingThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1615,6 +1733,19 @@ int graphsage_probe_hotmx(const void* feat, const void* idx, void* out,
                           bytes, stream);
   }
 }
+
+#ifdef GRAPHSAGE_RING_STAMPS
+// K7a's stamps [kStampItems][kStamps] into host, then zeroed
+int graphsage_probe_ring_stamps(long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, ring_stamps,
+                                         sizeof(ring_stamps));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* dev = nullptr;
+  err = cudaGetSymbolAddress(&dev, ring_stamps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemset(dev, 0, sizeof(ring_stamps)));
+}
+#endif
 
 const char* graphsage_cuda_error_string(int err) {
   if (err == kErrSmemMismatch) {

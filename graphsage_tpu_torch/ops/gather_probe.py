@@ -2,9 +2,10 @@
 sampled rows, ``out[b] = (1/S) * sum_s features[idx[b, s]]``, after the
 JAX package's ``benchmarks/gather_probe.py``.
 
-- ``probe_gather`` (K7a, ``wait`` = sample, row or tile): a ring of bulk
-  row copies completing on mbarriers, waited for per sample, per output
-  row or per tile (``_plain_kernel``, ``_bulkwait_kernel``,
+- ``probe_gather`` (K7a, ``wait`` = sample, row or tile): producer
+  warps' bulk row copies into a ring of stages in shared memory,
+  completing on mbarriers that consumer warps wait on per sample, per
+  output row or per stage (``_plain_kernel``, ``_bulkwait_kernel``,
   ``_tilewait_kernel``).
 - ``probe_gather_hot`` (K7a, hot): ids below K read straight from the
   table under an L2 evict-last policy, the others by bulk copy
@@ -63,7 +64,12 @@ SOURCE = "gather_probe"
 WAITS = ("sample", "row", "tile")
 _WAIT_CODE = {"sample": 0, "row": 1, "tile": 2}
 _MODE_CODE = {"plain": 0, "hot": 1, "compacted": 2}
-TILE_B = 8                  # the JAX probe's rows a tile
+# K7a's ring by default: three stages of the widest column slice that
+# fits (ring_slice), each of as many output rows as make RING_STAGE_BYTES
+# of whole rows (ring_rows): at the probe's shape whole rows, one output
+# row a stage for f32, two for bf16
+RING_STAGES = 3
+RING_STAGE_BYTES = 65_536
 SMEM_BYTES = 232_448        # a block's shared memory on the H100 (opt-in)
 HOT_TILE = 128              # K7b's B multiple, the JAX HOT_TILE
 MAX_COUNT = 256             # counts stay exact in bf16 up to S = 256
@@ -180,19 +186,21 @@ def hotmx_reference(features: torch.Tensor, idx: torch.Tensor,
 
 # ------------------------------------------------------ shapes, checks
 
-def bars_per_slot(wait: str, tile_b: int, W: int) -> int:
+def full_bars(wait: str, tile_b: int, W: int) -> int:
+    """A K7a stage's full mbarriers: one per slot, per row or per stage."""
     return {"sample": tile_b * W, "row": tile_b, "tile": 1}[wait]
 
 
 def ring_bytes(wait: str, n_buf: int, tile_b: int, W: int,
                slice_bytes: int) -> int:
-    """K7a's shared memory: n_buf slots of tile_b x W column slices, the
-    mbarriers, each slot's ids and live buckets, rounded up to 16 bytes
-    (the layout of ``csrc/gather_probe.cu::make_ring``)."""
-    slot_rows = tile_b * W
-    n = (n_buf * slot_rows * slice_bytes
-         + 8 * n_buf * bars_per_slot(wait, tile_b, W)
-         + 4 * n_buf * slot_rows + 4 * n_buf * tile_b)
+    """K7a's shared memory: n_buf stages of tile_b x W column slices, each
+    stage's mbarriers (its full ones, an empty one, an ids one), each
+    stage's ids and live buckets, rounded up to 16 bytes (the layout of
+    ``csrc/gather_probe.cu::probe_gather_kernel``)."""
+    slots = tile_b * W
+    n = (n_buf * slots * slice_bytes
+         + 8 * n_buf * (full_bars(wait, tile_b, W) + 2)
+         + 4 * n_buf * slots + 4 * n_buf * tile_b)
     return -(-n // 16) * 16
 
 
@@ -231,10 +239,17 @@ def column_slice(F: int, elem: int, smem) -> int:
     )
 
 
+def ring_rows(F: int, elem: int, W: int) -> int:
+    """K7a's default rows a stage: as many whole rows of W slots as fit
+    ``RING_STAGE_BYTES``, at least one."""
+    return max(1, RING_STAGE_BYTES // max(1, W * F * elem))
+
+
 @functools.cache
-def _ring_slice(F: int, elem: int, wait: str, n_buf: int, tile_b: int,
-                W: int) -> int:
-    """K7a's column slice (cached: the wrappers ask at every call)."""
+def ring_slice(F: int, elem: int, wait: str, n_buf: int, tile_b: int,
+               W: int) -> int:
+    """FC: K7a's column slice, the widest of which n_buf stages of tile_b
+    rows of W slots fit (cached: the wrappers ask at every call)."""
     return column_slice(F, elem, lambda fc: ring_bytes(
         wait, n_buf, tile_b, W, fc * elem))
 
@@ -282,6 +297,12 @@ def _check_compacted(idx_dma: torch.Tensor, nb: torch.Tensor,
             or nb.device != features.device):
         raise ValueError(f"nb must be [{B}] int32, contiguous, on "
                          f"{features.device}")
+
+
+def _ring_rows(features: torch.Tensor, W: int, tile_b: int | None) -> int:
+    if tile_b is not None:
+        return tile_b
+    return ring_rows(features.shape[1], features.element_size(), W)
 
 
 def _check_ring(tile_b: int, n_buf: int) -> None:
@@ -336,19 +357,22 @@ def _launch_ring(features, idx, nb, W, S, FC, tile_b, n_buf, K, wait, mode):
 # ------------------------------------------------------------- wrappers
 
 def probe_gather(features: torch.Tensor, idx: torch.Tensor,
-                 wait: str = "sample", tile_b: int = TILE_B,
-                 n_buf: int = 2) -> torch.Tensor:
+                 wait: str = "sample", tile_b: int | None = None,
+                 n_buf: int = RING_STAGES) -> torch.Tensor:
     """[B, F] f32 mean of features[idx] over S, through K7a's ring of
-    ``n_buf`` slots of ``tile_b`` rows, waited for per ``wait`` (sample,
-    row or tile). features [N+1, F] f32 or bf16, idx [B, S] int32 in
-    [0, N+1). Launches counted in ``probe_gather.launches[wait]``."""
+    ``n_buf`` stages of ``tile_b`` rows (by default ``ring_rows``;
+    ``ring_slice`` picks the column slice), waited for per ``wait``
+    (sample, row or tile). features [N+1, F] f32 or bf16, idx
+    [B, S] int32 in [0, N+1). Launches counted in
+    ``probe_gather.launches[wait]``."""
     _check_table(features)
     _check_ids(idx, features)
+    tile_b = _ring_rows(features, idx.shape[1], tile_b)
     _check_ring(tile_b, n_buf)
     if wait not in WAITS:
         raise ValueError(f"wait must be one of {WAITS}, got {wait!r}")
     S, (_, F), elem = idx.shape[1], features.shape, features.element_size()
-    FC = _ring_slice(F, elem, wait, n_buf, tile_b, S)
+    FC = ring_slice(F, elem, wait, n_buf, tile_b, S)
     if features.device.type == "cpu":
         return gather_mean_reference(features, idx)
     _check_device(features, "probe_gather")
@@ -362,16 +386,18 @@ probe_gather.launches = dict.fromkeys(WAITS, 0)   # K7a plain/bulk/tilewait
 
 
 def probe_gather_hot(features: torch.Tensor, idx: torch.Tensor, K: int,
-                     tile_b: int = TILE_B, n_buf: int = 2) -> torch.Tensor:
+                     tile_b: int | None = None,
+                     n_buf: int = RING_STAGES) -> torch.Tensor:
     """As ``probe_gather`` with per-sample waits, the ids below K read
     straight from the table (K7a hot; ``probe_gather_hot.launches``)."""
     _check_table(features)
     _check_ids(idx, features)
+    tile_b = _ring_rows(features, idx.shape[1], tile_b)
     _check_ring(tile_b, n_buf)
     if not 0 <= K < 2**31:
         raise ValueError(f"K must be in [0, 2**31), got {K}")
     S, (_, F), elem = idx.shape[1], features.shape, features.element_size()
-    FC = _ring_slice(F, elem, "sample", n_buf, tile_b, S)
+    FC = ring_slice(F, elem, "sample", n_buf, tile_b, S)
     if features.device.type == "cpu":
         return gather_mean_reference(features, idx)
     _check_device(features, "probe_gather_hot")
@@ -385,20 +411,21 @@ probe_gather_hot.launches = 0
 
 
 def probe_coldsw(features: torch.Tensor, idx_dma: torch.Tensor,
-                 nb: torch.Tensor, S: int, tile_b: int = TILE_B,
-                 n_buf: int = 2) -> torch.Tensor:
+                 nb: torch.Tensor, S: int, tile_b: int | None = None,
+                 n_buf: int = RING_STAGES) -> torch.Tensor:
     """[B, F] f32: (1/S) x the sum of each row's first 4 x nb[b] slots of
     idx_dma [B, SW] (SW a multiple of 4, nb [B] int32 in [0, SW/4]),
     through K7a's ring with one wait per row (K7a compacted;
     ``probe_coldsw.launches``)."""
     _check_table(features)
     _check_compacted(idx_dma, nb, features)
+    tile_b = _ring_rows(features, idx_dma.shape[1], tile_b)
     _check_ring(tile_b, n_buf)
     SW = idx_dma.shape[1]
     if S < 1:
         raise ValueError(f"S must be >= 1, got {S}")
     F, elem = features.shape[1], features.element_size()
-    FC = _ring_slice(F, elem, "row", n_buf, tile_b, SW)
+    FC = ring_slice(F, elem, "row", n_buf, tile_b, SW)
     if features.device.type == "cpu":
         return coldsw_reference(features, idx_dma, nb, S)
     _check_device(features, "probe_coldsw")

@@ -186,6 +186,131 @@ def test_zero_rate_launches_k1(cuda):
     torch.testing.assert_close(out, gather_mean_reference(table, idx))
 
 
+K2_KEY = dict(seed=2**63 + 12345, offset=(7, 0x5EED))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 25, 64])
+@pytest.mark.parametrize("F", [1, 3, 5, 8, 601, 602, 640])
+def test_dropout_kernel_mask_is_the_plain_mask(cuda, dtype, S, F):
+    """K2's mask bit for bit against ``philox.dropout_keep_mask`` (through
+    S = 1 on a table without zeros: a row's element is nonzero iff it is
+    kept), the means within 1e-5 of the plain version; B = 37 rows, a
+    launch's items ragged over its blocks whatever F."""
+    B = 37
+    gen = torch.Generator(device=cuda).manual_seed(F * 100 + S)
+    table = (torch.rand(51, F, generator=gen, device=cuda) + 0.5).to(dtype)
+    idx = torch.randint(0, 51, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    out = fused_gather_mean(table, idx, 0.5, **K2_KEY)
+    want = gather_mean_dropout_reference(table, idx, 0.5, **K2_KEY)
+    assert float((out - want).abs().max()) <= 1e-5
+    flat = idx.reshape(-1, 1).contiguous()
+    kept = fused_gather_mean(table, flat, 0.5, **K2_KEY) != 0
+    mask = dropout_keep_mask(B * S, F, 0.5, K2_KEY["seed"],
+                             *K2_KEY["offset"], device=cuda)
+    assert torch.equal(kept, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [16, 17, 18, 19, 20])
+@pytest.mark.parametrize("F,n_blocks", [(5, 1), (602, 1), (640, 1),
+                                        (602, 2), (602, 4)])
+def test_dropout_kernel_mask_sample_by_sample(cuda, dtype, S, F, n_blocks):
+    """K2's mask for every sample, bit for bit against
+    ``philox.dropout_keep_mask``, through its loop over samples: row s of
+    the table is 2**s and idx[b, s] = s, so out * S / scale is the integer
+    whose bit s says whether sample s was kept (exact in f32 up to S =
+    20). S 16 to 20 run the loop four samples at a time (f32, and bf16
+    at VEC <= 4) or two (bf16 at VEC 8: F = 640 and the 304- and
+    152-column blocks), then every tail; on each column block of
+    ``column_blocks(F, n_blocks)`` too, at its columns of the whole
+    rows' mask; B = 37."""
+    from graphsage_tpu_torch.ops.philox import dropout_scale
+    from graphsage_tpu_torch.parallel.tensor import column_blocks
+
+    B = 37
+    idx = torch.arange(S, dtype=torch.int32, device=cuda).expand(
+        B, S).contiguous()
+    for lo, hi in column_blocks(F, n_blocks):
+        blk = {} if n_blocks == 1 else dict(col_base=lo, row_width=F)
+        table = (2.0 ** torch.arange(S, dtype=torch.float64, device=cuda))[
+            :, None].expand(S, hi - lo).to(dtype).contiguous()
+        out = fused_gather_mean(table, idx, 0.5, **K2_KEY, **blk)
+        sums = torch.round(out.double() * S / dropout_scale(0.5)).long()
+        assert not bool((sums >> S).any())
+        kept = ((sums[:, None, :]
+                 >> torch.arange(S, device=cuda)[None, :, None]) & 1).bool()
+        mask = dropout_keep_mask(B * S, hi - lo, 0.5, K2_KEY["seed"],
+                                 *K2_KEY["offset"], device=cuda, **blk)
+        assert torch.equal(kept, mask.view(B, S, hi - lo))
+
+
+def test_dropout_kernel_64bit_counters(cuda):
+    """The first columns of rows 2**33 wide: B x S x row_groups passes
+    2**32, so the counters are 64-bit (the kernel's wide instance); the
+    mask is the plain version's there too."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.rand(51, 12, generator=gen, device=cuda) + 0.5
+    idx = torch.randint(0, 51, (40, 3), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    blk = dict(col_base=0, row_width=2**33)
+    out = fused_gather_mean(table, idx, 0.5, **K2_KEY, **blk)
+    want = gather_mean_dropout_reference(table, idx, 0.5, K2_KEY["seed"],
+                                         K2_KEY["offset"], **blk)
+    assert float((out - want).abs().max()) <= 1e-5
+    flat = idx.reshape(-1, 1).contiguous()
+    kept = fused_gather_mean(table, flat, 0.5, **K2_KEY, **blk) != 0
+    assert torch.equal(kept, dropout_keep_mask(
+        120, 12, 0.5, K2_KEY["seed"], *K2_KEY["offset"], device=cuda,
+        **blk))
+
+
+def test_dropout_kernel_row_offsets_beyond_int32(cuda):
+    """idx * F exceeds 2**31 here: K2's row offsets are 64-bit."""
+    F, n_rows = 602, 3_600_000
+    table = torch.zeros(n_rows, F, dtype=torch.bfloat16, device=cuda)
+    rows = torch.tensor([0, 3_000_000, n_rows - 1], device=cuda)
+    table[rows] = torch.arange(1, 4, device=cuda, dtype=torch.bfloat16)[:,
+                                                                         None]
+    idx = rows.to(torch.int32).view(1, 3)
+    out = fused_gather_mean(table, idx, 0.5, **K2_KEY)
+    want = gather_mean_dropout_reference(table, idx, 0.5, **K2_KEY)
+    assert float((out - want).abs().max()) <= 1e-5 and bool(out.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_repeats_bit_for_bit(cuda, dtype):
+    table = torch.randn(3000, 602, device=cuda).to(dtype)
+    idx = torch.randint(0, 3000, (700, 25), device=cuda, dtype=torch.int32)
+    assert torch.equal(fused_gather_mean(table, idx, 0.5, **K2_KEY),
+                       fused_gather_mean(table, idx, 0.5, **K2_KEY))
+
+
+K2_TRAP = """
+import torch
+from graphsage_tpu_torch.ops.gather import fused_gather_mean
+dev = torch.device("cuda")
+table = torch.zeros(11, 602, device=dev)
+idx = torch.full((64, 25), 2, dtype=torch.int32, device=dev)
+idx[37, 3] = {bad}
+fused_gather_mean(table, idx, 0.5, seed=1, offset=(0, 1))
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.parametrize("bad", [11, -1])
+def test_dropout_kernel_out_of_range_id_traps(cuda, bad):
+    """An id outside [0, N) stops K2 (in a process of its own: a trap ends
+    the CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", K2_TRAP.format(bad=bad)],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode != 0 and "NO TRAP" not in proc.stdout
+
+
 # ------------------------------------------------------------------ K3
 
 def _dedup_idx(cuda, kind, B, S, n, seed):
@@ -601,6 +726,59 @@ def test_probe_hotmx_matches_plain(cuda, K, B, S, F, tile_b):
     assert (out[0] == 0).all()
     torch.testing.assert_close(out, hotmx_reference(table, idx, K),
                                **PROBE_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 25, 40])
+@pytest.mark.parametrize("kind,K", [
+    ("sample", 0), ("row", 0), ("tile", 0),
+    ("hot", 0), ("hot", 1024), ("hot", 3001),
+    ("coldsw", 0), ("coldsw", 1024), ("coldsw", 3001),
+])
+def test_probe_ring_at_its_defaults(cuda, kind, K, S):
+    """Every K7a instance with the wrapper's ring (three stages of whole
+    rows, ``ring_rows`` rows a stage) against its plain version: F = 640
+    f32 and bf16 (one and two rows a stage), B = 37 (a ragged last run
+    of items), K = 0 (all cold), 1024 and N + 1 (all hot)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        table, idx = _probe_operands(cuda, 37, S, 640, 3000, dtype, K + S)
+        if kind == "coldsw":
+            idx_dma, nb, _ = cold_first_topk(idx, K, 3000)
+            out = probe_coldsw(table, idx_dma, nb, S)
+            want = coldsw_reference(table, idx_dma, nb, S)
+        else:
+            out = (probe_gather_hot(table, idx, K) if kind == "hot"
+                   else probe_gather(table, idx, kind))
+            want = gather_mean_reference(table, idx)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **PROBE_TOL)
+
+
+@pytest.mark.parametrize("wait", ["sample", "row", "tile"])
+@pytest.mark.parametrize("F,tile_b,n_buf", [
+    (640, None, 1),     # one stage: each refill waits for the consumers
+    (640, None, 7),     # the deepest ring of half rows that fits
+    (640, 1, 2),        # whole rows, two stages
+    (16, None, 3),      # narrow rows: 40 rows a stage, 1,000 slots
+    (64, 16, 2),        # more slots than producer threads
+])
+def test_probe_ring_edges(cuda, wait, F, tile_b, n_buf):
+    """K7a at the edges of its ring: one stage, the deepest, a stage of
+    many rows (more slots than producer threads, the ids past the first
+    loaded as they are filled), B = 301 not a multiple of the rows a
+    stage, hot and compacted at the same edges."""
+    table, idx = _probe_operands(cuda, 301, 25, F, 3000, seed=F + n_buf)
+    ring = dict(tile_b=tile_b, n_buf=n_buf)
+    want = gather_mean_reference(table, idx)
+    torch.testing.assert_close(probe_gather(table, idx, wait, **ring), want,
+                               **PROBE_TOL)
+    if wait == "sample":
+        torch.testing.assert_close(probe_gather_hot(table, idx, 1024, **ring),
+                                   want, **PROBE_TOL)
+    if wait == "row":
+        idx_dma, nb, _ = cold_first_topk(idx, 1024, 3000)
+        torch.testing.assert_close(
+            probe_coldsw(table, idx_dma, nb, 25, **ring),
+            coldsw_reference(table, idx_dma, nb, 25), **PROBE_TOL)
 
 
 def _probe_shape(cuda, dist):

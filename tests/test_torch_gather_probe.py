@@ -18,7 +18,7 @@ import torch
 
 import benchmarks.gather_probe as jgp
 from graphsage_tpu_torch.benchmarks import gather_probe as tgp
-from graphsage_tpu_torch.benchmarks import probe_breakdown
+from graphsage_tpu_torch.benchmarks import probe_breakdown, ring_timeline
 from graphsage_tpu_torch.ops import build
 from graphsage_tpu_torch.ops import gather_probe as ops
 from graphsage_tpu_torch.ops.pool import tf32_split
@@ -182,6 +182,55 @@ def test_column_slices():
                for tb in ops.MX_TILES)
     with pytest.raises(ValueError, match="no column slice"):
         slice_of(4, tile_b=256, n_buf=4)
+
+
+@pytest.mark.parametrize("F,elem,W,want", [
+    (640, 4, 25, 1),    # the probe's f32 rows: 64,000 bytes a row's slots
+    (640, 2, 25, 2),    # bf16: two rows of 32,000 bytes
+    (640, 4, 28, 1),    # the compacted slots of S = 25
+    (16, 4, 25, 40),    # narrow rows: 40 rows make 64,000 bytes
+    (640, 4, 40, 1),    # more bytes than a stage's: still one row
+])
+def test_ring_rows(F, elem, W, want):
+    """K7a's default rows a stage: whole rows up to 65,536 bytes."""
+    assert ops.ring_rows(F, elem, W) == want
+
+
+@pytest.mark.parametrize("elem,wait,tile_b,n_buf,W,want", [
+    # the defaults at the probe's shape: 3 stages of whole rows fit
+    (4, "sample", 1, 3, 25, 640),
+    (4, "row", 1, 3, 25, 640),
+    (4, "tile", 1, 3, 25, 640),
+    (2, "sample", 2, 3, 25, 640),
+    (4, "row", 1, 3, 28, 640),       # compacted, SW = 28
+    # deeper rings take narrower slices
+    (4, "sample", 1, 4, 25, 320),
+    (4, "sample", 1, 7, 25, 320),
+    (4, "sample", 8, 2, 25, 128),
+    (2, "tile", 8, 2, 25, 160),
+])
+def test_ring_slice(elem, wait, tile_b, n_buf, W, want):
+    """K7a's column slice at the probe's F = 640: the widest divisor whose
+    n_buf stages fit a block."""
+    assert ops.ring_slice(640, elem, wait, n_buf, tile_b, W) == want
+
+
+def test_ring_bytes_by_hand():
+    """3 stages of one row of 25 whole f32 rows: the slices, 27 mbarriers
+    a stage (25 full, an empty, an ids), 25 ids and a live bucket count
+    a stage; per-row and per-stage waits keep 1 + 2 mbarriers a stage at
+    one row; a fourth stage does not fit."""
+    slices, ids, nbs = 3 * 25 * 2560, 4 * 3 * 25, 4 * 3
+    assert ops.ring_bytes("sample", 3, 1, 25, 2560) == \
+        slices + 8 * 3 * 27 + ids + nbs == 192960
+    assert ops.ring_bytes("row", 3, 1, 25, 2560) == \
+        -(-(slices + 8 * 3 * 3 + ids + nbs) // 16) * 16 == 192384
+    assert ops.ring_bytes("tile", 3, 1, 25, 2560) == 192384
+    assert ops.ring_bytes("row", 2, 8, 25, 512) == \
+        -(-(2 * 200 * 512 + 8 * 2 * 10 + 4 * 2 * 200 + 4 * 2 * 8) // 16) * 16
+    for wait in ops.WAITS:
+        assert ops.ring_bytes(wait, 3, 1, 25, 2560) <= ops.SMEM_BYTES
+        assert ops.ring_bytes(wait, 4, 1, 25, 2560) > ops.SMEM_BYTES
 
 
 CU_SOURCE = build.CSRC / "gather_probe.cu"
@@ -437,7 +486,8 @@ def test_other_devices_raise_without_computing(monkeypatch, kind):
 
 
 ALL_VARIANTS = ("xla_f32,xla_bf16,xla_sorted,k1,plain,bulkwait,tilewait,"
-                "plain_sorted,plain_t16b2,plain_t4b1,hot16,hot16_bf16,"
+                "plain_sorted,plain_t16b2,plain_t4b1,bulkwait_t1b2,"
+                "tilewait_t2b3,hot16,hot16_bf16,"
                 "hotmx16,hotmx16t32,coldsw16,coldsw16_bf16,hotcount16,hc16,"
                 "prep,plain_bf16,bulkwait_bf16,tilewait_bf16")
 
@@ -539,3 +589,49 @@ def test_breakdown_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe_breakdown.main()
+
+
+def test_ring_timeline_matches_the_stamps_in_the_source():
+    """ring_timeline's stamp layout is the kernel's: kStampItems items,
+    the Stamp events in order, kConsumerGroups groups taking the items
+    in turn."""
+    text = (build.CSRC / "gather_probe.cu").read_text()
+    items = re.search(r"constexpr int kStampItems = (\d+);", text)
+    assert int(items.group(1)) == ring_timeline.STAMP_ITEMS
+    groups = re.search(r"constexpr int kConsumerGroups = (\d+);", text)
+    assert int(groups.group(1)) == ring_timeline.CONSUMER_GROUPS
+    enum = re.search(r"enum Stamp \{([^}]*)\}", text).group(1)
+    names = [n.strip() for n in enum.split(",")]
+    assert names == ["kFillStart", "kStageFree", "kIssued", "kTakeStart",
+                     "kIdsReady", "kDataReady", "kSummed", "kStamps"]
+    assert len(ring_timeline.EVENTS) == len(names) - 1
+    stamped = re.findall(r"RING_STAMP\(k, (k\w+),", text)
+    assert sorted(stamped) == sorted(names[:-1])
+
+
+def test_ring_timeline_segments_by_hand():
+    """Three items of block 0, the second taken by the other consumer
+    group, the third with no live slot (no data stamp); unstamped items
+    are zero rows and are left out."""
+    stamps = np.zeros((ring_timeline.STAMP_ITEMS, 7), np.int64)
+    #             fill  free issued take  ids  data summed
+    stamps[0] = (1000, 1010, 1110, 900, 1120, 1200, 1500)
+    stamps[1] = (1200, 1220, 1300, 1000, 1310, 1330, 1600)
+    stamps[2] = (1400, 1600, 1700, 1500, 1710, 0, 1800)
+    t = ring_timeline.timeline(stamps)
+    assert t["items"] == 3
+    assert t["span"] == 1800 - 1000
+    assert t["stage wait"] == pytest.approx((10 + 20 + 200) / 3)
+    assert t["issue"] == pytest.approx((100 + 80 + 100) / 3)
+    assert t["ids wait"] == pytest.approx((220 + 310 + 210) / 3)
+    assert t["data wait"] == pytest.approx((80 + 20) / 2)
+    assert t["sum"] == pytest.approx((300 + 270) / 2)
+    # group 0 sums items 0 and 2 (300 + 90), group 1 item 1 (270)
+    assert t["sum share"] == pytest.approx(390 / 800)
+
+
+def test_ring_timeline_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert ring_timeline.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err

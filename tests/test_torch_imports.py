@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
                  "models.node2vec", "evaluation", "data.native",
                  "nn.metrics", "data.synthetic",
                  "benchmarks.accuracy_acceptance", "benchmarks.seed_study",
-                 "benchmarks.probe_breakdown"):
+                 "benchmarks.probe_breakdown", "benchmarks.ring_timeline"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []

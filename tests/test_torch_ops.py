@@ -143,6 +143,52 @@ def test_mulhilo_is_the_64bit_product():
         assert lo.tolist() == [p & 0xFFFFFFFF for p in prod]
 
 
+K2_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_126gather_mean_dropout_kernelIfLi2ELb0ELb1EEEvPKT_
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   IMAD.WIDE.U32 R2, R3, -0x2daee0ad, RZ ;  /* 0x0 */
+        /*0010*/               @P0 BRA 0x0 ;                            /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_126gather_mean_dropout_kernelIfLi2ELb0ELb0EEEvPKT_
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x0 */
+                                                                           /* 0x0 */
+        /*0010*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;   /* 0x0 */
+{body}
+        /*0200*/               @P1 BRA 0x10 ;                           /* 0x0 */
+        /*0210*/                   EXIT ;                                  /* 0x0 */
+        /*0220*/                   BRA 0x220;                              /* 0x0 */
+"""
+
+
+def test_k2_sass_loop_per_element(monkeypatch):
+    """chip_smoke.py's count of K2's inner loop from cuobjdump's text: the
+    loop of the whole-row, 32-bit-counter f32 instance (not the wide one)
+    that holds the Philox multiplies; two elements a LDG.E.64."""
+    import chip_smoke
+
+    body = "\n".join(
+        f"        /*{0x20 + 16 * i:04x}*/                   {op} ;  /* 0x0 */"
+        for i, op in enumerate(
+            ["IMAD.WIDE.U32 R6, R7, -0x2daee0ad, RZ"] * 10
+            + ["LOP3.LUT R8, R9, R10, R11, 0x96, !PT"] * 10
+            + ["LDG.E.64.CONSTANT R12, desc[UR4][R4.64]"] * 2
+            + ["@P2 FADD R13, R13, R12"] * 4))
+    text = K2_SASS.format(body=body)
+    functions = chip_smoke.sass_functions(text)
+    assert len(functions) == 2
+    loops = chip_smoke.sass_loops(
+        functions[next(n for n in functions if "Lb0ELb0E" in n)])
+    assert [(hex(a), hex(b)) for a, b, _ in loops] == [
+        ("0x10", "0x200"), ("0x220", "0x220")]
+    monkeypatch.setattr(chip_smoke, "sass_text", lambda path: text)
+    got = chip_smoke.k2_loop_per_element("lib")
+    # LDG, 10 + 10 + 2 + 4 body instructions and the branch
+    assert got["instructions"] == 28 and got["elements"] == 4
+    assert got["per_element"] == 7.0
+    assert got["opcodes"]["IMAD.WIDE.U32"] == 10
+
+
 def _ones_s1(n_rows=2048, F=64, seed=0):
     """An all-ones table and S=1 idx: the output is the mask times
     1/keep, element by element."""
