@@ -7,7 +7,10 @@
     python3 chip_smoke.py --cards 4 # the sharded and tensor-parallel
                                     # runners on 4 cards (NCCL;
                                     # sharded_ranks, sharded_unsup_ranks,
-                                    # tp_ranks)
+                                    # tp_ranks), scaling_probe at D = 1,
+                                    # 2, 4 and 2 x 2, halo_probe at D = 4
+    python3 chip_smoke.py --drivers # only the measurement drivers
+                                    # (drive_drivers)
 
 Phases; any failure exits non-zero without the final ok line:
   1. the card: nvidia-smi's name and power limit; TF32 off, as the
@@ -181,7 +184,15 @@ Phases; any failure exits non-zero without the final ok line:
      graphsage_tpu_torch.benchmarks.gather_probe), zipf ids, short
      trials: it exits 0 and launches every K7 instance and K1 and
      nothing else (the launches of the kernels line)
-  9. one JSON line of per-kernel numbers, then the ok line (last)
+  9. the measurement drivers (graphsage_tpu_torch/benchmarks/: bench,
+     agg_sweep's mean, mean_drop, meanpool_fused_drop, unsup_mean and
+     seq, serving_bench and its --predict, step_profile, sampler_probe,
+     scaling_probe at D = 1 on a world-size-1 NCCL group, halo_probe on
+     two gloo ranks on this card) through their entry points at full
+     width with short counts: each prints the JAX driver's keys, every
+     rate finite and positive, and K1, K2 and K6 launched once per step
+     or batch where its configs route through them
+ 10. one JSON line of per-kernel numbers, then the ok line (last)
 
 Needs no network and one card; builds into build/kernels/.
 """
@@ -320,7 +331,14 @@ def reset_counts() -> None:
 
 def check_counts(counts: dict, kernel: str, n: int, what: str) -> None:
     """``kernel`` launched ``n`` times in ``what``, every other none."""
-    want = {k: (n if k == kernel else 0) for k in KERNELS}
+    check_launches(counts, {kernel: n}, what)
+
+
+def check_launches(counts: dict, launched: dict, what: str,
+                   keys=KERNELS) -> None:
+    """Each kernel of ``launched`` launched that many times in ``what``,
+    every other of ``keys`` none."""
+    want = {k: launched.get(k, 0) for k in keys}
     check(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
@@ -4797,6 +4815,217 @@ def sharded_cli_refusal(dev) -> None:
                     proc.communicate()
 
 
+# -------------------------------------------- phase 9, the drivers
+
+# the counts cut for the drivers' phase (module, attribute, value); the
+# shapes stay at full width
+DRIVER_COUNTS = (("bench", "WARMUP", 2), ("bench", "ITERS", 10),
+                 ("agg_sweep", "ITERS", 10), ("agg_sweep", "TRIALS", 1),
+                 ("serving_bench", "TRIALS", 1),
+                 ("step_profile", "INNER", 5), ("step_profile", "ITERS", 1),
+                 ("sampler_probe", "INNER", 5), ("sampler_probe", "ITERS", 1),
+                 ("scaling_probe", "CHUNK", 5),
+                 ("scaling_probe", "TIMED_CHUNKS", 1),
+                 ("halo_probe", "ITERS", 2))
+DRIVER_AGG_CONFIGS = (("mean", "K1"), ("mean_drop", "K2"),
+                      ("meanpool_fused_drop", "K6"), ("unsup_mean", "K1"),
+                      ("seq", None))
+# the JAX drivers' printed keys (bench.py:390-421, agg_sweep.py:288-305,
+# serving_bench.py:134-146, scaling_probe.py:197-206)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_provenance",
+              "baseline_edges_per_sec", "vs_reenactment", "graph_dist",
+              "sec_per_step", "sec_per_step_dispatch", "roofline_frac",
+              "secondary"}
+AGG_KEYS = {"config", "aggregator", "model_size", "fused_gather", "dist",
+            "identity_dim", "unsupervised", "dropout", "ms_per_step",
+            "edges_per_step", "edges_per_sec", "iters_per_chunk", "trials",
+            "wall_s", "recorded_utc"}
+SERVING_KEYS = {"metric", "value", "unit", "edges_per_sec", "sweep_s",
+                "n_nodes", "batch_size", "graph_dist", "reference"}
+SCALING_KEYS = {"metric", "devices", "data_shards", "platform", "value",
+                "unit", "scaling_efficiency_vs_smallest", "icinote"}
+
+
+def driver_modules() -> dict:
+    from graphsage_tpu_torch.benchmarks import (
+        agg_sweep,
+        bench,
+        halo_probe,
+        sampler_probe,
+        scaling_probe,
+        serving_bench,
+        step_profile,
+    )
+
+    return {"bench": bench, "agg_sweep": agg_sweep,
+            "serving_bench": serving_bench, "step_profile": step_profile,
+            "sampler_probe": sampler_probe, "scaling_probe": scaling_probe,
+            "halo_probe": halo_probe}
+
+
+@contextlib.contextmanager
+def cut_driver_counts():
+    """DRIVER_COUNTS set on the measurement modules for the block."""
+    mods = driver_modules()
+    saved = [(mods[m], a, getattr(mods[m], a)) for m, a, _ in DRIVER_COUNTS]
+    for m, a, v in DRIVER_COUNTS:
+        setattr(mods[m], a, v)
+    try:
+        yield mods
+    finally:
+        for mod, a, v in saved:
+            setattr(mod, a, v)
+
+
+def run_driver(label: str, main, argv: list, dev) -> list:
+    """``main(argv + ["--device", dev])`` of a driver, as ``python -m``
+    runs it, its launches counted from 0: (its printed lines, the launch
+    counts). Exits 0."""
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv + ["--device", str(dev)])
+    counts = launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"{label}: {line}")
+    log(f"[{label}: {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: n for k, n in counts.items() if n} }]")
+    check(rc == 0, f"{label} exited {rc}")
+    return lines, counts
+
+
+def positive(label: str, values) -> None:
+    values = list(values)
+    check(all(np.isfinite(v) and v > 0 for v in values),
+          f"{label}: a rate not finite and positive in {values}")
+
+
+def case_lines(label: str, lines: list, n_cases: int) -> dict:
+    """{case: ms} of a profile's ``<case> <ms> ms`` lines."""
+    got = {}
+    for line in lines[1:]:
+        name, ms, unit = line.rsplit(None, 2)
+        check(unit == "ms", f"{label}: unexpected line {line!r}")
+        got[name] = float(ms)
+    check(len(got) == n_cases, f"{label}: {len(got)} cases, want {n_cases}")
+    positive(label, got.values())
+    return got
+
+
+def drive_drivers(dev, card_line: str) -> dict:
+    """Each measurement driver (``graphsage_tpu_torch/benchmarks/``) through
+    its entry point on the card, at full width with DRIVER_COUNTS: the
+    printed lines carry the JAX drivers' keys, every rate is finite and
+    positive, and the kernels each should launch did, as many times as
+    its steps and batches (no quiet plain path). Returns each driver's
+    launches of K1, K2 and K6 (those above 0)."""
+    with cut_driver_counts() as m:
+        b, a = m["bench"], m["agg_sweep"]
+        n_b = -(-b.NUM_NODES // b.BATCH)   # the sweeps' batches
+        agg_steps = (a.WARMUP_CHUNKS + a.TRIALS) * a.ITERS
+        out = {}
+
+        lines, counts = run_driver("bench", b.main, [], dev)
+        row = json.loads(lines[-1])
+        check(set(row) == BENCH_KEYS | {"card"}, f"bench keys {set(row)}")
+        check(row["card"] == card_line, f"bench card {row['card']}")
+        check(not any(k.endswith("_skipped") for k in row["secondary"]),
+              f"bench secondaries skipped: {row['secondary']}")
+        positive("bench", [row["value"], row["sec_per_step"],
+                           row["sec_per_step_dispatch"],
+                           *row["secondary"].values()])
+        check(row["roofline_frac"] >= 0.0, f"bench {row['roofline_frac']}")
+        # the headline's dispatch and chunked steps, gcn, identity64,
+        # mean_uniform and unsup_mean's steps, 3 embed sweeps; mean_drop;
+        # meanpool_fused
+        check_launches(counts, {
+            "K1": (b.WARMUP + 3 * b.ITERS) + 5 * b.ITERS + 4 * agg_steps
+            + 3 * n_b, "K2": agg_steps, "K6": agg_steps}, "bench")
+        out["bench"] = counts
+
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT,
+                                                          "build")) as tmp:
+            for name, kernel in DRIVER_AGG_CONFIGS:
+                lines, counts = run_driver(
+                    f"agg_sweep {name}", a.main,
+                    [name, "--out", os.path.join(tmp, "rows.jsonl")], dev)
+                row = json.loads(lines[-1])
+                check(set(row) == AGG_KEYS | {"card"},
+                      f"agg_sweep keys {set(row)}")
+                positive(f"agg_sweep {name}",
+                         [row["ms_per_step"], row["edges_per_sec"]])
+                check_counts(counts, kernel or "K1",
+                             agg_steps if kernel else 0, f"agg_sweep {name}")
+                out[f"agg_sweep {name}"] = counts
+
+        for label, argv in (("serving_bench", []),
+                            ("serving_bench --predict", ["--predict"])):
+            lines, counts = run_driver(label, m["serving_bench"].main, argv,
+                                       dev)
+            row = json.loads(lines[-1])
+            check(set(row) == SERVING_KEYS | {"card"},
+                  f"{label} keys {set(row)}")
+            positive(label, [row["value"], row["edges_per_sec"]])
+            check_counts(counts, "K1", (1 + m["serving_bench"].TRIALS) * n_b,
+                         label)
+            out[label] = counts
+
+        sp, sa = m["step_profile"], m["sampler_probe"]
+        lines, counts = run_driver("step_profile", sp.main, [], dev)
+        case_lines("step_profile", lines, 5)
+        check_counts(counts, "K1", 5 * (1 + sp.ITERS) * sp.INNER,
+                     "step_profile")
+        out["step_profile"] = counts
+        lines, counts = run_driver("sampler_probe", sa.main, [], dev)
+        case_lines("sampler_probe", lines, 9)
+        check_counts(counts, "K1", 3 * 2 * (1 + sa.ITERS) * sa.INNER,
+                     "sampler_probe")
+        out["sampler_probe"] = counts
+
+        out.update(drive_sharded_drivers(m, ["--devices", "1"],
+                                         ["--shards", "2", "--share_card"],
+                                         dev))
+    return {label: {k: n for k, n in counts.items()
+                    if k in ("K1", "K2", "K6") and n}
+            for label, counts in out.items()}
+
+
+def drive_sharded_drivers(m, scaling_argv: list, halo_argv, dev) -> dict:
+    """scaling_probe and (unless ``halo_argv`` is None) halo_probe, their
+    ranks spawned, with these arguments: JAX's keys, finite rates,
+    nothing dropped, and at one graph shard K1 once per timed step on
+    its rank. Returns the launches of that rank, which ran in a process
+    of its own."""
+    sc = m["scaling_probe"]
+    lines, _ = run_driver("scaling_probe", sc.main, scaling_argv, dev)
+    out = {}
+    for line in lines:
+        row = json.loads(line)
+        check(SCALING_KEYS <= set(row), f"scaling_probe keys {set(row)}")
+        positive("scaling_probe", [row["value"],
+                                   row["scaling_efficiency_vs_smallest"]])
+        check(row["dropped"] == 0, f"scaling_probe: {row['dropped']} dropped")
+        if row["devices"] * row["data_shards"] == 1:
+            (launches,) = row["launches"]
+            check_launches(launches, {"K1": sc.TIMED_CHUNKS * sc.CHUNK},
+                           "scaling_probe D=1", keys=launches)
+            out["scaling_probe D=1"] = launches
+    if halo_argv is None:
+        return out
+    lines, _ = run_driver("halo_probe", m["halo_probe"].main, halo_argv,
+                          dev)
+    check(len(lines) == 6 and lines[3].startswith("overlap vs blocking")
+          and lines[4].startswith("layout=strided")
+          and lines[5].startswith("layout=block"),
+          f"halo_probe lines {lines}")
+    for line in lines[1:3]:   # "<schedule> : <ms> ms/fwd ... factor: <c>"
+        positive("halo_probe", [float(line.split("ms/fwd")[0].split()[-1]),
+                                float(line.split()[-1])])
+    return out
+
+
 def cli_phases(dev) -> None:
     """Every CLI check: ``predict`` (plain and ``--dedup_gather``),
     ``supervised`` (graphsage_mean, graphsage_meanpool, graphsage_seq
@@ -4917,6 +5146,20 @@ def main() -> int:
         for grid in ((1, 1, n), (1, n // 2, 2)):
             phase(f"TP {grid[1]} x {grid[2]} on {n} cards (nccl)", tp_ranks,
                   card_line, data, eq, refs, devices, "nccl", grid, False)
+        with cut_driver_counts() as mods:
+            sizes = ",".join(str(d) for d in (1, 2, 4, 8) if d <= n)
+            phase(f"scaling_probe D = {sizes} and halo_probe D = {n} on {n} "
+                  f"cards (nccl)", drive_sharded_drivers, mods,
+                  ["--devices", sizes], ["--shards", str(n)], dev)
+            phase(f"scaling_probe {n // 2} x 2 on {n} cards (nccl)",
+                  drive_sharded_drivers, mods,
+                  ["--devices", "2", "--data_shards", str(n // 2)], None,
+                  dev)
+        return 0
+    if sys.argv[1:] == ["--drivers"]:
+        phase("build K1+K2+K3 (gather_mean.cu), K5+K6 (gather_mlp_pool.cu)",
+              build_kernels, ("gather_mean", "gather_mlp_pool"))
+        phase("the measurement drivers", drive_drivers, dev, card_line)
         return 0
     if sys.argv[1:] == ["--loads"]:
         phase("build K1+K2+K3 (gather_mean.cu)", build_kernels,
@@ -5060,6 +5303,10 @@ def main() -> int:
                          card_line)
     for (key, _, _), entry in zip(K7_INSTANCES, k7):
         entry["launches"] = probe_counts[key]
+    drivers = phase("the measurement drivers", drive_drivers, dev, card_line)
+    for key, entry in (("K1", k1), ("K2", k2), ("K6", k6)):
+        entry["launches_drivers"] = {label: counts[key] for label, counts
+                                     in drivers.items() if key in counts}
     log(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
 
     log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, *k7]}))

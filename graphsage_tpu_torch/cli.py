@@ -21,6 +21,14 @@ trains on one device whatever the shard flags say, as in the JAX
 package. ``--n_model_shards`` is read by ``supervised`` alone (the other
 subcommands ignore it, as the JAX package's do), which refuses it with
 ``--graph_shards`` as the JAX package's trainer does.
+
+Every command line of the JAX package's CLI parses here: ``supervised``,
+``unsupervised``, ``embed`` and ``predict`` take its one common flag set,
+so ``predict`` and ``embed`` accept the training loop's flags and
+``--[no-]random_context``, and read none of them, as the JAX package's
+do. ``--gpu`` and ``--log_device_placement``, which the JAX package
+keeps for the reference's command lines, are accepted and have no
+effect; ``--device cuda:<i>`` picks the card.
 """
 
 from __future__ import annotations
@@ -121,11 +129,18 @@ def _add_model_flags(p: argparse.ArgumentParser, d: TrainFlags,
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--checkpoint_dir", default=d.checkpoint_dir)
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default), cuda:<i> or cpu")
+                   help="torch device: cuda (default), cuda:<i> or cpu; "
+                   "cuda:<i> picks the card (the reference's --gpu <i> is "
+                   "accepted and has no effect)")
+    # the reference's flags, kept by the JAX package's CLI: no effect
+    p.add_argument("--gpu", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--log_device_placement", action="store_true",
+                   help=argparse.SUPPRESS)
 
 
 def _add_train_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
-    """The training loop's flags."""
+    """The training loop's flags (``predict`` and ``embed`` accept them,
+    as the JAX package's do, and read none)."""
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--dropout", type=float, default=d.dropout)
     p.add_argument("--validate_iter", type=int, default=d.validate_iter)
@@ -143,6 +158,10 @@ def _add_train_flags(p: argparse.ArgumentParser, d: TrainFlags) -> None:
                    help="histograms of the params and a probe batch's "
                    "activations at print steps (histograms.jsonl, and "
                    "TensorBoard where it imports)")
+    p.add_argument("--random_context", action=argparse.BooleanOptionalAction,
+                   default=d.random_context,
+                   help="unsupervised: train on the walk pairs of "
+                   "<prefix>-walks.txt (else on the graph's edges)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,6 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(p, d)
     p.add_argument("--nodes", choices=("test", "val", "train", "all"),
                    default="test")
+    _add_train_flags(p, d)
     p.add_argument("--num_classes", type=int, default=0,
                    help="required when the dataset has no class_map")
     p.add_argument("--out_dir", default=None)
@@ -172,10 +192,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n2v_test_epochs", type=int, default=du.n2v_test_epochs,
                    help="epochs of node2vec's retrain on the val and test "
                    "nodes (with --save_embeddings)")
-    p.add_argument("--random_context", action=argparse.BooleanOptionalAction,
-                   default=du.random_context,
-                   help="train on the walk pairs of <prefix>-walks.txt "
-                   "(else on the graph's edges)")
     p.add_argument("--save_embeddings",
                    action=argparse.BooleanOptionalAction,
                    default=du.save_embeddings,
@@ -185,6 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser(
         "embed", help="checkpoint -> every node's embedding for any dataset")
     _add_model_flags(p, du, SUPERVISED_MODELS, head=False)
+    _add_train_flags(p, du)
     p.add_argument("--neg_sample_size", type=int, default=du.neg_sample_size,
                    help="accepted for the unsupervised command lines; "
                    "embedding draws no negatives")
@@ -241,6 +258,18 @@ def _walks(args) -> None:
     print(f"Wrote {len(pairs)} walk pairs to {args.out_file}")
 
 
+def flags_from_args(args) -> TrainFlags:
+    """The ``TrainFlags`` of a parsed ``supervised``, ``predict``,
+    ``unsupervised`` or ``embed`` command line: its subcommand's defaults
+    with every parsed field put in, as the JAX package's
+    ``_flags_from_args``."""
+    unsup = args.command in ("unsupervised", "embed")
+    defaults = UNSUP_DEFAULTS if unsup else TrainFlags()
+    fields = {f.name for f in dataclasses.fields(TrainFlags)}
+    return dataclasses.replace(
+        defaults, **{k: v for k, v in vars(args).items() if k in fields})
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "walks":
@@ -258,11 +287,7 @@ def main(argv=None) -> int:
         return 0
     multi_host = (args.coordinator_address is not None
                   or (args.num_processes or 1) > 1)
-    unsup = args.command in ("unsupervised", "embed")
-    defaults = UNSUP_DEFAULTS if unsup else TrainFlags()
-    fields = {f.name for f in dataclasses.fields(TrainFlags)}
-    flags = dataclasses.replace(
-        defaults, **{k: v for k, v in vars(args).items() if k in fields})
+    flags = flags_from_args(args)
     if args.command == "unsupervised" and flags.model == "n2v":
         # node2vec trains on one device whatever the shard flags say, as
         # in the JAX package: no rank is started

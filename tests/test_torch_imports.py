@@ -45,7 +45,11 @@ def test_port_imports_no_jax():
                  "models.node2vec", "evaluation", "data.native",
                  "nn.metrics", "data.synthetic",
                  "benchmarks.accuracy_acceptance", "benchmarks.seed_study",
-                 "benchmarks.probe_breakdown", "benchmarks.ring_timeline"):
+                 "benchmarks.probe_breakdown", "benchmarks.ring_timeline",
+                 "benchmarks.bench", "benchmarks.agg_sweep",
+                 "benchmarks.serving_bench", "benchmarks.step_profile",
+                 "benchmarks.sampler_probe", "benchmarks.scaling_probe",
+                 "benchmarks.halo_probe", "cli"):
         assert f"graphsage_tpu_torch.{name}" in seen["modules"]
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
