@@ -44,6 +44,7 @@ from graphsage_tpu_torch.ops.gather import (
 )
 from graphsage_tpu_torch.ops.philox import philox_dropout
 from graphsage_tpu_torch.ops.pool import gather_mlp_pool_train
+from graphsage_tpu_torch.trace import span
 
 # Tags (the last counter word of the Philox streams) of the two masks of
 # the fused innermost hop, the JAX package's fold_in tags: K2 (or K6 for
@@ -250,9 +251,31 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
     columns' masks are the whole rows' masks at the block's columns,
     and meanpool takes the plain gather (or K4): its relu follows the
     partial sum, so the fused gather-MLP-pool cannot run on a block.
+
+    Each of the three stages is a span (``trace.py``): ``sample``,
+    ``gather`` (the innermost hop's kernel and the outer frontiers'
+    rows) and ``aggregate``.
     """
-    samples = sample_frontier(generator, adj, ids, config.fanouts,
-                              mode=config.sampler_mode)
+    with span("sample"):
+        samples = sample_frontier(generator, adj, ids, config.fanouts,
+                                  mode=config.sampler_mode)
+    with span("gather"):
+        hidden, last_mean = _gather_hops(params, features, samples, config,
+                                         deterministic, drop_key, shard)
+    with span("aggregate"):
+        return aggregate_pyramid(
+            params, hidden, ids.shape[0], config,
+            generator=None if deterministic else generator,
+            deterministic=deterministic, last_hop_neigh_mean=last_mean,
+            capture=capture, shard=shard,
+        )
+
+
+def _gather_hops(params, features, samples: list, config: SAGEConfig,
+                 deterministic: bool, drop_key, shard):
+    """The frontiers' rows for ``aggregate_pyramid``, by the routes of
+    ``sage_embed``'s docstring -> (hidden, the innermost hop's reduced
+    mean or None)."""
     has_features = features is not None and config.feature_dim > 0
     fused = (config.fused_gather and config.aggregator in ("mean", "gcn")
              and has_features)
@@ -310,12 +333,7 @@ def sage_embed(params, features, adj, ids, config: SAGEConfig,
               for s in (samples[:-1] if inner_done else samples)]
     if inner_done:
         hidden.append(last_rows)
-    return aggregate_pyramid(
-        params, hidden, ids.shape[0], config,
-        generator=None if deterministic else generator,
-        deterministic=deterministic, last_hop_neigh_mean=last_mean,
-        capture=capture, shard=shard,
-    )
+    return hidden, last_mean
 
 
 def sage_decay_weights(params, config: SAGEConfig) -> list:

@@ -23,6 +23,7 @@ from graphsage_tpu_torch.models.graphsage import (
 )
 from graphsage_tpu_torch.nn.dense import apply_dense, init_dense
 from graphsage_tpu_torch.nn.prediction import sigmoid_xent
+from graphsage_tpu_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,17 +47,24 @@ def init_supervised_params(generator: torch.Generator,
     return params
 
 
+def _head(params, emb, config: SupervisedConfig, generator,
+          deterministic: bool):
+    """[B, out] raw embeddings -> [B, C] logits: l2-normalize, then the
+    dense head."""
+    return apply_dense(
+        head_params(params), l2_normalize(emb, dim=1), act=None,
+        dropout_rate=config.sage.dropout, generator=generator,
+        deterministic=deterministic,
+    )
+
+
 def supervised_logits(params, features, adj, ids, config: SupervisedConfig,
                       generator=None, deterministic: bool = True,
                       drop_key=None, shard=None):
     emb = sage_embed(params, features, adj, ids, config.sage,
                      generator=generator, deterministic=deterministic,
                      drop_key=drop_key, shard=shard)
-    return apply_dense(
-        head_params(params), l2_normalize(emb, dim=1), act=None,
-        dropout_rate=config.sage.dropout, generator=generator,
-        deterministic=deterministic,
-    )
+    return _head(params, emb, config, generator, deterministic)
 
 
 def _softmax_xent(logits, labels):
@@ -87,15 +95,17 @@ def supervised_loss(params, features, adj, ids, labels, mask,
                     config: SupervisedConfig, generator=None,
                     deterministic: bool = False, drop_key=None, shard=None):
     """(masked mean of ``per_node_loss`` + weight decay, logits).
-    ``drop_key`` = (seed, step) keys the fused hop's dropout masks."""
-    logits = supervised_logits(params, features, adj, ids, config,
-                               generator=generator,
-                               deterministic=deterministic,
-                               drop_key=drop_key, shard=shard)
-    per_node = per_node_loss(logits, labels, config)
-    loss = (per_node * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    if config.weight_decay > 0.0:
-        loss = loss + weight_decay_term(params, config, shard)
+    ``drop_key`` = (seed, step) keys the fused hop's dropout masks. What
+    follows ``sage_embed`` is the ``head`` span."""
+    emb = sage_embed(params, features, adj, ids, config.sage,
+                     generator=generator, deterministic=deterministic,
+                     drop_key=drop_key, shard=shard)
+    with span("head"):
+        logits = _head(params, emb, config, generator, deterministic)
+        per_node = per_node_loss(logits, labels, config)
+        loss = (per_node * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if config.weight_decay > 0.0:
+            loss = loss + weight_decay_term(params, config, shard)
     return loss, logits
 
 

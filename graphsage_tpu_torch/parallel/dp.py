@@ -25,6 +25,9 @@ blocks of the tables and the layer-0 weights' matching rows
 (``tensor.py``) and take the same rows of each batch; the layer-0
 products are summed over the model group inside the model, and the
 gradients over the data group.
+
+The one-device supervised runner marks its chunk, each step, the
+backward and the optimizer's update as spans (``trace.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from graphsage_tpu_torch.parallel.distributed import (
     all_reduce_grads,
     fold_seed,
 )
+from graphsage_tpu_torch.trace import span
 
 
 def _require_num_nodes(num_nodes: int, stream: str = "stream") -> None:
@@ -84,8 +88,10 @@ def make_supervised_train_step(config: SupervisedConfig, optimizer):
             params, features, adj, ids, labels, mask, config,
             generator=generator, deterministic=False, drop_key=drop_key,
         )
-        loss.backward()
-        optimizer.update(opt_state, params)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            optimizer.update(opt_state, params)
         return params, opt_state, loss.detach(), logits.detach()
 
     return step
@@ -113,14 +119,16 @@ def make_supervised_chunk_runner(config: SupervisedConfig, optimizer,
                drop_seed: int = 0):
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        for i in range(start_step, start_step + n_steps):
-            ids = ids_perm[i * batch_size:(i + 1) * batch_size]
-            labels = labels_table.index_select(0, ids)
-            mask = (ids != num_nodes).float()
-            params, opt_state, loss, logits = step_fn(
-                params, opt_state, generator, features, adj, ids, labels,
-                mask, drop_key=(drop_seed, i),
-            )
+        with span("train.chunk"):
+            for i in range(start_step, start_step + n_steps):
+                with span("train.step"):
+                    ids = ids_perm[i * batch_size:(i + 1) * batch_size]
+                    labels = labels_table.index_select(0, ids)
+                    mask = (ids != num_nodes).float()
+                    params, opt_state, loss, logits = step_fn(
+                        params, opt_state, generator, features, adj, ids,
+                        labels, mask, drop_key=(drop_seed, i),
+                    )
         return params, opt_state, loss, logits, ids
 
     return runner

@@ -41,6 +41,7 @@ from graphsage_tpu_torch.parallel.distributed import (
     init_distributed,
     make_grid,
 )
+from graphsage_tpu_torch.trace import snapshot
 
 
 def local_devices(device, n: int, what: str) -> list:
@@ -540,11 +541,8 @@ def _tp_setup(job, grid, device):
 
 def gather_launches() -> dict:
     """The gather kernels' launch counts in this process (K1-K4)."""
-    from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
-    from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
-
-    return {"K1": gm.launches, "K2": gm.dropout_launches,
-            "K3": gm.dedup_launches, "K4": gr.launches}
+    counts = snapshot()
+    return {k: counts[k] for k in ("K1", "K2", "K3", "K4")}
 
 
 class CountedAllReduce:

@@ -76,6 +76,7 @@ from graphsage_tpu_torch.parallel.graph_sharded import (
     suggest_capacity_factor,
 )
 from graphsage_tpu_torch.parallel.tensor import ModelShard, tp_seed
+from graphsage_tpu_torch.trace import span
 from graphsage_tpu_torch.train import checkpoint as ckpt
 from graphsage_tpu_torch.train.config import (
     TrainFlags,
@@ -142,11 +143,13 @@ def make_eval_step(config: SupervisedConfig, shard=None):
 
     @torch.inference_mode()
     def eval_step(params, features, adj, ids, labels, mask, generator=None):
-        loss, logits = supervised_loss(
-            params, features, adj, ids, labels, mask, config,
-            generator=generator, deterministic=True, shard=shard,
-        )
-        return loss, supervised_predict(logits, config)
+        with span("eval.step"):
+            loss, logits = supervised_loss(
+                params, features, adj, ids, labels, mask, config,
+                generator=generator, deterministic=True, shard=shard,
+            )
+            with span("head"):
+                return loss, supervised_predict(logits, config)
 
     return eval_step
 
@@ -165,18 +168,20 @@ def make_eval_sweep(config: SupervisedConfig, batch_size: int,
 
     @torch.inference_mode()
     def sweep(params, features, adj, ids_all, labels_table, generator=None):
-        n_b = ids_all.shape[0] // batch_size
-        device = ids_all.device
-        losses = torch.zeros(n_b, device=device)
-        preds = torch.zeros(n_b * batch_size, config.num_classes,
-                            device=device)
-        for i in range(n_b):
-            ids = ids_all[i * batch_size:(i + 1) * batch_size]
-            labels = labels_table.index_select(0, ids)
-            mask = (ids != num_nodes).float()
-            losses[i], preds[i * batch_size:(i + 1) * batch_size] = eval_step(
-                params, features, adj, ids, labels, mask, generator)
-        return losses, preds
+        with span("eval.sweep"):
+            n_b = ids_all.shape[0] // batch_size
+            device = ids_all.device
+            losses = torch.zeros(n_b, device=device)
+            preds = torch.zeros(n_b * batch_size, config.num_classes,
+                                device=device)
+            for i in range(n_b):
+                ids = ids_all[i * batch_size:(i + 1) * batch_size]
+                labels = labels_table.index_select(0, ids)
+                mask = (ids != num_nodes).float()
+                losses[i], preds[i * batch_size:(i + 1) * batch_size] = (
+                    eval_step(params, features, adj, ids, labels, mask,
+                              generator))
+            return losses, preds
 
     return sweep
 

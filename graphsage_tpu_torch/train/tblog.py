@@ -14,6 +14,7 @@ import time
 import numpy as np
 import torch
 
+from graphsage_tpu_torch import trace
 from graphsage_tpu_torch.models.graphsage import SAGEConfig, sage_embed
 
 HISTOGRAM_BINS = 30
@@ -72,7 +73,9 @@ class ScalarLogger:
 class TrainingProfile:
     """``torch.profiler`` (host, and the card's kernels on ``cuda``) from
     construction to ``stop``, which writes its Chrome trace into
-    ``profile_dir`` and returns the file's path."""
+    ``profile_dir`` and returns the file's path. The port's spans
+    (``trace.py``) are its ranges meanwhile (``train.step``, ``sample``,
+    ...), kept nowhere else."""
 
     def __init__(self, profile_dir: str, device: torch.device):
         from torch.profiler import ProfilerActivity, profile
@@ -85,8 +88,10 @@ class TrainingProfile:
         self.device = device
         self._prof = profile(activities=activities)
         self._prof.start()
+        trace.enable(record=False, annotate=True)
 
     def stop(self) -> str:
+        trace.disable()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._prof.stop()

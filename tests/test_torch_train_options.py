@@ -1,10 +1,10 @@
 """``--profile_dir`` and ``--log_histograms`` in the port's trainers:
 the profile is a Chrome trace of the training loop written into the
-directory, and the histograms are records in ``histograms.jsonl`` (and
-TensorBoard's, where it imports) of every parameter and of the probe
-batch's per-layer activations, at every print step; the JAX package's
-activation names (``acts/input``, ``acts/layer_<L>/hop_<H>``) and
-shapes."""
+directory, the port's spans its ranges, and the histograms are records
+in ``histograms.jsonl`` (and TensorBoard's, where it imports) of every
+parameter and of the probe batch's per-layer activations, at every
+print step; the JAX package's activation names (``acts/input``,
+``acts/layer_<L>/hop_<H>``) and shapes."""
 
 import json
 import os
@@ -42,6 +42,10 @@ def test_supervised_cli_profile_and_histograms(tmp_path):
         trace = json.load(fp)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n for n in names)        # the model's products
+    ranges = {e["name"] for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    assert {"train.chunk", "train.step", "sample", "gather", "aggregate",
+            "head", "backward", "optimizer", "eval.step"} <= ranges
     log_dir = os.path.join(str(tmp_path), "sup-toy",
                            "graphsage_mean_small_0.0100")
     with open(os.path.join(log_dir, "histograms.jsonl")) as fp:
