@@ -234,6 +234,9 @@ F32_TOL = 1e-5                         # max abs error, kernel vs plain
 # K5/K6 vs plain: z is a sum of F = 602 f32 products, taken by the kernel
 # in one fma chain per output and by cuBLAS in another order
 POOL_TOL = 5e-5
+# K6's stated error on z (3xTF32 with its promotions): relu's mask may
+# differ from the plain product's only where |z| is below it
+RELU_Z_TOL = 1.6e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, test_pool.py:70
 POOL_HIDDEN = 512                      # nn/aggregators.py, "small"
 # K7 vs plain, max abs error: both sum the same f32 (or bf16-exact)
@@ -1112,7 +1115,8 @@ def pool_bounds(idx_sets, elem_bytes: int, residual: bool,
     B, S, H = HOP_ROWS, FANOUTS[0], POOL_HIDDEN
     bytes_ms = float(np.mean([
         (int(torch.unique(idx).numel()) * F * elem_bytes + F * H * 4 + H * 4
-         + B * S * 4 + B * H * 4 + (B * S * F * 4 if residual else 0))
+         + B * S * 4 + B * H * 4
+         + (B * S * F * 4 + B * S * H if residual else 0))
         / HBM_BYTES_PER_S * 1e3 for idx in idx_sets]))
     mma_ms = (pool_products(elem_bytes, residual) * 2 * B * S * F * H
               / TF32_OPS_PER_S * 1e3)
@@ -1240,12 +1244,14 @@ def check_pool(dev, card_line: str) -> dict:
 
 def check_pool_train(dev, card_line: str) -> dict:
     """K6 against its plain version: the residual bit-equal to the plain
-    dropped rows, the mask identical to dropout_keep_mask, the rate's
+    dropped rows, the mask identical to dropout_keep_mask, relu's mask
+    equal to the plain z > 0 but where |z| < RELU_Z_TOL, the rate's
     zero fraction and the 1/keep scale, the pooled output, and the
     gradients of gather_mlp_pool_train against autograd of the plain
     composition (mean and max, ties included); times and bounds."""
     import torch
 
+    from graphsage_tpu_torch import trace
     from graphsage_tpu_torch.models.graphsage import KERNEL_DROP_TAG
     from graphsage_tpu_torch.ops.philox import dropout_keep_mask
     from graphsage_tpu_torch.ops.pool import (
@@ -1265,11 +1271,12 @@ def check_pool_train(dev, card_line: str) -> dict:
     seed, offset = 0x0123456789ABCDEF, (17, KERNEL_DROP_TAG)
     key = dict(seed=seed, offset=offset)
     keep = dropout_keep_mask(B * S, F, DROPOUT, seed, *offset, device=dev)
-    err = 0.0
+    err = z_near = 0.0
+    flipped = 0
     for name, tab in (("f32", table), ("bf16", table.to(torch.bfloat16))):
         for reduce in ("mean", "max"):
-            out, x = gather_mlp_pool_with_rows(tab, idx_sets[0], w, b,
-                                               reduce, DROPOUT, **key)
+            out, x, mask = gather_mlp_pool_with_rows(tab, idx_sets[0], w, b,
+                                                     reduce, DROPOUT, **key)
             x_ref = gathered_rows_reference(tab, idx_sets[0], DROPOUT, **key)
             check(bool(torch.equal(x, x_ref)),
                   f"K6 {name}: the residual differs from the plain dropped "
@@ -1279,6 +1286,12 @@ def check_pool_train(dev, card_line: str) -> dict:
             check(bool(torch.equal(x != 0, keep & nonzero)),
                   f"K6 {name}: mask differs from dropout_keep_mask")
             del nonzero
+            z_ref = x_ref @ w + b
+            flips = mask != (z_ref > 0)
+            flipped += int(flips.sum())
+            if bool(flips.any()):
+                z_near = max(z_near, float(z_ref[flips].abs().max()))
+            del z_ref, flips, mask
             ref = pool_rows(x_ref, w, b, reduce, S)
             err = max(err, float((out - ref).abs().max()))
             del out, x, x_ref, ref
@@ -1290,16 +1303,22 @@ def check_pool_train(dev, card_line: str) -> dict:
     err = max(err, float((k5 - k5_ref).abs().max()))
     log(f"K6 vs plain at idx [{B},{S}], rate {DROPOUT}: residual "
         f"[{B * S},{F}] bit-equal and mask identical ({B * S * F} elements, "
-        f"f32 and bf16 tables, mean and max); pooled max abs err "
-        f"{err:.3e} (limit {POOL_TOL}, K5 with dropout included)")
+        f"f32 and bf16 tables, mean and max); relu's mask [{B * S},{H}] "
+        f"against the plain z > 0: {flipped} of {4 * B * S * H} elements "
+        f"differ, the largest |z| among them {z_near:.3e} (limit "
+        f"{RELU_Z_TOL}); pooled max abs err {err:.3e} (limit {POOL_TOL}, "
+        f"K5 with dropout included)")
     check(err <= POOL_TOL, f"K6 error {err} > {POOL_TOL}")
+    check(z_near < RELU_Z_TOL,
+          f"K6's relu mask differs from z > 0 at |z| = {z_near}")
 
     ones = torch.ones(64, 37, device=dev)
     eye = torch.eye(37, 8, device=dev)
     s1 = torch.from_numpy(rng.integers(0, 64, (HOP_ROWS, 1),
                                        dtype=np.int32)).to(dev)
-    _, x = gather_mlp_pool_with_rows(ones, s1, eye, torch.zeros(8, device=dev),
-                                     "mean", DROPOUT, **key)
+    _, x, _ = gather_mlp_pool_with_rows(ones, s1, eye,
+                                        torch.zeros(8, device=dev), "mean",
+                                        DROPOUT, **key)
     zero_frac = float((x == 0).float().mean())
     scale_ok = bool((x[x != 0] == float(np.float32(1 / (1 - DROPOUT)))).all())
     log(f"K6 at rate {DROPOUT}, all-ones table, {x.numel()} elements: zero "
@@ -1319,10 +1338,15 @@ def check_pool_train(dev, card_line: str) -> dict:
             kw = key if rate > 0 else {}
             w1, b1 = w0.clone().requires_grad_(), b0.clone().requires_grad_()
             before = launch_counts()["K6"]
+            route = ("pool_grad_mask" if reduce == "mean"
+                     else "pool_grad_recompute")
+            routes = trace.snapshot()[route]
             (gather_mlp_pool_train(tab, idx, w1, b1, reduce, rate, **kw)
              * cot).sum().backward()
             check(launch_counts()["K6"] == before + 1,
                   "gather_mlp_pool_train did not launch K6 under autograd")
+            check(trace.snapshot()[route] == routes + 1,
+                  f"the {reduce} pool backward did not take {route}")
             w2, b2 = w0.clone().requires_grad_(), b0.clone().requires_grad_()
             (pool_rows(gathered_rows_reference(tab, idx, rate, **kw), w2, b2,
                        reduce, S) * cot).sum().backward()
@@ -1330,7 +1354,8 @@ def check_pool_train(dev, card_line: str) -> dict:
                 torch.testing.assert_close(got, want, **GRAD_TOL)
                 g_err = max(g_err, float((got - want).abs().max()))
     log(f"K6 Function grads (w, b) vs autograd of the plain composition, "
-        f"mean and max, rate 0 and {DROPOUT}, max-tie rows included: max "
+        f"mean (relu' from K6's mask) and max (z recomputed), rate 0 and "
+        f"{DROPOUT}, max-tie rows included: max "
         f"abs diff {g_err:.3e} (rtol {GRAD_TOL['rtol']}, atol "
         f"{GRAD_TOL['atol']})")
 
@@ -2628,6 +2653,7 @@ def check_proxy_ppi_kernels(dev, card_line: str) -> dict:
         fused_gather_mlp_pool,
         gather_mlp_pool_reference,
         gather_mlp_pool_with_rows,
+        gather_mlp_pool_with_rows_reference,
         gathered_rows_reference,
         pool_rows,
     )
@@ -2647,7 +2673,7 @@ def check_proxy_ppi_kernels(dev, card_line: str) -> dict:
         got = fused_gather_mlp_pool(table, idx, w, b, "mean")
         err["K5"] = max(err["K5"], float((got - gather_mlp_pool_reference(
             table, idx, w, b, "mean")).abs().max()))
-        got, x = gather_mlp_pool_with_rows(table, idx, w, b, "mean")
+        got, x, _ = gather_mlp_pool_with_rows(table, idx, w, b, "mean")
         x_ref = gathered_rows_reference(table, idx)
         check(bool(torch.equal(x, x_ref)),
               "K6 at proxy-ppi's hop: the residual differs from the plain "
@@ -2664,9 +2690,6 @@ def check_proxy_ppi_kernels(dev, card_line: str) -> dict:
     for k, v in err.items():
         check(v <= limits[k], f"{k} at proxy-ppi's hop: error {v}")
 
-    def plain_with_rows(x):
-        return pool_rows(x, w, b, "mean", S), x
-
     def library_pool(idx):
         rows = table.index_select(0, idx.view(-1))
         return torch.relu(torch.addmm(b, rows, w)).view(B, S, H).mean(dim=1)
@@ -2681,8 +2704,8 @@ def check_proxy_ppi_kernels(dev, card_line: str) -> dict:
                library_pool),
         "K6": (lambda idx: gather_mlp_pool_with_rows(table, idx, w, b,
                                                      "mean"),
-               lambda idx: plain_with_rows(gathered_rows_reference(table,
-                                                                   idx)),
+               lambda idx: gather_mlp_pool_with_rows_reference(
+                   table, idx, w, b, "mean"),
                None),
     }
     g_bytes = float(np.mean([gather_bytes_ms(i, F) for i in idx_sets]))

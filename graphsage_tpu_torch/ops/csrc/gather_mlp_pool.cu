@@ -11,9 +11,11 @@
 // fused_gather_mlp_pool calls it (pool.py:79-113, call :187). K6
 // replaces the same kernel with want_x=True, the forward of
 // gather_mlp_pool_train's custom VJP (pool.py:308-389): it also writes
-// the dropped rows X [B*S, F] f32, once, as the backward's residual.
-// Beyond that residual, neither the gathered rows nor the [B*S, H]
-// activations reach device memory: only the [B, H] f32 result.
+// the dropped rows X [B*S, F] f32, once, as the backward's residual, and
+// relu's mask M [B*S, H] (one byte an element, 1 where X @ w + bias > 0),
+// so that the mean backward never recomputes the product. Beyond those,
+// neither the gathered rows nor the [B*S, H] activations reach device
+// memory: only the [B, H] f32 result.
 //
 // What bounds it on the H100: operations. At the serving hop (idx
 // [5120, 25] into a [100001, 602] f32 table, w [602, 512]) the product
@@ -30,7 +32,8 @@
 // ms for one f32 product on the CUDA cores. A bf16 row is exact in TF32
 // (lo = 0), so a bf16 table without dropout needs two products: 0.319
 // ms. With dropout the scaled row is no longer exact and takes three.
-// K6 adds the 308 MB residual (0.092 ms) and the Philox draws.
+// K6 adds the 308 MB residual (0.092 ms), the 65.5 MB mask (0.020 ms)
+// and the Philox draws.
 //
 // Design:
 //   * a block owns BR = max(1, 256 / S) whole output rows (all S of
@@ -85,6 +88,11 @@
 //     and reduces each output row's S rows in a fixed order: no float
 //     atomics, so results repeat bit for bit. For S > 256 a block owns
 //     one output row and carries its reduce over chunks of 256 rows;
+//   * K6 writes relu's mask in that reduce, from the very sums it pools
+//     (relu'd in place, so > 0 exactly where sum + bias > 0): the threads
+//     of a warp hold 32 neighbouring columns of one row there, so each
+//     row's bytes go out as one 32-byte streaming store. Each element is
+//     written once, by the block that owns its (row group, H tile);
 //   * row offsets are 64-bit (idx * F overflows int32 beyond ~3.5M rows
 //     at F = 602); an out-of-range index traps, as in K1;
 //   * any F, H, S >= 1: the columns past F are zeros in the ring, w's
@@ -158,6 +166,7 @@ struct Args {
   int unit;            // bytes per row copy: 16, 8, 4 or 2
   uint32_t seed_lo, seed_hi, step, tag, threshold;
   float scale, inv_s;
+  unsigned char* mask; // relu's mask [B*S, H], written by K6 only
 };
 
 __device__ __forceinline__ float tf32_rna(float v) {
@@ -613,9 +622,22 @@ gather_mlp_pool_kernel(const Args a) {
       const int lb = p / kNT, col = p - lb * kNT;
       const int lo = max(lb * S, c0), hi = min(lb * S + S, c0 + rows_c);
       if (lo >= hi) continue;
+      // K6: relu's mask of the block's row r, column h0 + col (K5's
+      // instances compile to no code here)
+      auto store_mask = [&](int r, float hv) {
+        if constexpr (WANT_X) {
+          const int h = h0 + col;
+          if (h < H) {
+            __stcs(a.mask + (g0 + r) * H + h,
+                   static_cast<unsigned char>(hv > 0.f));
+          }
+        }
+      };
       float v = at(lo - c0, col);
+      store_mask(lo, v);
       for (int r = lo + 1; r < hi; ++r) {
         const float hv = at(r - c0, col);
+        store_mask(r, hv);
         v = MAX ? fmaxf(v, hv) : v + hv;
       }
       if (lo != lb * S) v = MAX ? fmaxf(run, v) : run + v;
@@ -679,6 +701,7 @@ int copy_unit(const void* feat, int F, int elem_bytes) {
 
 Args make_args(const void* feat, int elem_bytes, const void* idx,
                const void* wt, const void* bias, void* out, void* x,
+               void* mask,
                long long n_rows, int B, int S, int F, int H,
                unsigned long long seed, unsigned int step, unsigned int tag,
                unsigned int threshold, float scale) {
@@ -689,6 +712,7 @@ Args make_args(const void* feat, int elem_bytes, const void* idx,
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<float*>(out);
   a.x = static_cast<float*>(x);
+  a.mask = static_cast<unsigned char*>(mask);
   a.n_rows = n_rows;
   a.B = B;
   a.S = S;
@@ -713,20 +737,21 @@ Args make_args(const void* feat, int elem_bytes, const void* idx,
 
 extern "C" {
 
-// K5 (want_x = 0) and K6 (want_x = 1, x = the [B*S, F] f32 residual).
+// K5 (want_x = 0) and K6 (want_x = 1, x = the [B*S, F] f32 residual,
+// mask = relu's [B*S, H] mask, one byte an element).
 // wt is the scratch for w's split, [2, ceil(H/128)*128, ceil(F/8)*8]
 // f32 (graphsage_gather_mlp_pool_wt_floats gives its size).
 // reduce_max: 1 for max, 0 for mean. With dropout = 0 the seed, step,
 // tag, threshold and scale are not read.
 #define GRAPHSAGE_POOL_PARAMS                                               \
   const void *feat, const void *idx, const void *w, const void *bias,       \
-      void *out, void *x, void *wt, long long n_rows, int B, int S, int F,  \
-      int H, int reduce_max, int dropout, int want_x,                       \
+      void *out, void *x, void *mask, void *wt, long long n_rows, int B,    \
+      int S, int F, int H, int reduce_max, int dropout, int want_x,         \
       unsigned long long seed, unsigned int step, unsigned int tag,         \
       unsigned int threshold, float scale, void *stream
 #define GRAPHSAGE_POOL_ARGS(ELEM_BYTES)                                     \
-  make_args(feat, ELEM_BYTES, idx, wt, bias, out, x, n_rows, B, S, F, H,    \
-            seed, step, tag, threshold, scale),                             \
+  make_args(feat, ELEM_BYTES, idx, wt, bias, out, x, mask, n_rows, B, S,   \
+            F, H, seed, step, tag, threshold, scale),                       \
       static_cast<const float*>(w), reduce_max, dropout, want_x,            \
       static_cast<cudaStream_t>(stream)
 

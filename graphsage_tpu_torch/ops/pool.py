@@ -13,13 +13,16 @@ does it in one kernel:
   result; launches counted in ``fused_gather_mlp_pool.launches``.
 - ``gather_mlp_pool_train``: differentiable in ``w`` and ``b``. When a
   gradient is wanted, its forward launches K6, the same kernel writing
-  the dropped rows X [B*S, F] f32 as the backward's residual (counted in
-  ``fused_gather_mlp_pool.train_launches``); the backward,
+  the dropped rows X [B*S, F] f32 as the backward's residual and relu's
+  mask M = (X @ w + b > 0) [B*S, H] bool from the sums it pools
+  (counted in ``fused_gather_mlp_pool.train_launches``); the backward,
   ``route_pool_grad``, is plain tensor code from X and never gathers
-  again. Without a gradient (e.g. under ``torch.inference_mode()``) it
-  launches K5, as the JAX package's primal body skips the residual.
-  ``features`` and ``idx`` get no gradient: the feature table is not
-  trained.
+  again. The mean's backward takes relu' from M, so no product but
+  ``X.T @ dz`` runs; the max's recomputes z = X @ w + b, whose values
+  its tie split needs. Without a gradient (e.g. under
+  ``torch.inference_mode()``) it launches K5, as the JAX package's
+  primal body skips the residual. ``features`` and ``idx`` get no
+  gradient: the feature table is not trained.
 
 K5/K6 run the product on the tensor cores in 3xTF32 (``tf32_split``
 states the split), f32-accurate as the plain versions' f32 product.
@@ -75,7 +78,11 @@ def gathered_rows_reference(features: torch.Tensor, idx: torch.Tensor,
 def pool_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               reduce: str, S: int) -> torch.Tensor:
     """[B, H] = reduce_s relu(x @ w + b) over groups of S rows of x."""
-    h = torch.relu(x @ w + b).view(-1, S, w.shape[1])
+    return _pool_z(x @ w + b, reduce, S)
+
+
+def _pool_z(z: torch.Tensor, reduce: str, S: int) -> torch.Tensor:
+    h = torch.relu(z).view(-1, S, z.shape[1])
     return torch.amax(h, dim=1) if reduce == "max" else h.mean(dim=1)
 
 
@@ -87,6 +94,18 @@ def gather_mlp_pool_reference(features, idx, w, b, reduce: str = "max",
     return pool_rows(
         gathered_rows_reference(features, idx, drop_rate, seed, offset),
         w, b, reduce, idx.shape[1])
+
+
+def gather_mlp_pool_with_rows_reference(features, idx, w, b,
+                                       reduce: str = "max",
+                                       drop_rate: float = 0.0, seed=None,
+                                       offset=None):
+    """Plain version of K6: (pooled, x, z > 0) for the f32 rows x of
+    ``gathered_rows_reference`` and z = x @ w + b, computed once; the
+    pooled output is ``pool_rows``' bit for bit."""
+    x = gathered_rows_reference(features, idx, drop_rate, seed, offset)
+    z = x @ w + b
+    return _pool_z(z, reduce, idx.shape[1]), x, z > 0
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -105,23 +124,37 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
-def route_pool_grad(dy, x, w, b, reduce: str, S: int):
+def route_pool_grad(dy, x, mask, w, b, reduce: str, S: int):
     """(grad_w, grad_b) of reduce_s relu(x @ w + b) from the saved rows x
-    [B*S, F], as the JAX package's ``_route_pool_grad``: relu' is zero
-    at z <= 0 and the max's gradient splits evenly among ties. The tie
-    mask compares against a max recomputed from the same z, never the
-    forward's output, whose kernel sums in another order."""
+    [B*S, F] and relu's mask [B*S, H] (z > 0 as the forward computed z),
+    as the JAX package's ``_route_pool_grad``: relu' is zero at z <= 0
+    and the max's gradient splits evenly among ties. By ``reduce``:
+
+    - "mean": dz = mask * dy / S, with no product recomputed
+      (``route_pool_grad.mask_backwards`` counts these);
+    - "max": z = x @ w + b recomputed, since the tie split needs its
+      values; the tie mask compares against a max of that same z, never
+      the forward's output, whose kernel sums in another order
+      (``route_pool_grad.recomputes``).
+    """
     B, H = dy.shape
-    z = x @ w + b
     if reduce == "max":
+        route_pool_grad.recomputes += 1
+        z = x @ w + b
         h = torch.relu(z).view(B, S, H)
         m = (h == torch.amax(h, dim=1, keepdim=True)).float()
         cnt = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
         dh = (dy[:, None, :] * m / cnt).reshape(B * S, H)
+        dz = torch.where(z > 0, dh, torch.zeros_like(dh))
     else:
-        dh = (dy[:, None, :] / S).expand(B, S, H).reshape(B * S, H)
-    dz = torch.where(z > 0, dh, torch.zeros_like(dh))
+        route_pool_grad.mask_backwards += 1
+        dz = torch.where(mask.view(B, S, H), dy[:, None, :] / S,
+                         0.0).view(B * S, H)
     return x.t() @ dz, dz.sum(dim=0)
+
+
+route_pool_grad.mask_backwards = 0   # mean: relu' from the forward's mask
+route_pool_grad.recomputes = 0       # max: z recomputed
 
 
 # -------------------------------------------------------------- kernels
@@ -168,7 +201,7 @@ def _check_inputs(features, idx, w, b, reduce, drop_rate, seed, offset):
 def _kernel(dtype: torch.dtype):
     fn = getattr(build.load("gather_mlp_pool"), _KERNELS[dtype])
     fn.argtypes = (
-        [ctypes.c_void_p] * 7
+        [ctypes.c_void_p] * 8
         + [ctypes.c_longlong] + [ctypes.c_int] * 7
         + [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
            ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
@@ -196,22 +229,27 @@ def _wt_floats(F: int, H: int) -> int:
 def _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
             want_x: bool):
     """One launch of the kernel on a CUDA tensor -> (out [B, H], x
-    [B*S, F] or None)."""
+    [B*S, F] and mask [B*S, H] bool, or None and None)."""
     if features.device.type != "cuda":
         raise ValueError(
             f"the gather-MLP-pool kernel runs on cuda, not {features.device}"
         )
     (B, S), (N, F), H = idx.shape, features.shape, w.shape[1]
     out = torch.empty((B, H), dtype=torch.float32, device=features.device)
-    x = (torch.empty((B * S, F), dtype=torch.float32,
-                     device=features.device) if want_x else None)
+    x = mask = None
+    if want_x:
+        x = torch.empty((B * S, F), dtype=torch.float32,
+                        device=features.device)
+        mask = torch.empty((B * S, H), dtype=torch.bool,
+                           device=features.device)
     if B == 0:
-        return out, x
+        return out, x, mask
     wt = torch.empty(_wt_floats(F, H), dtype=torch.float32,
                      device=features.device)
     dropout = drop_rate > 0.0
     args = [features.data_ptr(), idx.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), x.data_ptr() if want_x else None, wt.data_ptr(),
+            out.data_ptr(), x.data_ptr() if want_x else None,
+            mask.data_ptr() if want_x else None, wt.data_ptr(),
             N, B, S, F, H,
             int(reduce == "max"), int(dropout), int(want_x),
             seed if dropout else 0, offset[0] if dropout else 0,
@@ -226,7 +264,7 @@ def _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
             f"gather_mlp_pool kernel launch failed: CUDA error {err} "
             f"({_error_string(err)})"
         )
-    return out, x
+    return out, x, mask
 
 
 def fused_gather_mlp_pool(features: torch.Tensor, idx: torch.Tensor,
@@ -248,24 +286,26 @@ def fused_gather_mlp_pool(features: torch.Tensor, idx: torch.Tensor,
     if features.device.type == "cpu":
         return gather_mlp_pool_reference(features, idx, w, b, reduce,
                                          drop_rate, seed, offset)
-    out, _ = _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
-                     want_x=False)
+    out, _, _ = _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
+                        want_x=False)
     fused_gather_mlp_pool.launches += 1
     return out
 
 
 def gather_mlp_pool_with_rows(features, idx, w, b, reduce: str = "max",
                               drop_rate: float = 0.0, seed=None, offset=None):
-    """K6's forward -> (pooled [B, H], x [B*S, F] f32): the pooled
-    output and the dropped gathered rows it was computed from."""
+    """K6's forward -> (pooled [B, H], x [B*S, F] f32, mask [B*S, H]
+    bool): the pooled output, the dropped gathered rows it was computed
+    from and relu's mask x @ w + b > 0 of the sums it pooled."""
     _check_inputs(features, idx, w, b, reduce, drop_rate, seed, offset)
     if features.device.type == "cpu":
-        x = gathered_rows_reference(features, idx, drop_rate, seed, offset)
-        return pool_rows(x, w, b, reduce, idx.shape[1]), x
-    out, x = _launch(features, idx, w, b, reduce, drop_rate, seed, offset,
-                     want_x=True)
+        return gather_mlp_pool_with_rows_reference(features, idx, w, b,
+                                                   reduce, drop_rate, seed,
+                                                   offset)
+    out, x, mask = _launch(features, idx, w, b, reduce, drop_rate, seed,
+                           offset, want_x=True)
     fused_gather_mlp_pool.train_launches += 1
-    return out, x
+    return out, x, mask
 
 
 fused_gather_mlp_pool.launches = 0        # K5
@@ -277,16 +317,17 @@ class _GatherMLPPool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, idx, w, b, reduce, drop_rate, seed, offset):
-        pooled, x = gather_mlp_pool_with_rows(features, idx, w, b, reduce,
-                                              drop_rate, seed, offset)
-        ctx.save_for_backward(x, w, b)
+        pooled, x, mask = gather_mlp_pool_with_rows(
+            features, idx, w, b, reduce, drop_rate, seed, offset)
+        ctx.save_for_backward(x, mask, w, b)
         ctx.reduce, ctx.S = reduce, idx.shape[1]
         return pooled
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, b = ctx.saved_tensors
-        grad_w, grad_b = route_pool_grad(dy, x, w, b, ctx.reduce, ctx.S)
+        x, mask, w, b = ctx.saved_tensors
+        grad_w, grad_b = route_pool_grad(dy, x, mask, w, b, ctx.reduce,
+                                         ctx.S)
         return None, None, grad_w, grad_b, None, None, None, None
 
 

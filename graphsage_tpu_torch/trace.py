@@ -29,8 +29,9 @@ Every runner that calls ``models/graphsage.py::sage_embed`` has its
 ``sample``, ``gather`` and ``aggregate``. Nothing is spanned inside
 autograd's backward worker: its work falls in ``backward`` by time.
 
-``snapshot`` reads the kernel wrappers' launch counters (K1-K6), which
-stay where they are counted (``ops/gather.py``, ``ops/pool.py``).
+``snapshot`` reads the kernel wrappers' launch counters (K1-K6) and
+the pool backward's routes, which stay where they are counted
+(``ops/gather.py``, ``ops/pool.py``).
 """
 
 from __future__ import annotations
@@ -163,11 +164,16 @@ def snapshot() -> dict:
     """The launch counts of the port's kernels in this process, by
     kernel: K1 (gather-mean), K2 (its Philox dropout), K3 (its dedup),
     K4 (the row gather), K5 (gather-MLP-pool) and K6 (its training
-    forward)."""
+    forward); and the pool backwards by route: ``pool_grad_mask``
+    (the mean's, relu' from K6's mask) and ``pool_grad_recompute``
+    (the max's, z recomputed)."""
     from graphsage_tpu_torch.ops.gather import fused_gather_mean as gm
     from graphsage_tpu_torch.ops.gather import fused_gather_rows as gr
     from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool as gp
+    from graphsage_tpu_torch.ops.pool import route_pool_grad as pg
 
     return {"K1": gm.launches, "K2": gm.dropout_launches,
             "K3": gm.dedup_launches, "K4": gr.launches,
-            "K5": gp.launches, "K6": gp.train_launches}
+            "K5": gp.launches, "K6": gp.train_launches,
+            "pool_grad_mask": pg.mask_backwards,
+            "pool_grad_recompute": pg.recomputes}

@@ -39,6 +39,7 @@ from graphsage_tpu_torch.ops.gather_probe import (
     probe_hotcount,
     probe_hotmx,
 )
+from graphsage_tpu_torch import trace
 from graphsage_tpu_torch.ops.philox import dropout_keep_mask
 from graphsage_tpu_torch.ops.pool import (
     fused_gather_mlp_pool,
@@ -510,6 +511,9 @@ def test_rows_kernel_unaligned_table(cuda):
 
 # K5/K6 vs plain: z sums F products in another order than cuBLAS
 POOL_TOLERANCE = dict(rtol=1e-5, atol=5e-5)
+# K6's stated error on z: relu's mask may differ from the plain z > 0
+# only where |z| is below it
+RELU_Z_TOL = 1.6e-5
 
 
 def _pool_operands(cuda, seed, n, F, H, dtype=torch.float32):
@@ -558,7 +562,8 @@ def test_pool_residual_is_the_plain_dropped_rows(cuda, dtype):
     idx = torch.randint(0, 80, (300, 25), device=cuda, dtype=torch.int32)
     key = dict(seed=2**63 + 12345, offset=(7, 0x5EED))
     before = fused_gather_mlp_pool.train_launches
-    out, x = gather_mlp_pool_with_rows(table, idx, w, b, "mean", 0.5, **key)
+    out, x, _ = gather_mlp_pool_with_rows(table, idx, w, b, "mean", 0.5,
+                                          **key)
     torch.cuda.synchronize()
     assert fused_gather_mlp_pool.train_launches == before + 1
     x_ref = gathered_rows_reference(table, idx, 0.5, **key)
@@ -575,25 +580,54 @@ def test_pool_residual_is_the_plain_dropped_rows(cuda, dtype):
 @pytest.mark.parametrize("reduce", ["mean", "max"])
 def test_pool_kernel_repeats_bit_for_bit(cuda, dtype, reduce):
     """No float atomics: two launches on the same inputs give the same
-    bits, for K5 and for K6 (pooled output and residual)."""
+    bits, for K5 and for K6 (pooled output, residual and relu's mask)."""
     table, w, b = _pool_operands(cuda, 6, 80, 602, 512, dtype)
     idx = torch.randint(0, 81, (130, 25), device=cuda, dtype=torch.int32)
     first = fused_gather_mlp_pool(table, idx, w, b, reduce)
     assert torch.equal(first, fused_gather_mlp_pool(table, idx, w, b,
                                                     reduce))
     key = dict(seed=5, offset=(3, 4))
-    out, x = gather_mlp_pool_with_rows(table, idx, w, b, reduce, 0.5, **key)
-    out2, x2 = gather_mlp_pool_with_rows(table, idx, w, b, reduce, 0.5,
-                                         **key)
+    out, x, mask = gather_mlp_pool_with_rows(table, idx, w, b, reduce, 0.5,
+                                             **key)
+    out2, x2, mask2 = gather_mlp_pool_with_rows(table, idx, w, b, reduce,
+                                                0.5, **key)
     assert torch.equal(out, out2) and torch.equal(x, x2)
+    assert torch.equal(mask, mask2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduce,rate", [("mean", 0.0), ("max", 0.5)])
+@pytest.mark.parametrize("B,S,F,H", [
+    (1, 1, 1, 1), (7, 25, 602, 512), (9, 10, 17, 24), (11, 25, 602, 130),
+    (257, 1, 17, 256), (3, 300, 8, 24), (2, 200, 602, 256), (0, 25, 602, 512),
+])
+def test_pool_relu_mask_is_the_plain_sign(cuda, dtype, reduce, rate, B, S,
+                                          F, H):
+    """K6's relu mask is (plain rows @ w + b) > 0 at every element but
+    those whose |z| lies within K6's error of zero, at ragged shapes:
+    H off the 128-column tile, S beyond a block's 256 rows, B = 0."""
+    table, w, b = _pool_operands(cuda, B + S + F + H + 1, 50, F, H, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S + 1)
+    idx = torch.randint(0, 51, (B, S), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    key = dict(seed=2**40 + 3, offset=(5, 6)) if rate else {}
+    _, x, mask = gather_mlp_pool_with_rows(table, idx, w, b, reduce, rate,
+                                           **key)
+    z = gathered_rows_reference(table, idx, rate, **key) @ w + b
+    assert mask.shape == (B * S, H) and mask.dtype == torch.bool
+    flips = mask != (z > 0)
+    print(f"relu mask [{B * S}, {H}]: {int(flips.sum())} of {mask.numel()} "
+          f"differ from the plain z > 0")
+    assert bool((z[flips].abs() < RELU_Z_TOL).all())
 
 
 @pytest.mark.parametrize("reduce", ["mean", "max"])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 def test_pool_train_grads_match_autograd(cuda, reduce, rate):
-    """The Function (K6 forward, route_pool_grad backward) against
-    autograd of the plain composition, max ties included; under no_grad
-    it launches K5. rtol 1e-4, atol 1e-5 as tests/test_pool.py."""
+    """The Function (K6 forward, route_pool_grad backward: the mean's
+    from K6's relu mask, the max's recomputing z) against autograd of the
+    plain composition, max ties included; under no_grad it launches K5.
+    rtol 1e-4, atol 1e-5 as tests/test_pool.py."""
     table, w, b = _pool_operands(cuda, 5, 60, 96, 160)
     idx = torch.randint(0, 61, (40, 10), device=cuda, dtype=torch.int32)
     idx[0] = 3
@@ -601,8 +635,14 @@ def test_pool_train_grads_match_autograd(cuda, reduce, rate):
     key = dict(seed=99, offset=(1, 2)) if rate else {}
     cot = torch.randn(40, 160, device=cuda)
     w1, b1 = w.clone().requires_grad_(), b.clone().requires_grad_()
+    before = trace.snapshot()
     (gather_mlp_pool_train(table, idx, w1, b1, reduce, rate, **key)
      * cot).sum().backward()
+    after = trace.snapshot()
+    route = "pool_grad_mask" if reduce == "mean" else "pool_grad_recompute"
+    assert {k: after[k] - before[k] for k in
+            ("pool_grad_mask", "pool_grad_recompute")} == {
+        "pool_grad_mask": 0, "pool_grad_recompute": 0, route: 1}
     w2, b2 = w.clone().requires_grad_(), b.clone().requires_grad_()
     (pool_rows(gathered_rows_reference(table, idx, rate, **key), w2, b2,
                reduce, 10) * cot).sum().backward()

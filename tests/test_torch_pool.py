@@ -81,9 +81,45 @@ def test_forward_matches_jax(setup, reduce):
     for want in (kernel, ref):
         np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
-    pooled, x = pool.gather_mlp_pool_with_rows(*targs, reduce)
+    pooled, x, mask = pool.gather_mlp_pool_with_rows(*targs, reduce)
     assert torch.equal(pooled, out)
     np.testing.assert_array_equal(x.numpy(), feats[idx.reshape(-1)])
+    assert mask.shape == (B * S, H) and mask.dtype == torch.bool
+
+
+@pytest.mark.parametrize("reduce", ["max", "mean"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_with_rows_is_pool_rows_and_relu_mask(setup, reduce, rate):
+    """The plain route of K6's forward: (pooled, x, mask) is
+    (pool_rows(x, ...), the dropped rows, x @ w + b > 0) bit for bit."""
+    feats, idx, w, b = setup
+    key = dict(seed=2**33 + 9, offset=(4, 0x5EED)) if rate else {}
+    args = (t(feats), t(idx), t(w), t(b))
+    pooled, x, mask = pool.gather_mlp_pool_with_rows(*args, reduce, rate,
+                                                     **key)
+    want_x = pool.gathered_rows_reference(t(feats), t(idx), rate, **key)
+    assert torch.equal(x, want_x)
+    assert torch.equal(pooled, pool.pool_rows(want_x, t(w), t(b), reduce, S))
+    assert torch.equal(mask, want_x @ t(w) + t(b) > 0)
+    assert 0 < int(mask.sum()) < mask.numel()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_mean_backward_from_the_mask_is_the_recompute(setup, rate):
+    """The mean's backward from the forward's mask equals, bit for bit,
+    the route that recomputed z = x @ w + b for relu's mask."""
+    feats, idx, w, b = setup
+    key = dict(seed=31, offset=(2, 3)) if rate else {}
+    _, x, mask = pool.gather_mlp_pool_with_rows(t(feats), t(idx), t(w), t(b),
+                                                "mean", rate, **key)
+    dy = t(np.random.default_rng(5).standard_normal((B, H)).astype(
+        np.float32))
+    z = x @ t(w) + t(b)
+    dh = (dy[:, None, :] / S).expand(B, S, H).reshape(B * S, H)
+    dz = torch.where(z > 0, dh, torch.zeros_like(dh))
+    got = pool.route_pool_grad(dy, x, mask, t(w), t(b), "mean", S)
+    assert torch.equal(got[0], x.t() @ dz)
+    assert torch.equal(got[1], dz.sum(dim=0))
 
 
 @pytest.mark.parametrize("reduce", ["max", "mean"])
@@ -157,10 +193,11 @@ def test_dropout_residual_invariant(setup, reduce):
     X is the gathered rows with the mask's zeros and 1/keep scale."""
     feats, idx, w, b = setup
     args = (t(feats), t(idx), t(w), t(b), reduce, 0.3, 77, (1, 2))
-    pooled, x = pool.gather_mlp_pool_with_rows(*args)
+    pooled, x, mask = pool.gather_mlp_pool_with_rows(*args)
     np.testing.assert_allclose(
         pooled.numpy(), pool.pool_rows(x, t(w), t(b), reduce, S).numpy(),
         rtol=1e-5, atol=1e-5)
+    assert torch.equal(mask, x @ t(w) + t(b) > 0)
     rows = feats[idx.reshape(-1)]
     kept = x.numpy() != 0
     np.testing.assert_allclose(x.numpy()[kept], rows[kept] / 0.7, rtol=1e-6)

@@ -23,7 +23,11 @@ from graphsage_tpu_torch.models.supervised import (
     make_optimizer,
 )
 from graphsage_tpu_torch.ops.gather import fused_gather_mean, fused_gather_rows
-from graphsage_tpu_torch.ops.pool import fused_gather_mlp_pool
+from graphsage_tpu_torch.ops.pool import (
+    fused_gather_mlp_pool,
+    gather_mlp_pool_train,
+    route_pool_grad,
+)
 from graphsage_tpu_torch.parallel import launch
 from graphsage_tpu_torch.parallel.dp import make_supervised_chunk_runner
 from graphsage_tpu_torch.train.supervised import make_eval_step, make_eval_sweep
@@ -241,8 +245,34 @@ def test_snapshot_reads_the_kernels_counters(monkeypatch):
             (fused_gather_mean, "dedup_launches", 7),
             (fused_gather_rows, "launches", 11),
             (fused_gather_mlp_pool, "launches", 13),
-            (fused_gather_mlp_pool, "train_launches", 17)]:
+            (fused_gather_mlp_pool, "train_launches", 17),
+            (route_pool_grad, "mask_backwards", 19),
+            (route_pool_grad, "recomputes", 23)]:
         monkeypatch.setattr(fn, attr, value)
     assert trace.snapshot() == {"K1": 3, "K2": 5, "K3": 7, "K4": 11,
-                                "K5": 13, "K6": 17}
+                                "K5": 13, "K6": 17, "pool_grad_mask": 19,
+                                "pool_grad_recompute": 23}
     assert launch.gather_launches() == {"K1": 3, "K2": 5, "K3": 7, "K4": 11}
+
+
+def test_snapshot_counts_the_pool_backwards_by_route():
+    """Every meanpool training step's backward takes relu' from the
+    forward's mask; a max pool's backward recomputes z."""
+    cfg, feats, adj, ids, labels = _toy("meanpool", 0.0)
+    params = init_supervised_params(torch.Generator().manual_seed(0), cfg)
+    optimizer = make_optimizer(0.01)
+    run = make_supervised_chunk_runner(cfg, optimizer, B)
+    before = trace.snapshot()
+    run(params, optimizer.init(params), torch.Generator().manual_seed(7),
+        feats, adj, ids, labels, 0, STEPS)
+    after = trace.snapshot()
+    assert after["pool_grad_mask"] - before["pool_grad_mask"] == STEPS
+    assert after["pool_grad_recompute"] == before["pool_grad_recompute"]
+
+    w = torch.randn(8, 6, requires_grad=True)
+    b = torch.zeros(6, requires_grad=True)
+    idx = torch.randint(0, 60, (4, 3), dtype=torch.int32)
+    gather_mlp_pool_train(feats, idx, w, b, "max").sum().backward()
+    last = trace.snapshot()
+    assert last["pool_grad_recompute"] - after["pool_grad_recompute"] == 1
+    assert last["pool_grad_mask"] == after["pool_grad_mask"]
