@@ -10,6 +10,9 @@ entry in ``BENCHMARK.json``.
     python3 -m port_bench.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
+A cell on several cards runs one process a card (``ranks.py``), each
+with its shard of the graph where the configuration shards it.
+
 The yardstick lives here and nowhere in the port: the inputs drawn from
 the seed (``inputs.py``), the counts of edges, bytes and operations and
 the card's peaks (``counts.py``), the reduction of the profiler's trace

@@ -16,6 +16,13 @@ the last line of standard output is the result, its ``checks`` (each
 compared number with its limit) last, and the same checks close
 standard error. A run whose process holds a module of JAX or of the JAX
 package after the window exits 3 with no result.
+
+A cell on one card runs in this process. A cell on several runs one
+process a card (``ranks.py``), started before this process looks for
+the cards, each card's name and power limit first on standard output;
+``setup_s`` runs from this process's start to rank 0's window; where a
+rank fails, dies or outlives its deadline, every rank is killed and the
+command exits 1 with no result.
 """
 
 from __future__ import annotations
@@ -30,12 +37,12 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 
 
-def smi(fields: str) -> str:
-    """``nvidia-smi``'s reading of ``fields`` on card 0, or why not."""
+def smi(fields: str, card: int = 0) -> str:
+    """``nvidia-smi``'s reading of ``fields`` on ``card``, or why not."""
     try:
         out = subprocess.run(
             ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader",
-             "-i", "0"], capture_output=True, text=True, timeout=60,
+             "-i", str(card)], capture_output=True, text=True, timeout=60,
             check=True)
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError) as err:
@@ -54,30 +61,75 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
+def refusal(torch, cell) -> str | None:
+    """Why this machine cannot run ``cell``, or None."""
+    if not torch.cuda.is_available():
+        return "no CUDA device: the benchmark runs only on the card"
+    if torch.cuda.device_count() < cell.chips:
+        return (f"{cell.name} needs {cell.chips} CUDA devices, found "
+                f"{torch.cuda.device_count()}")
+    return None
+
+
+def several(args, cell):
+    """A cell on several cards -> rank 0's result, or the exit code. The
+    ranks start first, so that their start-up overlaps this process's
+    look for the cards; where the look refuses, they are killed."""
+    from port_bench import ranks
+
+    refused = []
+
+    def look():
+        import torch
+
+        why = refusal(torch, cell)
+        if why is None:
+            for r in range(cell.chips):
+                print(f"# card {r}: {smi('name,power.limit', r)}",
+                      flush=True)
+        else:
+            print(why, file=sys.stderr, flush=True)
+            refused.append(why)
+        return why
+
+    result = ranks.launch(args.workload, args.seed, args.seconds,
+                          bool(args.trace), cell.chips, t_start=T_START,
+                          check=look)
+    if result is None:
+        return 2 if refused else 1
+    return result
+
+
 def main(argv=None) -> int:
     args = parse(argv)
-    import torch
-
-    from port_bench import harness, program, spec
+    from port_bench import spec
 
     cell = spec.cell(args.workload)
-    if not torch.cuda.is_available():
-        harness.log("no CUDA device: the benchmark runs only on the card")
-        return 2
-    if torch.cuda.device_count() < cell.chips:
-        harness.log(f"{args.workload} needs {cell.chips} CUDA devices, "
-                    f"found {torch.cuda.device_count()}")
-        return 2
-    torch.set_num_threads(1)
-    card = smi("name,power.limit")
-    print(f"# card: {card}", flush=True)
-    harness.log(f"card: {card}; {CLOCKS}: {smi(CLOCKS)}")
-    result = harness.run_cell(
-        cell, args.seed, args.seconds, bool(args.trace),
-        torch.device("cuda", 0), t_start=T_START,
-        build=program.build_kernels,
-        on_record=lambda rec: harness.log(
-            f"after the window, {CLOCKS}: {smi(CLOCKS)}"))
+    if cell.chips > 1:
+        result = several(args, cell)
+        if isinstance(result, int):
+            return result
+    else:
+        import torch
+
+        from port_bench import harness, program
+
+        why = refusal(torch, cell)
+        if why is not None:
+            harness.log(why)
+            return 2
+        torch.set_num_threads(1)
+        card = smi("name,power.limit")
+        print(f"# card: {card}", flush=True)
+        harness.log(f"card: {card}; {CLOCKS}: {smi(CLOCKS)}")
+        result = harness.run_cell(
+            cell, args.seed, args.seconds, bool(args.trace),
+            torch.device("cuda", 0), t_start=T_START,
+            build=program.build_kernels,
+            on_record=lambda rec: harness.log(
+                f"after the window, {CLOCKS}: {smi(CLOCKS)}"))
+    from port_bench import harness
+
     loaded = harness.forbidden_modules()
     if loaded:
         harness.log(f"the process holds modules of JAX or the JAX package: "

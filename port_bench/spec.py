@@ -10,6 +10,32 @@ each read by ``metrics/<name>.py`` or, where a reader serves a family of
 metrics, ``metrics/<family>.py``: the name up to its first ``.`` or
 ``_per_`` (``mfu.train`` -> ``mfu.py``, ``launches_per_step.train`` ->
 ``launches.py``).
+
+A mode (``modes/<mode>.py``) is a module of six functions, each given
+the run's ``harness.Context`` (``ctx``):
+
+- ``setup(ctx) -> state`` and ``window(ctx, state, seconds) -> rec``
+  run on every rank. ``rec`` carries ``attempted`` and ``failed``;
+  ``window`` opens and closes ``ctx.span`` around whole units of its
+  traffic.
+- ``end_to_end(ctx, rec)``, ``check(ctx, rec)``, ``hop_ids(ctx, rec)``
+  and ``unit_flops(ctx)`` run on rank 0 alone, after the window, with
+  rank 0's ``rec``: the end-to-end metrics, the compared numbers (each
+  named in ``workloads/<cell>.json``'s limits) and what the per-layer
+  readers read (``trace.View``).
+
+A cell whose ``chips`` is over 1 runs one process a card
+(``ranks.py``). Each rank's ``ctx.rank``, ``ctx.world`` and
+``ctx.group`` (the process group: NCCL on cards, gloo on the CPU) are
+the mode's to use; on one card they are 0, 1 and None. A barrier opens
+every rank's window together, and a window over several ranks runs the
+same collectives on every rank: rank 0 says when it ends. Where the
+configuration states ``graph_shards`` > 1, ``ctx.graph`` is the rank's
+``inputs.Shard`` (shard ``rank`` mod ``graph_shards``) and not the
+whole ``inputs.Graph``; ``check`` on rank 0 takes the rows it compares
+from ``inputs.feature_rows``, ``adjacency_rows`` and ``label_rows``,
+which make any rows again, or has the other ranks send them in the
+window. Every rank gets the same initial weights.
 """
 
 from __future__ import annotations

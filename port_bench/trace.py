@@ -1,7 +1,8 @@
 """The traced spans of a ``--trace 1`` run and their reduction.
 
 A mode opens the span around whole units of its traffic (steps,
-batches, requests) inside the measured window, twice in turn:
+batches, requests) inside the measured window, twice in turn (over
+several cards, each rank on its own device):
 
 1. ``metrics``: ``torch.profiler`` with CUDA activity alone, from a
    device synchronise to one after its last unit. The per-layer metrics
@@ -275,20 +276,34 @@ def idle_gaps(events: list, host_s: float):
 
 
 @dataclasses.dataclass
+class RankTrace:
+    """One rank's metrics span: its length by the host's clock, its
+    busy seconds and its device operations."""
+
+    rank: int
+    window_s: float
+    busy_s: float
+    device_ops: list
+
+
+@dataclasses.dataclass
 class View:
-    """What a per-layer metric's reader reads: the metrics span's device
-    operations and kernels, its length and busy time, its units and
-    their description (``info``: the cell's configuration and traffic,
-    the model FLOPs of a unit, ``hop_ids()``, the innermost hop's ids
-    of each of the span's units, replayed from the seed, and ``record``,
-    the mode's record of the window, for readings by the host's
-    clock)."""
+    """What a per-layer metric's reader reads: rank 0's metrics span's
+    device operations and kernels, its length and busy time, its units
+    and their description (``info``: the cell's configuration and
+    traffic, the model FLOPs of a unit, ``hop_ids()``, the innermost
+    hop's ids of each of the span's units, replayed from the seed, and
+    ``record``, the mode's record of the window, for readings by the
+    host's clock), and ``ranks``, every rank's ``RankTrace`` (rank 0's
+    alone on one card), gathered after the window, so that a cell over
+    several cards can read its slowest rank."""
 
     device_ops: list
     window_s: float
     busy_s: float
     units: int
     info: dict
+    ranks: list = dataclasses.field(default_factory=list)
 
     @property
     def kernels(self) -> list:
