@@ -11,10 +11,15 @@ card when a cell is defined; the benchmark's own runs never run this.
 short window, and prints one JSON line a run with the compared numbers:
 the port's (the lower readings), the control's (the reference in TF32
 put in the port's place: the upper readings) and each fault's that the
-cell can have (``faults.py``). ``knee`` serves a requests cell at each
-rate and prints the latency's quantiles and whether the backlog grew:
-the mean latency of the last tenth of the requests against the first.
-Pass ``--device cpu`` to rehearse either at a toy size in a test.
+cell can have (its mode's ``FAULTS``, ``faults.py``). A cell on several
+cards makes each run through ``ranks.launch``, as the command does, the
+fault planted on every rank; the ranks read the cell from its files in
+the checkout, and a run with no result (a rank failed, died or hung)
+records ``correct`` null and no numbers: it sets no reading, neither
+lower nor upper. ``knee`` serves a requests cell at each rate and
+prints the latency's quantiles and whether the backlog grew: the mean
+latency of the last tenth of the requests against the first. Pass
+``--device cpu`` to rehearse either at a toy size in a test.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import sys
 import numpy as np
 import torch
 
-from port_bench import faults, harness, program, spec
+from port_bench import faults, harness, program, ranks, run, spec
 
 
 def _seeds(text: str) -> list:
@@ -36,27 +41,36 @@ def _seeds(text: str) -> list:
 def readings(cell, seeds, control_seeds, fault_seeds, seconds, device):
     out = []
 
-    def run(seed, kind, fault=None):
-        if fault is None:
+    def reading(seed, kind, fault=None):
+        if cell.chips > 1:
+            r = ranks.launch(cell.name, seed, seconds, False, cell.chips,
+                             device=torch.device(device).type,
+                             root=cell.base.parent, program=kind,
+                             fault=fault)
+        elif fault is None:
             r = harness.run_cell(cell, seed, seconds, False, device,
                                  program=kind)
         else:
             with faults.planted(fault):
                 r = harness.run_cell(cell, seed, seconds, False, device)
         line = {"workload": cell.name, "seed": seed, "program": kind,
-                "fault": fault, "correct": r["correct"],
-                "numbers": {k: c["value"] for k, c in r["checks"].items()},
-                "metrics": {k: m["value"] for k, m in r["metrics"].items()}}
+                "fault": fault, "correct": None, "numbers": {},
+                "metrics": {}}
+        if r is not None:
+            line.update(
+                correct=r["correct"],
+                numbers={k: c["value"] for k, c in r["checks"].items()},
+                metrics={k: m["value"] for k, m in r["metrics"].items()})
         print(json.dumps(line), flush=True)
         out.append(line)
 
     for seed in seeds:
-        run(seed, "port")
+        reading(seed, "port")
     for seed in control_seeds:
-        run(seed, "control")
-    for fault in faults.FOR_MODE[cell.traffic["mode"]]:
+        reading(seed, "control")
+    for fault in spec.mode(cell.traffic["mode"]).FAULTS:
         for seed in fault_seeds:
-            run(seed, "port", fault)
+            reading(seed, "port", fault)
     return out
 
 
@@ -94,10 +108,11 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        harness.log("no CUDA device")
-        return 2
     cell = spec.cell(args.workload)
+    why = run.refusal(torch, cell) if device.type == "cuda" else None
+    if why is not None:
+        harness.log(why)
+        return 2
     if device.type == "cuda":
         torch.set_num_threads(1)
         harness.log(program.build_kernels(cell.config)[-2000:])

@@ -1,6 +1,8 @@
 """Faults planted in the port underneath the harness, each of which the
 output check has to refuse: the tests drive them at a toy size on the
-CPU, ``calibrate.py`` reads them at a cell's own size on the card.
+CPU, ``calibrate.py`` reads them at a cell's own size on the card. A
+mode names the faults its cells can have (its ``FAULTS``): a name here,
+or ``module:name``, the fault ``name`` of that module's ``planted``.
 
 - ``unchanged_state``: the optimizer's update does nothing, so a step
   returns its state unchanged.
@@ -24,10 +26,6 @@ import torch
 
 FAULTS = ("unchanged_state", "half_batch", "half_neighbours",
           "altered_answer", "half_lr", "pool_grad_halved")
-# the faults a mode's cell can have
-FOR_MODE = {"train": FAULTS,
-            "sweep": ("half_neighbours", "altered_answer"),
-            "requests": ("half_neighbours", "altered_answer")}
 
 
 @contextlib.contextmanager
@@ -52,8 +50,18 @@ class _HalfGrad(torch.autograd.Function):
         return grad * 0.5
 
 
-@contextlib.contextmanager
 def planted(fault: str):
+    """A context that plants ``fault``: a name here, or ``module:name``
+    (resolved as a rank resolves ``--fault``)."""
+    if ":" in fault:
+        from port_bench import ranks
+
+        return ranks._planted(fault)
+    return _planted(fault)
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
     from graphsage_tpu_torch.models import graphsage, supervised
     from graphsage_tpu_torch.parallel import dp
     from graphsage_tpu_torch.train import supervised as train_sup

@@ -44,6 +44,12 @@ from port_bench import compare, counts, inputs, program
 from port_bench.harness import log
 from port_bench.reference import sage
 
+# the harness's tests: the toy size's traffic, the faults its cells can
+# have (faults.py)
+TOY = dict(batch_size=16, rate_per_s=100, warmup_requests=3,
+           checked_requests=5, trace_requests=10)
+FAULTS = ("half_neighbours", "altered_answer")
+
 
 def schedule(rate: float, seconds: float, seed: int) -> np.ndarray:
     """Arrival times in [0, seconds] of round(rate * seconds) requests: a

@@ -27,6 +27,11 @@ import torch
 from port_bench import compare, counts, inputs, program
 from port_bench.reference import sage
 
+# the harness's tests: the toy size's traffic, the faults its cells can
+# have (faults.py)
+TOY = dict(batch_size=64)
+FAULTS = ("half_neighbours", "altered_answer")
+
 
 def _host_sweep(st, ctx):
     losses, preds = st["prog"].sweep(st["params"], ctx.graph, st["ids_all"],

@@ -46,9 +46,14 @@ import time
 
 import torch
 
-from port_bench import compare, counts, inputs, program
+from port_bench import compare, counts, faults, inputs, program
 from port_bench.harness import log
 from port_bench.reference import sage
+
+# the harness's tests: the toy size's traffic, the faults its cells can
+# have (every one of faults.py)
+TOY = dict(batch_size=32)
+FAULTS = faults.FAULTS
 
 
 def _ids_stream(ctx, gen):

@@ -24,6 +24,23 @@ the run's ``harness.Context`` (``ctx``):
   named in ``workloads/<cell>.json``'s limits) and what the per-layer
   readers read (``trace.View``).
 
+and two constants, which the harness's tests and ``calibrate.py`` read:
+
+- ``TOY``: the traffic keys that cut the mode's cells to the tests' toy
+  size on the CPU (over the traffic file's; the configuration's toy
+  size is the tests' ``TOY_CONFIG``, which keeps its ``graph_shards``).
+- ``FAULTS``: the faults its cells can have, each refused by the check:
+  a name in ``faults.py``, or ``module:name``, the fault ``name`` of
+  that module's ``planted(name)`` (a mode's own: ``f"{__name__}:name"``).
+
+What a mode reads of the port over the metrics span (``ctx.span``'s
+first phase: ``ctx.span.open`` and ``ctx.span.phase == 0``), the port's
+counters (``graphsage_tpu_torch.trace.snapshot()``) or its drained
+spans, it puts in ``rec``: a reader sees ``rec`` as
+``view.info["record"]`` (``metrics/request_p95_ms.py`` reads the
+requests' latencies so). A later cell's readers then read new counters
+in files of their own.
+
 A cell whose ``chips`` is over 1 runs one process a card
 (``ranks.py``). Each rank's ``ctx.rank``, ``ctx.world`` and
 ``ctx.group`` (the process group: NCCL on cards, gloo on the CPU) are

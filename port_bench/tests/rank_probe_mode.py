@@ -17,8 +17,10 @@ Traffic keys:
   (``raise``), is killed (``kill``), hangs (``hang``) or loads a module
   named ``jax`` (``jax``).
 
-``planted("altered_row")`` is its fault: each rank but 0 sends one of
-its rows with one feature changed.
+``planted("altered_row")`` is its fault (``FAULTS``, named by this
+module's own name, whatever file it is copied to): each rank but 0
+sends one of its rows with one feature changed. ``TOY``: the toy size
+of the harness's tests.
 
 Every round of the window all-reduces one number, rank 0's word whether
 the window goes on, so that every rank runs as many; end to end:
@@ -40,6 +42,8 @@ import torch.distributed as dist
 from port_bench import inputs
 
 
+TOY = dict(probe_rows=200, trace_rounds=5)
+FAULTS = (f"{__name__}:altered_row",)
 ALTERED = []   # the planted fault, while it is planted
 
 

@@ -15,27 +15,50 @@ from port_bench import spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "graphsage_tpu")
 
-# In a fresh process: import every module of the harness and every
-# metric reader, run one toy cell of each mode with an audit hook that
-# records every file opened, and report the modules loaded.
+# Written as ``sitecustomize.py`` into a directory on ``PYTHONPATH``:
+# every process started with it, a cell's rank processes among them,
+# appends each path it opens to the file that PORT_BENCH_OPENED names.
+AUDIT = r"""
+import os, sys
+_fd = os.open(os.environ["PORT_BENCH_OPENED"],
+              os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+
+
+def _opened(ev, args):
+    if ev == "open" and args and isinstance(args[0], (str, bytes)):
+        os.write(_fd, os.fsencode(os.fsdecode(args[0]) + "\n"))
+
+
+sys.addaudithook(_opened)
+"""
+
+# In a fresh process, audited so: import every module of the harness
+# and every metric reader, run each cell at its toy size (a cell over
+# several cards over as many gloo ranks, in a checkout under
+# PORT_BENCH_CHECKOUTS, each rank checking its own modules), and report
+# the modules loaded.
 PROBE = r"""
-import importlib, json, pkgutil, sys
-opened = []
-sys.addaudithook(lambda ev, args: opened.append(str(args[0]))
-                 if ev == "open" and args and isinstance(args[0], str)
-                 else None)
+import importlib, json, os, pkgutil, sys
+from pathlib import Path
 import port_bench
-from port_bench import harness, spec
+from port_bench import harness, ranks, spec
 for m in pkgutil.walk_packages(port_bench.__path__, "port_bench."):
     if ".tests" not in m.name:
         importlib.import_module(m.name)
 bench = spec.benchmark()
 for m in bench["per_layer"]:
     spec.reader(m["name"])
-from port_bench.tests.conftest import toy
+from port_bench.tests.conftest import cell_checkout, toy
 for w in bench["workloads"]:
-    harness.run_cell(toy(w["name"]), 5, 0.1, True, "cpu")
-print(json.dumps({"loaded": sorted(sys.modules), "opened": opened}))
+    if w["chips"] == 1:
+        harness.run_cell(toy(w["name"]), 5, 0.1, True, "cpu")
+        continue
+    root = Path(os.environ["PORT_BENCH_CHECKOUTS"]) / w["name"]
+    root.mkdir()
+    r = ranks.launch(w["name"], 5, 0.3, True, w["chips"], device="cpu",
+                     root=cell_checkout(root, toy(w["name"])))
+    assert r is not None, f"{w['name']}: its ranks gave no result"
+print(json.dumps({"loaded": sorted(sys.modules)}))
 """
 
 
@@ -47,8 +70,14 @@ def _run(code: str, **env):
                           timeout=600)
 
 
-def test_harness_loads_no_jax_and_reads_no_benchmarks():
-    proc = _run(PROBE)
+def test_harness_loads_no_jax_and_reads_no_benchmarks(tmp_path):
+    (tmp_path / "audit").mkdir()
+    (tmp_path / "audit" / "sitecustomize.py").write_text(AUDIT)
+    (tmp_path / "checkouts").mkdir()
+    opened = tmp_path / "opened.txt"
+    proc = _run(PROBE, PYTHONPATH=str(tmp_path / "audit"),
+                PORT_BENCH_OPENED=str(opened),
+                PORT_BENCH_CHECKOUTS=str(tmp_path / "checkouts"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     bad = [m for m in seen["loaded"] if m.split(".")[0] in FORBIDDEN]
@@ -57,10 +86,15 @@ def test_harness_loads_no_jax_and_reads_no_benchmarks():
     assert not [m for m in seen["loaded"]
                 if m.startswith("graphsage_tpu_torch.benchmarks")
                 or m == "bench"]
-    root = str(spec.ROOT)
-    read = [p for p in seen["opened"] if p.startswith(root)
-            and (p.startswith(os.path.join(root, "benchmarks"))
-                 or p.endswith(os.sep + "bench.py"))]
+    # this checkout, the cells' checkouts, and the repo the port is in
+    roots = {str(spec.ROOT), str(tmp_path / "checkouts"),
+             str((spec.ROOT / "graphsage_tpu_torch").resolve().parent)}
+    paths = opened.read_text().splitlines()
+    assert any(p.endswith("harness.py") for p in paths)
+    read = [p for p in paths for q in {p, os.path.realpath(p)}
+            for root in roots if q.startswith(root)
+            and (q.startswith(os.path.join(root, "benchmarks"))
+                 or q.endswith(os.sep + "bench.py"))]
     assert read == []
 
 

@@ -7,6 +7,7 @@ several cards to the ranks."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -16,13 +17,14 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from xml.etree import ElementTree
 
 import pytest
 import torch
 import torch.distributed as dist
 
 from port_bench import harness, ranks, run, spec
-from port_bench.tests.conftest import TOY_CONFIG
+from port_bench.tests.conftest import TOY_CONFIG, harness_checkout
 
 SEED = 3_000_000_007
 LIMIT_S = 120.0      # a failed two-rank run ends inside this
@@ -30,15 +32,12 @@ CELL = "toy-ranks"
 
 
 def checkout(root: Path, traffic: dict, config: dict | None = None,
-             chips: int = 2) -> Path:
+             chips: int = 2, limit: float = 0, tests: bool = False) -> Path:
     """A checkout at ``root``: the harness, the port (linked), and cell
     ``CELL`` over ``chips`` ranks added as files alone, the test's mode
-    among them."""
-    base = root / spec.HERE.name
-    shutil.copytree(spec.HERE, base,
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    port = "graphsage_tpu_torch"
-    (root / port).symlink_to(spec.ROOT / port)
+    among them, each compared number's limit ``limit``; with ``tests``,
+    the harness's tests and the pytest settings too."""
+    base = harness_checkout(root, tests) / spec.HERE.name
     shutil.copy(spec.HERE / "tests" / "rank_probe_mode.py",
                 base / "modes" / "rank_probe.py")
     bench = spec.benchmark()
@@ -49,7 +48,7 @@ def checkout(root: Path, traffic: dict, config: dict | None = None,
     (base / "traffic" / "toy-probe.json").write_text(json.dumps(
         {"mode": "rank_probe", **traffic}))
     (base / "workloads" / f"{CELL}.json").write_text(json.dumps(
-        {"limits": {k: 0 for k, on in (("rows_differ", "probe_rows"),
+        {"limits": {k: limit for k, on in (("rows_differ", "probe_rows"),
                                         ("sum_gap", "whole_sum"))
                     if on in traffic}}))
     (base / "metrics" / "ranks_traced.toy.py").write_text(
@@ -148,6 +147,123 @@ def test_a_fault_planted_on_every_rank_is_refused(tmp_path, capsys):
     assert r["correct"] is False
     assert r["checks"]["rows_differ"]["value"] == 1
     assert "[rank 1] program control" in err
+
+
+def test_calibration_runs_a_cell_over_its_ranks(tmp_path):
+    """``calibrate readings`` makes each run through ``ranks.launch``: the
+    port's, the control's and each fault of the mode's ``FAULTS``,
+    planted on every rank."""
+    root = checkout(tmp_path, dict(probe_rows=200))
+    proc = subprocess.run(
+        [sys.executable, "-m", "port_bench.calibrate", "readings",
+         "--workload", CELL, "--seeds", str(SEED), "--control_seeds",
+         str(SEED), "--fault_seeds", str(SEED), "--seconds", "0.3",
+         "--device", "cpu"], cwd=root, env=_env(), capture_output=True,
+        text=True, timeout=LIMIT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert [(ln["program"], ln["fault"], ln["correct"]) for ln in lines] == [
+        ("port", None, True), ("control", None, True),
+        ("port", "port_bench.modes.rank_probe:altered_row", False)]
+    assert [ln["numbers"]["rows_differ"] for ln in lines] == [0, 0, 1]
+    assert "[rank 1] program control" in proc.stderr
+
+
+def test_calibration_records_no_reading_where_the_ranks_give_none(
+        tmp_path):
+    """A run over the ranks that gives no result (here a rank raises)
+    is no reading: ``correct`` null and no numbers, not a refusal."""
+    root = checkout(tmp_path, dict(whole_sum=True,
+                                   fail={"rank": 1, "how": "raise"}))
+    proc = subprocess.run(
+        [sys.executable, "-m", "port_bench.calibrate", "readings",
+         "--workload", CELL, "--control_seeds", str(SEED), "--seconds",
+         "0.3", "--device", "cpu"], cwd=root, env=_env(),
+        capture_output=True, text=True, timeout=LIMIT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert [(ln["program"], ln["correct"], ln["numbers"], ln["metrics"])
+            for ln in lines] == [("control", None, {}, {})]
+    assert "every rank killed, no result" in proc.stderr
+
+
+def _env() -> dict:
+    """This environment, with no ``PYTHONPATH``: a process in a checkout
+    imports the checkout's harness."""
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+
+def _digests(root: Path, paths) -> dict:
+    return {str(p): hashlib.sha256((root / p).read_bytes()).hexdigest()
+            for p in paths}
+
+
+# the harness's per-cell test modules, run in the checkout, and the
+# audit of what a cell's processes load and open
+PER_CELL = ["test_port_bench_runs.py", "test_port_bench_inputs.py",
+            "test_port_bench_counts.py", "test_port_bench_contract.py",
+            "test_port_bench_card.py", "test_port_bench_isolation.py"]
+
+
+def test_a_four_rank_cell_added_as_files_passes_the_harness_tests(tmp_path):
+    """A cell over four ranks added as files alone (its mode, a sharded
+    configuration, traffic, limits, a reader, its entries in
+    BENCHMARK.json) passes the harness's per-cell tests in the checkout,
+    on four gloo ranks: its toy runs, its mode's faults refused, its
+    control, its ranks' modules and opened files; the card's tests skip.
+    No file of the repo is changed. The cells the repo has are left out
+    of the run: their tests run in the repo."""
+    root = checkout(tmp_path / "checkout", dict(
+        probe_rows=1000, whole_sum=True, trace_after_s=0.0,
+        trace_rounds=20), chips=4, limit=0.5, tests=True)
+    had = [p.relative_to(spec.ROOT) for p in spec.HERE.rglob("*")
+           if p.is_file() and "__pycache__" not in p.parts]
+    had.append(Path("pyproject.toml"))
+    assert _digests(root, had) == _digests(spec.ROOT, had)
+    # BENCHMARK.json: every entry as it was, the cell's appended
+    bench = spec.benchmark(root)
+    for section, was in spec.benchmark().items():
+        if section in ("configs", "workloads", "end_to_end", "per_layer"):
+            assert bench[section][:len(was)] == was
+        else:
+            assert bench[section] == was
+
+    xml = tmp_path / "junit.xml"
+    theirs = " and ".join(f"not {w['name']}"
+                          for w in spec.benchmark()["workloads"])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", f"--junitxml={xml}", "-k", theirs,
+         *(f"port_bench/tests/{m}" for m in PER_CELL)],
+        cwd=root, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, out[-6000:]
+    assert rank_processes(proc.pid) == []
+    outcome = {}
+    for case in ElementTree.parse(xml).iter("testcase"):
+        kids = {k.tag for k in case}
+        outcome[case.get("name")] = ("skipped" if "skipped" in kids else
+                                     "failed" if kids & {"failure", "error"}
+                                     else "passed")
+    fault = "port_bench.modes.rank_probe:altered_row"
+    assert "failed" not in outcome.values(), out[-3000:]
+    assert outcome["test_harness_loads_no_jax_and_reads_no_benchmarks"] == (
+        "passed")
+    ours = {name: state for name, state in outcome.items() if CELL in name}
+    assert ours == {
+        f"test_cell_runs_at_a_toy_size[{CELL}-0]": "passed",
+        f"test_cell_runs_at_a_toy_size[{CELL}-1]": "passed",
+        f"test_planted_fault_is_refused[{CELL}-{fault}]": "passed",
+        f"test_control_runs_in_the_programs_place[{CELL}]": "passed",
+        f"test_inputs_are_the_seeds[{CELL}]": "passed",
+        f"test_param_shapes_are_the_ports[{CELL}]": "passed",
+        f"test_cell_is_correct_on_the_card[{CELL}]": "skipped",
+        f"test_control_is_refused_on_the_card[{CELL}]": "skipped",
+    }, out[-3000:]
 
 
 def test_a_refusal_after_the_start_kills_the_ranks(tmp_path, capsys):

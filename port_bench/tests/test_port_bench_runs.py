@@ -1,27 +1,44 @@
 """Each cell's driver at a toy size on the CPU, its result's keys; the
 faults the output check has to refuse; a cell, configuration and metric
-added as files alone; the open loop's schedule."""
+added as files alone; the open loop's schedule. A cell on one card runs
+in this process, a cell over several over as many gloo ranks, in a
+checkout that holds its files cut to the toy size."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 
 import numpy as np
 import pytest
 
-from port_bench import calibrate, faults, harness, spec
+from port_bench import calibrate, faults, harness, ranks, spec
 from port_bench.modes import requests
-from port_bench.tests.conftest import CELLS, TOY_CONFIG, toy
+from port_bench.tests.conftest import CELLS, TOY_CONFIG, cell_checkout, toy
 
 SEED = 3_000_000_007   # above 2**31: seeds take more than 32 bits
 
 
+def toy_run(name, root, trace=False, fault=None):
+    """Cell ``name`` at its toy size on the CPU, ``fault`` planted ->
+    (the toy cell, its result); over several ranks, in a checkout
+    written at ``root``."""
+    cell = toy(name)
+    if cell.chips > 1:
+        r = ranks.launch(name, SEED, 0.3, trace, cell.chips, device="cpu",
+                         root=cell_checkout(root, cell), fault=fault)
+        assert r is not None, f"{cell.chips} ranks gave no result"
+        return cell, r
+    with (contextlib.nullcontext() if fault is None
+          else faults.planted(fault)):
+        return cell, harness.run_cell(cell, SEED, 0.3, trace, "cpu")
+
+
 @pytest.mark.parametrize("trace", [0, 1])
 @pytest.mark.parametrize("name", CELLS)
-def test_cell_runs_at_a_toy_size(name, trace):
-    cell = toy(name)
-    r = harness.run_cell(cell, SEED, 0.3, bool(trace), "cpu")
+def test_cell_runs_at_a_toy_size(name, trace, tmp_path):
+    cell, r = toy_run(name, tmp_path, bool(trace))
     assert list(r)[:5] == ["correct", "attempted", "failed", "metrics",
                            "device"]
     assert list(r)[-1] == "checks"
@@ -41,20 +58,22 @@ def test_cell_runs_at_a_toy_size(name, trace):
 
 @pytest.mark.parametrize("name,fault", [
     (name, fault) for name in CELLS
-    for fault in faults.FOR_MODE[spec.cell(name).traffic["mode"]]])
-def test_planted_fault_is_refused(name, fault):
-    with faults.planted(fault):
-        r = harness.run_cell(toy(name), SEED, 0.3, False, "cpu")
+    for fault in spec.mode(spec.cell(name).traffic["mode"]).FAULTS])
+def test_planted_fault_is_refused(name, fault, tmp_path):
+    _, r = toy_run(name, tmp_path, fault=fault)
     assert r["correct"] is False
     assert any(c["value"] > c["limit"] for c in r["checks"].values())
 
 
 @pytest.mark.parametrize("name", CELLS)
-def test_control_runs_in_the_programs_place(name):
-    """The control's numbers come from the same harness; on the CPU there
-    is no TF32, so only the card's run (``test_port_bench_card``) can
-    show it refused."""
-    out = calibrate.readings(toy(name), [], [SEED], [], 0.2, "cpu")
+def test_control_runs_in_the_programs_place(name, tmp_path):
+    """The control's numbers come from the same harness (over several
+    ranks, from ``ranks.launch``); on the CPU there is no TF32, so only
+    the card's run (``test_port_bench_card``) can show it refused."""
+    cell = toy(name)
+    if cell.chips > 1:
+        cell = spec.cell(name, root=cell_checkout(tmp_path, cell))
+    out = calibrate.readings(cell, [], [SEED], [], 0.2, "cpu")
     assert out[0]["program"] == "control" and out[0]["numbers"]
 
 
